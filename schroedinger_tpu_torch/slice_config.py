@@ -1,0 +1,38 @@
+"""The port's slice: the encoder configuration and its input frames.
+
+`GopEncoder(video_format(w, h), device=..., **CONFIG)` is the
+fixed-quantiser backref long-GOP encode (quarter-pel MVs, MD5 aux
+units) that the smoke run, the profiler and the parity tests drive;
+`make_frames` makes their pan + noise input from a seed.
+"""
+from __future__ import annotations
+
+import numpy as np
+
+from schroedinger_tpu.video_format import ChromaFormat, VideoFormat
+
+CONFIG = dict(gop_structure="backref", bitrate=0, mv_precision=2,
+              enable_md5=True)
+
+
+def video_format(width, height):
+    """Progressive 8-bit 4:2:0 at 25 frames/s."""
+    return VideoFormat(width=width, height=height, clean_width=width,
+                       clean_height=height, chroma_format=ChromaFormat.C420,
+                       frame_rate_numerator=25, frame_rate_denominator=1)
+
+
+def make_frames(n, width, height, seed=0):
+    """n frames of 4:2:0 pan + noise (numpy default_rng(seed)): a smooth
+    luma pattern shifted 2 px right per frame plus N(0, 4) noise, fixed
+    chroma.  Returns [(y, u, v) u8 arrays]."""
+    rng = np.random.default_rng(seed)
+    yy, xx = np.mgrid[0:height, 0:width]
+    base_y = 128 + 64 * np.sin(xx / 37.0) * np.cos(yy / 23.0)
+    u = (128 + 24 * np.cos(xx[::2, ::2] / 31.0)).clip(0, 255).astype(
+        np.uint8)
+    v = (128 + 24 * np.sin(yy[::2, ::2] / 29.0)).clip(0, 255).astype(
+        np.uint8)
+    return [((np.roll(base_y, i * 2, axis=1)
+              + rng.normal(0, 4, (height, width))).clip(0, 255).astype(
+                  np.uint8), u, v) for i in range(n)]

@@ -22,3 +22,8 @@ def _release_compiled_programs():
     import schroedinger_tpu
 
     schroedinger_tpu.clear_compiled_caches()
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs an NVIDIA GPU (skips where there is none)")
