@@ -2,123 +2,191 @@
 
     python3 chip_smoke.py
 
-Phases (each prints a line; any failure ends the run with a non-zero exit
+Phases (each prints lines; any failure ends the run with a non-zero exit
 and no result line):
   0. the card's name and power limit (nvidia-smi); no CUDA -> fail
-  1. build the patch-refine kernel from csrc/ with nvcc
+  1. build the patch-refine kernel (with its probe variants) from csrc/
+     with nvcc, and the C++ entropy coder with g++
   2. kernel == plain version (torch.equal) at the four 1080p refine shapes
-     of one P picture, on random planes/MVs and on a flat all-tie plane;
-     both timed with CUDA events
-  3. the main path: a small stream encoded on the card must equal the
-     CPU encode byte for byte; then 8 frames of 1080p25 4:2:0 pan + noise
-     through the port's GopEncoder (backref, fixed quantisers, quarter-pel
-     MVs, MD5) and StreamDecoder on the card: 4 kernel launches per P
-     picture, 8 frames out, no MD5 failure, no picture error, luma PSNR
-     >= 30 dB
+     of one inter picture, on random planes/MVs and on a flat all-tie
+     plane; the kernel timed on the device alone (CUDA-graph replay) and
+     as the encoder launches it from Python, the plain version from
+     Python, beside the least time the card could take (the bytes the
+     function needs over its memory rate, its operations over its rate)
+  3. the backref path: a small stream encoded on the card must equal the
+     CPU encode byte for byte; then 4 frames of 1080p25 4:2:0 pan + noise
+     through GopEncoder(**CONFIG) (fixed quantisers, quarter-pel MVs, MD5)
+     and StreamDecoder on the card: 4 kernel launches per P picture, all
+     frames out, no MD5 failure, no picture error, luma PSNR >= 30 dB
+  4. the cost probe (tools/profile_patch_refine.py) at its geometry: the
+     `full` variant == plain, the four variants timed
+  5. the flagship path: a 128x64 CBR stream on the card within the bands
+     of the CPU encode (luma PSNR within 0.7 dB, bytes within 15 %; the
+     count of differing per-band quantiser picks is printed); a 6-frame
+     warm-up; 9 frames of 1080p through CONFIG_FLAGSHIP_DRAINING (1 Mbit/s,
+     reservoir half empty), where the lambda fit must bind on at least
+     one picture (target > 0, fitted scale < 0.99) and the stream must
+     decode clean; then 13 frames of 1080p25 4:2:0 through
+     GopEncoder(**CONFIG_FLAGSHIP) (biref, TM5 CBR at 8 Mbit/s, on-device
+     RD pick, MD5) and StreamDecoder: 13 frames in presentation order, at
+     least one two-reference P and six B pictures, 8 kernel launches per
+     two-reference picture and 4 per one-reference picture, no MD5
+     failure, no picture error, luma PSNR >= 30 dB on every frame, stream
+     bytes within 0.1x-4x of the pro-rata 13 * 8e6 / 25 / 8
 The last two lines are the nvidia-smi line and
 {"ok": true, "device": {...}}; the kernel summary JSON comes before them.
 """
 import json
-import subprocess
 import sys
 import time
 
 import numpy as np
 import torch
 
+from schroedinger_tpu_torch import bitstream as bs
+from schroedinger_tpu_torch.coding import native as coder
 from schroedinger_tpu_torch.decoder.core import StreamDecoder
 from schroedinger_tpu_torch.encoder import me as me_mod
 from schroedinger_tpu_torch.encoder.gop import GopEncoder
 from schroedinger_tpu_torch.ops import patch_refine as pr
-from schroedinger_tpu_torch.slice_config import (CONFIG, make_frames,
-                                                 video_format)
+from schroedinger_tpu_torch.slice_config import (CONFIG, CONFIG_FLAGSHIP,
+                                                 CONFIG_FLAGSHIP_DRAINING,
+                                                 make_frames, video_format)
+from schroedinger_tpu_torch.tools import profile_patch_refine as probe_tool
+from schroedinger_tpu_torch.tools.profile_patch_refine import (gpu_line,
+                                                               graph_ms,
+                                                               time_ms)
 
-MARGIN = me_mod.ME_BOUND_PEL + 2 * 8 + 16    # make_me_body, coarse radius 8
-RAD = 2
-# (level, nby, nbx, bs) of the four patch-refine launches of a 1080p P
-# picture (5-level pyramid on the 1088x1920 block grid)
-REFINE_SHAPES = [(3, 34, 60, 4), (2, 68, 120, 4), (1, 68, 120, 8),
-                 (0, 68, 120, 16)]
+RAD = probe_tool.RAD
+# the card's published peaks (NVIDIA H100 SXM data sheet): device memory
+# rate, and the float32 rate outside the tensor cores, which stands in for
+# the integer units' rate (the data sheet gives none; theirs is not higher)
+HBM_BYTES_PER_S = 3.35e12
+ALU_OPS_PER_S = 67e12
 
 
-def gpu_line() -> str:
-    res = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, timeout=60, check=True)
-    return res.stdout.strip().splitlines()[0]
+def refine_bound_ms(args):
+    """The least time the card could take for one patch_refine call on
+    these arguments.  Bytes: what the function needs, each read or
+    written once: per ME block its bs_y x bs_x current samples and its
+    (bs_y + 2rad) x (bs_x + 2rad) reference window at one byte a sample
+    (the samples are 8-bit, whatever type carries them), the two int32
+    hint fields in and the three int32 fields out, over the memory rate.
+    Operations: nb * (2rad+1)^2 * bs_y * bs_x absolute differences of
+    three operations (subtract, abs, add) over the ALU rate.  Returns
+    (ms, "bytes" or "operations")."""
+    _, _, _, _, nby, nbx, bs_y, bs_x, rad, _ = args
+    nb = nby * nbx
+    nbytes = (nb * bs_y * bs_x + nb * (bs_y + 2 * rad) * (bs_x + 2 * rad)
+              + 2 * nb * 4 + 3 * nb * 4)
+    ops = 3 * nb * (2 * rad + 1) ** 2 * bs_y * bs_x
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / ALU_OPS_PER_S * 1e3
+    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
 def refine_inputs(nby, nbx, bs, flat, dev, seed):
-    rng = np.random.default_rng(seed)
-    h, w = nby * bs, nbx * bs
-    if flat:
-        cur = np.full((h, w), 77, np.uint8)
-        ref = np.full((h, w), 90, np.uint8)
-    else:
-        cur = rng.integers(0, 256, (h, w)).astype(np.uint8)
-        ref = rng.integers(0, 256, (h, w)).astype(np.uint8)
-    bound = me_mod.ME_BOUND_PEL
-    mvy = rng.integers(-bound, bound + 1, (nby, nbx)).astype(np.int32)
-    mvx = rng.integers(-bound, bound + 1, (nby, nbx)).astype(np.int32)
-    cb = me_mod._to_blocks(torch.tensor(cur, device=dev).to(torch.int32),
-                           nby, bs, nbx, bs).contiguous()
-    P = me_mod._pad_ref(torch.tensor(ref, device=dev), MARGIN).contiguous()
-    return (cb, P, torch.tensor(mvy, device=dev),
-            torch.tensor(mvx, device=dev), nby, nbx, bs, bs, RAD, MARGIN)
+    """The probe tool's inputs with hints over the ME's whole range."""
+    return probe_tool.make_inputs(nby, nbx, bs, dev, seed=seed, flat=flat,
+                                  hint_bound=me_mod.ME_BOUND_PEL)
 
 
-def time_ms(fn, args, iters=20):
-    for _ in range(3):
-        fn(*args)
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn(*args)
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
+def assert_equal_outputs(got, want, what):
+    """torch.equal on (dy, dx, sad); returns the largest |difference|."""
+    worst = 0
+    for g, w_, name in zip(got, want, ("dy", "dx", "sad")):
+        err = int((g.to(torch.int64) - w_).abs().max())
+        worst = max(worst, err)
+        if not torch.equal(g, w_):
+            raise AssertionError(f"{what}: kernel {name} differs from "
+                                 f"plain (max |diff| {err})")
+    return worst
 
 
 def phase_kernel(card):
     """Kernel vs plain at the 1080p shapes; returns the summary entry."""
     dev = torch.device("cuda")
     max_err = 0
-    tot_k = tot_p = 0.0
-    for level, nby, nbx, bs in REFINE_SHAPES:
+    tot_dev = tot_call = tot_p = 0.0
+    bound = {"bytes": 0.0, "operations": 0.0}   # ms bound by each
+    for seed, (level, nby, nbx, bs) in enumerate(probe_tool.REFINE_SHAPES):
         for flat in (False, True):
-            args = refine_inputs(nby, nbx, bs, flat, dev, seed=level)
+            args = refine_inputs(nby, nbx, bs, flat, dev, seed)
             got = pr.patch_refine(*args)
             want = pr.patch_refine_plain(*args)
             torch.cuda.synchronize()
-            for g, w_, name in zip(got, want, ("dy", "dx", "sad")):
-                err = int((g.to(torch.int64) - w_).abs().max())
-                max_err = max(max_err, err)
-                if not torch.equal(g, w_):
-                    raise AssertionError(
-                        f"patch_refine level {level} "
-                        f"{'flat' if flat else 'random'}: kernel {name} "
-                        f"differs from plain (max |diff| {err})")
+            max_err = max(max_err, assert_equal_outputs(
+                got, want, f"patch_refine {level} "
+                           f"{'flat' if flat else 'random'}"))
             if flat:
                 assert torch.equal(got[0], args[2] - RAD), "tie order"
-        args = refine_inputs(nby, nbx, bs, False, dev, seed=level)
-        # turns: plain, kernel, kernel, plain
+        args = refine_inputs(nby, nbx, bs, False, dev, seed)
+        # turns: plain, kernel, kernel, plain.  Launched from Python a
+        # call costs what the host needs to enqueue it; the graph replay
+        # leaves the kernel's own time on the device, which is what the
+        # bound speaks of
         p1 = time_ms(pr.patch_refine_plain, args)
-        k1 = time_ms(pr.patch_refine, args)
-        k2 = time_ms(pr.patch_refine, args)
+        c1, d1 = time_ms(pr.patch_refine, args), graph_ms(pr.patch_refine,
+                                                          args)
+        c2, d2 = time_ms(pr.patch_refine, args), graph_ms(pr.patch_refine,
+                                                          args)
         p2 = time_ms(pr.patch_refine_plain, args)
-        k_ms, p_ms = (k1 + k2) / 2, (p1 + p2) / 2
-        tot_k += k_ms
+        dev_ms, call_ms, p_ms = (d1 + d2) / 2, (c1 + c2) / 2, (p1 + p2) / 2
+        b_ms, by = refine_bound_ms(args)
+        bound[by] += b_ms
+        tot_dev += dev_ms
+        tot_call += call_ms
         tot_p += p_ms
-        print(f"phase2 patch_refine level {level} ({nby}x{nbx} blocks of "
+        print(f"phase2 patch_refine {level} ({nby}x{nbx} blocks of "
               f"{bs}x{bs}, rad {RAD}): kernel == plain on random and flat; "
-              f"kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms [{card}]",
-              flush=True)
+              f"kernel {dev_ms:.4f} ms on the device, {call_ms:.4f} ms "
+              f"launched from Python, plain {p_ms:.4f} ms, bound "
+              f"{b_ms:.5f} ms by {by} [{card}]", flush=True)
     return {"name": "patch_refine", "route": "cuda",
             "source": "schroedinger_tpu_torch/csrc/patch_refine.cu",
             "replaces": "schroedinger_tpu/ops/pallas_me.py:71",
             "launches": None, "max_abs_err": max_err,
-            "ms": tot_k, "plain_ms": tot_p}
+            # the four launches of one reference of one inter picture:
+            # device time, and the time of the calls as the encoder makes
+            # them
+            "ms": tot_dev, "call_ms": tot_call, "plain_ms": tot_p,
+            "bound_ms": sum(bound.values()),
+            "bound_by": max(bound, key=bound.get),
+            # no single PyTorch call computes a gather of windows, 25
+            # SADs and a first-minimum argmin
+            "library_ms": None}
+
+
+def phase_probe(card):
+    """The cost probe's path at its own geometry; returns its entry."""
+    dev = torch.device("cuda")
+    name, nby, nbx, bs = probe_tool.PROBE_SHAPE
+    args = probe_tool.make_inputs(nby, nbx, bs, dev)
+    got = pr.patch_refine_probe("full", *args)
+    want = pr.patch_refine_plain(*args)
+    torch.cuda.synchronize()
+    max_err = assert_equal_outputs(got, want, "probe variant full")
+    plain_ms = time_ms(pr.patch_refine_plain, args)
+    pr.PROBE_LAUNCHES = 0
+    times, device_times = probe_tool.probe(nby, nbx, bs, dev)
+    launches = pr.PROBE_LAUNCHES
+    if launches == 0:
+        raise AssertionError("the probe launched no kernel")
+    b_ms, by = refine_bound_ms(args)
+    print(f"phase4 probe ({nby}x{nbx} blocks of {bs}x{bs}, rad {RAD}): "
+          f"full == plain; launched from Python (on the device alone): "
+          + ", ".join(f"{v} {t:.4f} ({device_times[v]:.4f}) ms"
+                      for v, t in times.items())
+          + f"; plain {plain_ms:.4f} ms, bound {b_ms:.5f} ms by {by}; "
+          f"{launches} launches [{card}]", flush=True)
+    return {"name": "patch_refine_probe", "route": "cuda",
+            "source": "schroedinger_tpu_torch/csrc/patch_refine.cu",
+            "replaces": "tools/profile_pk_parts.py:113",
+            "launches": launches, "max_abs_err": max_err,
+            "ms": device_times["full"], "call_ms": times["full"],
+            "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": by,
+            "library_ms": None, "variants_ms": device_times,
+            "variants_call_ms": times}
 
 
 def psnr(a, b):
@@ -126,8 +194,44 @@ def psnr(a, b):
     return 99.0 if mse == 0 else 10 * np.log10(255.0 ** 2 / mse)
 
 
-def phase_slice(card):
-    """The port's encode + decode on the card; returns kernel launches."""
+def check_decoded(out, frames, dec, what):
+    """Shapes, MD5, errors and luma PSNR >= 30 dB; returns the PSNRs."""
+    if len(out) != len(frames):
+        raise AssertionError(f"{what}: decoded {len(out)} frames, "
+                             f"expected {len(frames)}")
+    if dec.md5_failures or dec.errors:
+        raise AssertionError(f"{what}: md5_failures={dec.md5_failures} "
+                             f"errors={dec.errors}")
+    for planes, src in zip(out, frames):
+        for got, want in zip(planes, src):
+            if got.shape != want.shape or got.dtype != np.uint8:
+                raise AssertionError(f"{what}: plane {got.shape} "
+                                     f"{got.dtype}")
+    vals = [psnr(o[0], f[0]) for o, f in zip(out, frames)]
+    if min(vals) < 30.0:
+        raise AssertionError(f"{what}: luma PSNR {min(vals):.2f} dB < 30")
+    return vals
+
+
+def run_on_card(vf, config, frames):
+    """Encode and decode on the card, timed on the host around a
+    synchronise.  Returns (encoder, stream, decoder, frames out,
+    encode seconds, decode seconds)."""
+    enc = GopEncoder(vf, device="cuda", **config)
+    t0 = time.perf_counter()
+    stream = enc.encode_stream(frames)
+    torch.cuda.synchronize()
+    t_enc = time.perf_counter() - t0
+    dec = StreamDecoder(device="cuda")
+    t0 = time.perf_counter()
+    out = dec.decode_stream(stream)
+    torch.cuda.synchronize()
+    t_dec = time.perf_counter() - t0
+    return enc, stream, dec, out, t_enc, t_dec
+
+
+def phase_backref(card):
+    """The backref encode + decode on the card; returns kernel launches."""
     # a small stream on the card equals the CPU encode (the CPU path is
     # the one the parity tests hold to the JAX package)
     small = make_frames(4, 128, 64)
@@ -141,7 +245,7 @@ def phase_slice(card):
     print(f"phase3 128x64 x4 stream on cuda == CPU encode "
           f"({len(s_gpu)} bytes)", flush=True)
 
-    W, H, N = 1920, 1080, 8
+    W, H, N = 1920, 1080, 4
     vf = video_format(W, H)
     frames = make_frames(N, W, H)
     # warm-up: one I + one P at full size (allocator, library init)
@@ -149,16 +253,7 @@ def phase_slice(card):
     torch.cuda.synchronize()
 
     pr.LAUNCHES = 0
-    enc = GopEncoder(vf, device="cuda", **CONFIG)
-    t0 = time.perf_counter()
-    stream = enc.encode_stream(frames)
-    torch.cuda.synchronize()
-    t_enc = time.perf_counter() - t0
-    dec = StreamDecoder(device="cuda")
-    t0 = time.perf_counter()
-    out = dec.decode_stream(stream)
-    torch.cuda.synchronize()
-    t_dec = time.perf_counter() - t0
+    enc, stream, dec, out, t_enc, t_dec = run_on_card(vf, CONFIG, frames)
     launches = pr.LAUNCHES
 
     n_p = sum(1 for f in enc.stats.frames if not f["intra"])
@@ -168,20 +263,141 @@ def phase_slice(card):
     if launches != 4 * n_p or n_p == 0:
         raise AssertionError(f"expected 4 launches per P picture "
                              f"({4 * n_p}), counted {launches}")
-    if len(out) != N:
-        raise AssertionError(f"decoded {len(out)} frames, expected {N}")
-    if dec.md5_failures or dec.errors:
-        raise AssertionError(f"md5_failures={dec.md5_failures} "
-                             f"errors={dec.errors}")
-    for planes, (y, u, v) in zip(out, frames):
-        for got, src in zip(planes, (y, u, v)):
-            if got.shape != src.shape or got.dtype != np.uint8:
-                raise AssertionError(f"plane {got.shape} {got.dtype}")
-    vals = [psnr(o[0], f[0]) for o, f in zip(out, frames)]
-    if min(vals) < 30.0:
-        raise AssertionError(f"luma PSNR {min(vals):.2f} dB < 30")
+    vals = check_decoded(out, frames, dec, "phase3")
     print(f"phase3 1080p25 4:2:0 x{N}: {len(stream)} bytes, luma PSNR "
           f"mean {np.mean(vals):.3f} min {min(vals):.3f} dB, "
+          f"md5_failures=[] errors=[]; encode {N / t_enc:.3f} frames/s, "
+          f"decode {N / t_dec:.3f} frames/s [{card}]", flush=True)
+    return launches
+
+
+def picture_kinds(stream):
+    """[(picture number, number of references, is reference)] of the
+    stream's picture units, in coded order."""
+    kinds = []
+    for code, payload in bs.split_units(stream):
+        if bs.is_picture(code):
+            kinds.append((int.from_bytes(payload[:4], "big"),
+                          bs.num_refs(code), bs.is_reference(code)))
+    return kinds
+
+
+def fit_summary(enc):
+    """(pictures whose RD pick ran the lambda fit, those where it bound,
+    the smallest fitted scale) from the encoder's picture records."""
+    fitted = [f for f in enc.stats.frames if (f.get("target_bits") or 0) > 0]
+    bound = [f for f in fitted if f["lam_scale"] < 0.99]
+    return (len(fitted), len(bound),
+            min((f["lam_scale"] for f in fitted), default=1.0))
+
+
+def phase_draining(card, vf, frames):
+    """The flagship with a draining reservoir at 1080p: the 22-step
+    lambda fit must run and bind, and the stream must decode clean."""
+    enc, stream, dec, out, t_enc, _ = run_on_card(
+        vf, CONFIG_FLAGSHIP_DRAINING, frames)
+    for f in enc.stats.frames:
+        if not f["intra"]:
+            print(f"phase5 draining picture {f['frame']:2d} "
+                  f"{'B' if f['b_picture'] else 'P'}: {f['bits'] // 8} "
+                  f"bytes, fit target {f['target_bits']:.0f} bits, fitted "
+                  f"scale {f['lam_scale']:.6g}, reservoir "
+                  f"{f['buffer_level']:.0f} bits", flush=True)
+    n_fit, n_bound, s_min = fit_summary(enc)
+    vals = check_decoded(out, frames, dec, "phase5 draining")
+    print(f"phase5 draining 1080p x{len(frames)} at "
+          f"{CONFIG_FLAGSHIP_DRAINING['bitrate']} bit/s: {len(stream)} "
+          f"bytes, luma PSNR mean {np.mean(vals):.3f} min {min(vals):.3f} "
+          f"dB; the lambda fit ran on {n_fit} pictures and bound on "
+          f"{n_bound} (smallest scale {s_min:.6g}); encode "
+          f"{len(frames) / t_enc:.3f} frames/s [{card}]", flush=True)
+    if n_bound < 1:
+        raise AssertionError("phase5 draining: the lambda fit bound on no "
+                             "picture")
+
+
+def phase_flagship(card):
+    """The flagship biref CBR encode + decode on the card; returns kernel
+    launches of the 13-frame run."""
+    # 128x64 on the card against the CPU: float sums differ between the
+    # two, so the streams are held in bands, not bytes.  The bitrate is
+    # cut to 500 kbit/s so that the controller binds at this size.
+    small = make_frames(9, 128, 64)
+    cfg = dict(CONFIG_FLAGSHIP, bitrate=500_000)
+    vf_s = video_format(128, 64)
+    e_cpu = GopEncoder(vf_s, device="cpu", **cfg)
+    s_cpu = e_cpu.encode_stream(small)
+    d_cpu = StreamDecoder(device="cpu")
+    o_cpu = d_cpu.decode_stream(s_cpu)
+    e_gpu, s_gpu, d_gpu, o_gpu, _, _ = run_on_card(vf_s, cfg, small)
+    p_cpu = np.mean(check_decoded(o_cpu, small, d_cpu, "phase5 128x64 cpu"))
+    p_gpu = np.mean(check_decoded(o_gpu, small, d_gpu, "phase5 128x64 cuda"))
+    picks = differing = 0
+    for a, b in zip(e_cpu.stats.frames, e_gpu.stats.frames):
+        if a["frame"] != b["frame"]:
+            raise AssertionError("phase5 128x64: coded order differs")
+        picks += len(a["qi_bands"])
+        differing += sum(x != y for x, y in zip(a["qi_bands"],
+                                                b["qi_bands"]))
+    print(f"phase5 128x64 x9 flagship at 500 kbit/s: cuda {len(s_gpu)} "
+          f"bytes {p_gpu:.3f} dB, cpu {len(s_cpu)} bytes {p_cpu:.3f} dB; "
+          f"{differing} of {picks} per-band picks differ; streams "
+          f"{'equal' if s_gpu == s_cpu else 'differ'}; the lambda fit ran "
+          f"on {fit_summary(e_gpu)[0]} pictures", flush=True)
+    if abs(p_gpu - p_cpu) >= 0.7:
+        raise AssertionError(f"phase5 128x64: PSNR {p_gpu:.3f} vs "
+                             f"{p_cpu:.3f} dB")
+    if abs(len(s_gpu) - len(s_cpu)) >= 0.15 * len(s_cpu):
+        raise AssertionError(f"phase5 128x64: {len(s_gpu)} vs "
+                             f"{len(s_cpu)} bytes")
+
+    W, H, N = 1920, 1080, 13
+    vf = video_format(W, H)
+    frames = make_frames(N, W, H)
+    # warm-up: I, P, 3 B and one more picture at full size
+    GopEncoder(vf, device="cuda", **CONFIG_FLAGSHIP).encode_stream(
+        frames[:6])
+    torch.cuda.synchronize()
+    phase_draining(card, vf, frames[:9])
+
+    pr.LAUNCHES = 0
+    enc, stream, dec, out, t_enc, t_dec = run_on_card(vf, CONFIG_FLAGSHIP,
+                                                      frames)
+    launches = pr.LAUNCHES
+
+    for f in enc.stats.frames:
+        kind = "I" if f["intra"] else "B" if f.get("b_picture") else "P"
+        lam = f.get("base_lambda")
+        print(f"phase5 picture {f['frame']:2d} {kind}: {f['bits'] // 8} "
+              f"bytes, base lambda "
+              f"{'n/a' if lam is None else format(lam, '.6g')}, reservoir "
+              f"{f['buffer_level']:.0f} bits", flush=True)
+    kinds = picture_kinds(stream)
+    n1 = sum(1 for _, r, _ in kinds if r == 1)
+    n2 = sum(1 for _, r, _ in kinds if r == 2)
+    n_p2 = sum(1 for _, r, is_ref in kinds if r == 2 and is_ref)
+    n_b = sum(1 for _, r, is_ref in kinds if r == 2 and not is_ref)
+    print(f"phase5 coded {len(kinds) - n1 - n2} I, {n1} one-reference P, "
+          f"{n_p2} two-reference P, {n_b} B; patch_refine launches "
+          f"{launches}", flush=True)
+    if n_p2 < 1 or n_b < 6:
+        raise AssertionError(f"expected >= 1 two-reference P and >= 6 B "
+                             f"pictures, got {n_p2} and {n_b}")
+    if launches != 8 * n2 + 4 * n1:
+        raise AssertionError(f"expected 8 launches per two-reference and 4 "
+                             f"per one-reference picture "
+                             f"({8 * n2 + 4 * n1}), counted {launches}")
+    vals = check_decoded(out, frames, dec, "phase5")
+    share = N * CONFIG_FLAGSHIP["bitrate"] / CONFIG_FLAGSHIP["fps"] / 8
+    if not 0.1 * share <= len(stream) <= 4 * share:
+        raise AssertionError(f"phase5: {len(stream)} bytes outside 0.1x-4x "
+                             f"of the pro-rata {share:.0f}")
+    print(f"phase5 1080p25 4:2:0 x{N} biref CBR: the lambda fit ran on "
+          f"{fit_summary(enc)[0]} pictures (the reservoir stays full: the "
+          f"draining run above drives it)", flush=True)
+    print(f"phase5 1080p25 4:2:0 x{N} biref CBR: {len(stream)} bytes "
+          f"({len(stream) / share:.3f} of the pro-rata {share:.0f}), luma "
+          f"PSNR mean {np.mean(vals):.3f} min {min(vals):.3f} dB, "
           f"md5_failures=[] errors=[]; encode {N / t_enc:.3f} frames/s, "
           f"decode {N / t_dec:.3f} frames/s [{card}]", flush=True)
     return launches
@@ -201,11 +417,14 @@ def main() -> int:
     for line in pr.BUILD_LOG.splitlines():
         if "registers" in line or "spill" in line or "smem" in line:
             print(f"phase1 ptxas: {line.strip()}", flush=True)
+    print(f"phase1 built {coder.build()}", flush=True)
 
     entry = phase_kernel(card)
-    entry["launches"] = phase_slice(card)
+    entry["launches_backref"] = phase_backref(card)
+    probe_entry = phase_probe(card)
+    entry["launches"] = phase_flagship(card)
 
-    print(json.dumps({"kernels": [entry]}), flush=True)
+    print(json.dumps({"kernels": [entry, probe_entry]}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

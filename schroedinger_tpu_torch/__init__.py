@@ -3,12 +3,12 @@
 A port of `schroedinger_tpu` (the JAX reference package) to PyTorch, with
 the ME patch-refine search as a hand-written CUDA kernel for Hopper
 (`csrc/patch_refine.cu`).  Module paths mirror the JAX package's.  The
-jax-free host modules of the JAX package (params, tables, bitstream, the
-C++ arith/VLC/MV coder and MD5) are shared unchanged.
+port keeps its own copy of that package's host modules (params, tables,
+bitstream, the C++ arith/VLC/MV coder and MD5 under `coding/native/`).
 
-This package imports `torch` and never `jax`.  Every tensor function runs
-on the device of its inputs; the encoder and decoder take an explicit
-`device`.
+This package imports `torch`, never `jax` and nothing of the JAX package.
+Every tensor function runs on the device of its inputs; the entry points
+take a `device` and run on the card unless the caller asks for the CPU.
 """
 
-__version__ = "0.1.0"
+__version__ = "0.2.0"

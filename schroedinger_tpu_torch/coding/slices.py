@@ -1,11 +1,12 @@
 """Subband pyramid <-> flat layouts (torch twins of
 `schroedinger_tpu/coding/slices.py` subband_arrays / arrays_to_pyramid /
-flatten_pyramid; the host-only helpers there are shared unchanged)."""
+flatten_pyramid and unflatten_host; the low-delay slice helpers there
+are not ported yet)."""
 from __future__ import annotations
 
 import torch
 
-from schroedinger_tpu.params import subband_count, subband_info
+from schroedinger_tpu_torch.params import subband_count, subband_info
 
 
 def subband_arrays(pyr, depth: int):

@@ -28,6 +28,21 @@
 // [0, Ph - round8(bs_y + 2*rad)], the same in x), so kernel and plain
 // version agree even for hints outside the |mv| <= margin - rad contract.
 //
+// Cost probe (replaces the TPU probe tools/profile_pk_parts.py:113, which
+// timed that kernel's DMA, lane roll and SAD loop apart): the kernel is a
+// template on kProbe, and patch_refine_probe_launch runs one of four
+// variants so that their times split this kernel's time into ITS parts.
+// Only kFull gives right answers:
+//   kFull       the kernel as the encoder runs it
+//   kNoStage    no global-to-shared load of the reference window: the SAD
+//               loop runs over whatever shared memory holds (full - nostage
+//               = window staging)
+//   kNoSad      stage, then one candidate only, then reduce (full - nosad =
+//               24 of the 25 SAD loops)
+//   kOneWindow  every warp stages the window of block 0, so the reference
+//               reads hit cache (full - onewindow = device-memory misses of
+//               the window reads)
+//
 // Build (plain C interface, loaded with ctypes):
 //   nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared -Xcompiler -fPIC
 #include <cstdint>
@@ -37,6 +52,8 @@ namespace {
 
 constexpr int kWarpsPerBlock = 4;
 
+enum Probe { kFull = 0, kNoStage = 1, kNoSad = 2, kOneWindow = 3 };
+
 __host__ __device__ inline int round8(int n) { return (n + 7) / 8 * 8; }
 
 __host__ __device__ inline int warp_slice_bytes(int bs_y, int bs_x, int rad) {
@@ -44,6 +61,7 @@ __host__ __device__ inline int warp_slice_bytes(int bs_y, int bs_x, int rad) {
   return bs_y * bs_x * 4 + ((win + 15) & ~15);
 }
 
+template <int kProbe>
 __global__ void patch_refine_kernel(
     const int32_t* __restrict__ cur, const uint8_t* __restrict__ P,
     const int32_t* __restrict__ mvy, const int32_t* __restrict__ mvx,
@@ -71,20 +89,27 @@ __global__ void patch_refine_kernel(
   const int mx = mvx[b];
   int oy = i * bs_y + margin - rad + my;
   int ox = j * bs_x + margin - rad + mx;
+  if (kProbe == kOneWindow) {
+    oy = margin - rad + mvy[0];
+    ox = margin - rad + mvx[0];
+  }
   oy = min(max(oy, 0), Ph - round8(wh));
   ox = min(max(ox, 0), Pw - round8(ww));
 
   const int32_t* cur_b = cur + static_cast<size_t>(b) * npix;
   for (int t = lane; t < npix; t += 32) cur_s[t] = cur_b[t];
-  for (int t = lane; t < wh * ww; t += 32) {
-    const int r = t / ww;
-    const int c = t - r * ww;
-    win_s[t] = P[static_cast<size_t>(oy + r) * Pw + ox + c];
+  if (kProbe != kNoStage) {
+    for (int t = lane; t < wh * ww; t += 32) {
+      const int r = t / ww;
+      const int c = t - r * ww;
+      win_s[t] = P[static_cast<size_t>(oy + r) * Pw + ox + c];
+    }
   }
   __syncwarp();
 
   unsigned long long best = ~0ull;
-  for (int cand = lane; cand < K * K; cand += 32) {
+  const int ncand = kProbe == kNoSad ? 1 : K * K;
+  for (int cand = lane; cand < ncand; cand += 32) {
     const int a = cand / K;
     const int bb = cand - a * K;
     int s = 0;
@@ -110,6 +135,24 @@ __global__ void patch_refine_kernel(
   }
 }
 
+template <int kProbe>
+int launch(const void* cur, const void* P, const void* mvy, const void* mvx,
+           void* dy, void* dx, void* sad, int nby, int nbx, int bs_y,
+           int bs_x, int rad, int margin, int Ph, int Pw, void* stream) {
+  const int nb = nby * nbx;
+  if (nb <= 0) return 0;
+  const size_t smem =
+      static_cast<size_t>(kWarpsPerBlock) * warp_slice_bytes(bs_y, bs_x, rad);
+  const dim3 grid((nb + kWarpsPerBlock - 1) / kWarpsPerBlock);
+  patch_refine_kernel<kProbe><<<grid, 32 * kWarpsPerBlock, smem,
+                                static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int32_t*>(cur), static_cast<const uint8_t*>(P),
+      static_cast<const int32_t*>(mvy), static_cast<const int32_t*>(mvx),
+      static_cast<int32_t*>(dy), static_cast<int32_t*>(dx),
+      static_cast<int32_t*>(sad), nby, nbx, bs_y, bs_x, rad, margin, Ph, Pw);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // Launches on `stream`; returns cudaGetLastError() (0 = launched).
@@ -119,16 +162,33 @@ extern "C" int patch_refine_launch(const void* cur, const void* P,
                                    int nbx, int bs_y, int bs_x, int rad,
                                    int margin, int Ph, int Pw,
                                    void* stream) {
-  const int nb = nby * nbx;
-  if (nb <= 0) return 0;
-  const size_t smem =
-      static_cast<size_t>(kWarpsPerBlock) * warp_slice_bytes(bs_y, bs_x, rad);
-  const dim3 grid((nb + kWarpsPerBlock - 1) / kWarpsPerBlock);
-  patch_refine_kernel<<<grid, 32 * kWarpsPerBlock, smem,
-                        static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int32_t*>(cur), static_cast<const uint8_t*>(P),
-      static_cast<const int32_t*>(mvy), static_cast<const int32_t*>(mvx),
-      static_cast<int32_t*>(dy), static_cast<int32_t*>(dx),
-      static_cast<int32_t*>(sad), nby, nbx, bs_y, bs_x, rad, margin, Ph, Pw);
-  return static_cast<int>(cudaGetLastError());
+  return launch<kFull>(cur, P, mvy, mvx, dy, dx, sad, nby, nbx, bs_y, bs_x,
+                       rad, margin, Ph, Pw, stream);
+}
+
+// The cost probe: the same launch for variant 0..3 (Probe above); -1 for
+// another value.  Only variant 0 writes right answers.
+extern "C" int patch_refine_probe_launch(int variant, const void* cur,
+                                         const void* P, const void* mvy,
+                                         const void* mvx, void* dy, void* dx,
+                                         void* sad, int nby, int nbx,
+                                         int bs_y, int bs_x, int rad,
+                                         int margin, int Ph, int Pw,
+                                         void* stream) {
+  switch (variant) {
+    case kFull:
+      return launch<kFull>(cur, P, mvy, mvx, dy, dx, sad, nby, nbx, bs_y,
+                           bs_x, rad, margin, Ph, Pw, stream);
+    case kNoStage:
+      return launch<kNoStage>(cur, P, mvy, mvx, dy, dx, sad, nby, nbx, bs_y,
+                              bs_x, rad, margin, Ph, Pw, stream);
+    case kNoSad:
+      return launch<kNoSad>(cur, P, mvy, mvx, dy, dx, sad, nby, nbx, bs_y,
+                            bs_x, rad, margin, Ph, Pw, stream);
+    case kOneWindow:
+      return launch<kOneWindow>(cur, P, mvy, mvx, dy, dx, sad, nby, nbx,
+                                bs_y, bs_x, rad, margin, Ph, Pw, stream);
+    default:
+      return -1;
+  }
 }

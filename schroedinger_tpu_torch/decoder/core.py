@@ -1,11 +1,14 @@
 """Dirac stream decoder: intra + inter (long-GOP) pictures, in PyTorch.
 
 Port of `schroedinger_tpu/decoder/core.py`.  Per picture: parse and MV
-entropy decode (host, shared native C++) -> residual decode (host native
-C++) -> inverse wavelet (device) -> OBMC render (device, patch path) ->
-combine -> reference bookkeeping.  Reference pictures stay on the device
-as u8 tensors with their half-pel planes; decoded frames come back to the
-host as numpy u8 planes.
+entropy decode (host, native C++) -> residual decode (host, native C++)
+-> inverse wavelet (device) -> OBMC render from one or two references
+(device, patch path) -> combine -> reference bookkeeping in decode order
+(a reference picture enters the buffer, then retires the picture its
+header names).  Reference pictures stay on the device as u8 tensors with
+their half-pel planes; decoded frames come back to the host as numpy u8
+planes, sorted into presentation order (B pictures are coded after the
+reference that follows them).
 
 Not ported yet: the VC-2 low-delay profile, no-arith residuals, and the
 per-pixel gather render (global motion, |mv| > MV_BOUND_PEL) — a stream
@@ -20,13 +23,14 @@ import numpy as np
 import torch
 from torch.profiler import record_function
 
-from schroedinger_tpu import bitstream as bs
-from schroedinger_tpu.coding import native as _native
-from schroedinger_tpu.coding.bitio import BitReader
-from schroedinger_tpu.params import Params
-from schroedinger_tpu.video_format import VideoFormat
-from schroedinger_tpu.wavelets import Wavelet
+from schroedinger_tpu_torch import bitstream as bs
+from schroedinger_tpu_torch.coding import native as _native
+from schroedinger_tpu_torch.coding.bitio import BitReader
+from schroedinger_tpu_torch.params import Params
+from schroedinger_tpu_torch.video_format import VideoFormat
+from schroedinger_tpu_torch.wavelets import Wavelet
 from schroedinger_tpu_torch.decoder import intra as di
+from schroedinger_tpu_torch.devices import resolve_device
 from schroedinger_tpu_torch.ops import obmc
 
 _MV_FIELDS = ("dx1", "dy1", "dx2", "dy2", "pred_mode", "dc0", "dc1", "dc2")
@@ -129,19 +133,21 @@ def read_block_data_buffers(r: BitReader, payload: bytes, num_refs: int):
 
 
 def decode_residual(payload_reader: BitReader, payload: bytes, p: Params,
-                    device="cpu"):
+                    device=None):
     """Decode transform data -> list of 3 s16 iwt-sized residual tensors
-    (host entropy decode, inverse wavelet on `device`)."""
+    (host entropy decode, inverse wavelet on `device`; None: the card)."""
+    device = resolve_device(device)
     return [di.bands_to_plane(bands, p, device)
             for bands in di.decode_bands(payload_reader, payload, p)]
 
 
 class StreamDecoder:
     """Decodes a full Dirac stream; returns frames in presentation order
-    as (y, u, v) numpy u8 planes.  All tensor work runs on `device`."""
+    as (y, u, v) numpy u8 planes.  All tensor work runs on `device`: the
+    card when None (an error where there is none), the CPU on request."""
 
-    def __init__(self, device="cpu"):
-        self.device = torch.device(device)
+    def __init__(self, device=None):
+        self.device = resolve_device(device)
         self.vf: Optional[VideoFormat] = None
         self.refs: Dict[int, RefFrame] = {}
         self._pending_md5: Optional[bytes] = None

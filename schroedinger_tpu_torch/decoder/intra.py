@@ -1,9 +1,9 @@
 """Dirac intra picture decoder (arith residuals).
 
 Port of `schroedinger_tpu/decoder/intra.py` `decode_picture`: per-subband
-lengths/quant indices and codeblock decode on the host (shared native
-C++), DC prediction of band 0 on the host, the inverse wavelet on the
-caller's device.
+lengths/quant indices and codeblock decode on the host (native C++), DC
+prediction of band 0 on the host, the inverse wavelet on the caller's
+device.
 """
 from __future__ import annotations
 
@@ -11,10 +11,11 @@ import numpy as np
 import torch
 from torch.profiler import record_function
 
-from schroedinger_tpu.coding import subband as sb
-from schroedinger_tpu.coding.bitio import BitReader
-from schroedinger_tpu.params import Params, subband_count, subband_position
+from schroedinger_tpu_torch.coding import subband as sb
+from schroedinger_tpu_torch.coding.bitio import BitReader
+from schroedinger_tpu_torch.params import Params, subband_count, subband_position
 from schroedinger_tpu_torch.coding import slices as sl
+from schroedinger_tpu_torch.devices import resolve_device
 from schroedinger_tpu_torch.decoder.lowdelay import (_inverse, _to_u8,
                                                      dc_predict_integrate)
 from schroedinger_tpu_torch.encoder.intra import _codeblock_counts
@@ -76,9 +77,11 @@ def bands_to_plane(bands, p: Params, device):
     return _inverse(pyr, p.wavelet_filter_index)
 
 
-def decode_picture(payload: bytes, p: Params, device="cpu"):
+def decode_picture(payload: bytes, p: Params, device=None):
     """Decode intra transform data (payload starts at the first subband,
-    byte aligned). Returns (y, u, v) uint8 tensors on `device`."""
+    byte aligned). Returns (y, u, v) uint8 tensors on `device` (None: the
+    card)."""
+    device = resolve_device(device)
     if p.video_format.bit_depth != 8:
         raise NotImplementedError("deep (>8-bit) intra decode is not ported")
     pic_sizes = [p.video_format.picture_luma_size(),

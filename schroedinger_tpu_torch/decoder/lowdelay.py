@@ -7,7 +7,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from schroedinger_tpu.coding import native as _native
+from schroedinger_tpu_torch.coding import native as _native
 from schroedinger_tpu_torch.ops import wavelet as wv
 
 

@@ -1,19 +1,27 @@
-"""Long-GOP encoder: IPPP (backref) GOP at fixed quantisers.
+"""Long-GOP encoder: GOP structure, reference management, rate control.
 
-Port of `schroedinger_tpu/encoder/gop.py` `GopEncoder` for the backref
-GOP structure with constant quant indices: intra pictures every
-`gop_length` (and on scene changes), P pictures predicted from the
-previous reference, MD5 auxiliary units on request.  In `encode_stream`
-the device work of picture N+1 is queued before the host entropy coding
-of picture N runs, PIPELINE_DEPTH pictures deep.
+Port of `schroedinger_tpu/encoder/gop.py` `GopEncoder` for two engines:
+
+- "backref": I P P P at fixed quantisers.  In `encode_stream` the device
+  work of picture N+1 is queued before the host entropy coding of picture
+  N runs, `pipeline_depth` pictures deep.
+- "biref": the tworef / BBBP engine.  Display-order frames buffer into
+  subgroups of `subgroup_length`; the last picture of each subgroup is
+  coded first as a P (two references once a long-term intra exists), then
+  the earlier ones as non-reference two-reference B pictures.  With
+  `bitrate` the TM5 controller (`ratecontrol.CbrControllerTM5`) sets one
+  lambda per picture kind, and every picture picks its quantisers on the
+  device against its own exact stat tables; without it the pictures are
+  coded at the fixed base indices.
 
 Not ported yet (the constructor raises NotImplementedError for them):
-the biref / BBBP engine, CBR and the quantiser engines, interlaced
-(field) coding and deep (>8-bit) video.  The JAX encoder's other options
-(block and codeblock sizes, multiquant, pyramid depth, magic constants,
+batching a subgroup's B pictures into one step, CBR on the backref engine,
+CBR without the TM5 controller (`rdo_cbr=False`), the quantiser engines,
+interlaced (field) coding and deep (>8-bit) video.  The JAX encoder's
+other options (block and codeblock sizes, multiquant, pyramid depth,
 phase correlation, prefilters, no-arith coding, the estimation switches,
-PSNR/SSIM postanalysis) are not taken: the port runs their defaults,
-which the parity tests hold to the JAX package.
+perceptual weighting, PSNR/SSIM postanalysis) are not taken: the port
+runs their defaults, which the parity tests hold to the JAX package.
 """
 from __future__ import annotations
 
@@ -24,23 +32,40 @@ import numpy as np
 import torch
 from torch.profiler import record_function
 
-from schroedinger_tpu import bitstream as bs
-from schroedinger_tpu.coding import native as _native
-from schroedinger_tpu.params import Params, subband_count
-from schroedinger_tpu.utils.telemetry import FrameStats
-from schroedinger_tpu.video_format import VideoFormat
-from schroedinger_tpu.wavelets import MAX_DEPTH_S16, Wavelet
+from schroedinger_tpu_torch import bitstream as bs
+from schroedinger_tpu_torch import tables
+from schroedinger_tpu_torch.coding import native as _native
+from schroedinger_tpu_torch.coding import slices as sl
 from schroedinger_tpu_torch.decoder.core import RefFrame
+from schroedinger_tpu_torch.devices import resolve_device
 from schroedinger_tpu_torch.encoder import inter as ei_inter
 from schroedinger_tpu_torch.encoder import intra as ei_intra
-from schroedinger_tpu_torch.encoder.ratecontrol import ArithCorrection
+from schroedinger_tpu_torch.encoder.lowdelay import _forward, _prep_plane
+from schroedinger_tpu_torch.encoder.ratecontrol import (ArithCorrection,
+                                                        CbrControllerTM5,
+                                                        lambda_for_bits,
+                                                        stats_tables)
+from schroedinger_tpu_torch.encoder.weights import (band_lambda_scales,
+                                                    cycles_per_degree)
+from schroedinger_tpu_torch.params import Params, subband_count
+from schroedinger_tpu_torch.utils.telemetry import FrameStats
+from schroedinger_tpu_torch.video_format import VideoFormat
+from schroedinger_tpu_torch.wavelets import MAX_DEPTH_S16, Wavelet
 
 # the JAX GopEncoder's defaults for the options the port does not take
-SCENE_CHANGE_THRESHOLD = 3.0
-PIPELINE_DEPTH = 3
-ME_LEVELS = 5              # downsample_levels
-ME_BAILOUT_LIMIT = 0.33    # magic["me_bailout_limit"]
-SCAN_DISTANCE = 4.0        # magic["scan_distance"]
+ME_LEVELS = 5                       # downsample_levels
+PERCEPTUAL_WEIGHTING = "ccir959"
+PERCEPTUAL_DISTANCE = 4.0
+
+# magic_* tuning constants (schroencoder.c:4513-4535 defaults): the ones
+# the ported engines read (the allocation engine's weights are not among
+# them)
+MAGIC_DEFAULTS = dict(
+    subband0_lambda_scale=10.0, diagonal_lambda_scale=1.0,
+    chroma_lambda_scale=0.1, me_lambda_scale=1.0, I_lambda_scale=1.0,
+    P_lambda_scale=0.25, B_lambda_scale=0.01, inter_cpd_scale=1.0,
+    me_bailout_limit=0.33, block_search_threshold=15.0, scan_distance=4.0,
+    error_power=4.0)
 
 
 class GopEncoder:
@@ -52,15 +77,35 @@ class GopEncoder:
                  base_qi_intra: int = 16,
                  base_qi_inter: int = 20,
                  bitrate: int = 0,
+                 fps: float = 25.0,
                  enable_md5: bool = False,
                  mv_precision: int = 0,
                  enable_scene_change: bool = True,
+                 scene_change_threshold: float = 3.0,
                  quantiser_engine=None,
+                 pipeline_depth: int = 3,
                  gop_structure: str = "backref",
-                 device="cpu"):
+                 subgroup_length: int = 4,
+                 base_qi_b: Optional[int] = None,
+                 open_gop: bool = True,
+                 rdo_cbr: bool = True,
+                 buffer_size: int = 0,
+                 buffer_level: int = 0,
+                 max_refs: int = 3,
+                 enable_b_batch: bool = False,
+                 magic: Optional[dict] = None,
+                 device=None):
+        if gop_structure not in ("backref", "biref"):
+            raise ValueError(f"gop_structure {gop_structure!r}")
+        if max_refs < 2 and gop_structure == "biref":
+            # a 1-deep reference buffer cannot host the tworef engine's
+            # forward references: degrade to the backref (IPPP) engine
+            gop_structure = "backref"
         unsupported = {
-            "gop_structure='biref'": gop_structure != "backref",
-            "bitrate (CBR)": bool(bitrate),
+            "enable_b_batch": bool(enable_b_batch),
+            "bitrate with gop_structure='backref'":
+                bool(bitrate) and gop_structure == "backref",
+            "bitrate with rdo_cbr=False": bool(bitrate) and not rdo_cbr,
             "quantiser_engine": quantiser_engine is not None,
             "interlaced coding": video_format.interlaced_coding,
             "bit depth > 8": video_format.bit_depth != 8,
@@ -70,7 +115,7 @@ class GopEncoder:
             raise NotImplementedError(
                 "not ported to schroedinger_tpu_torch yet: "
                 + ", ".join(missing))
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         self.vf = video_format
         self.intra_wavelet = intra_wavelet
         self.inter_wavelet = inter_wavelet
@@ -80,6 +125,8 @@ class GopEncoder:
         self.gop_length = gop_length
         self.base_qi_intra = base_qi_intra
         self.base_qi_inter = base_qi_inter
+        self.base_qi_b = (base_qi_b if base_qi_b is not None
+                          else min(60, base_qi_inter + 4))
         self.frame_number = 0
         self.last_ref: Optional[int] = None
         self.prev_ref: Optional[int] = None
@@ -88,12 +135,47 @@ class GopEncoder:
         self.enable_md5 = enable_md5
         self.mv_precision = mv_precision
         self.enable_scene_change = enable_scene_change
+        self.scene_change_threshold = scene_change_threshold
         self._prev_input = None
         self._prev_mad = None
         self.stats = FrameStats()
+        self.pipeline_depth = pipeline_depth
+        self.gop_structure = gop_structure
+        self.subgroup_length = subgroup_length
+        self.open_gop = open_gop
+        # decoder-visible reference-buffer budget (schroengine.c:127-245
+        # manages up to 4; the max_refs setting caps it)
+        self.max_refs = max(1, int(max_refs))
+        unknown = sorted(set(magic or {}) - set(MAGIC_DEFAULTS))
+        if unknown:
+            raise ValueError(f"magic constants the port does not read: "
+                             f"{unknown}")
+        self.magic = dict(MAGIC_DEFAULTS, **(magic or {}))
+        self._queue = []          # biref: display-order (num, planes, sc)
+        self._pends2 = deque()    # biref: coded-order pending pictures
+        self._refbuf = {}         # biref: picture number -> expired flag
+        self._enc_last_ref = None  # mirrors encoder->last_ref
+        self._au_frame = None     # picture number of the last AU intra
+        self._last_max_qi = None  # newest finished ref's coarsest luma qi
         self._sent_stream_aux = False
-        # per-(component, band) arith-correction tables; the fixed
-        # quantisers never read them (the CBR port will)
+        # EMA of non-residual bits per picture (headers + MV data),
+        # subtracted from the TM5 allocation to get the residual target
+        # of the on-device lambda fit (the reference knows the exact
+        # value because it packs headers first, schroencoder.c:2532)
+        self._oh_inter = None
+        self._oh_intra = None
+        self.rc = None
+        if bitrate:
+            self.rc = CbrControllerTM5(
+                bitrate, fps, gop_length, subgroup_length=subgroup_length,
+                buffer_size=buffer_size, buffer_level=buffer_level,
+                interlaced=False,
+                b_lambda_scale=self.magic["B_lambda_scale"],
+                p_lambda_scale=self.magic["P_lambda_scale"],
+                i_lambda_scale=self.magic["I_lambda_scale"])
+        # per-(component, band) x {intra, inter} arith-vs-estimate bit
+        # ratio tables (schroencoder.c:2548-2590): they scale the
+        # per-band bit estimates inside every RD pick
         self.acorr = ArithCorrection(3 * subband_count(self.depth))
 
     def _params(self, num_refs: int) -> Params:
@@ -118,6 +200,13 @@ class GopEncoder:
         p.codeblock_mode_index = 0
         return p
 
+    def _step_kw(self) -> dict:
+        return dict(
+            me_levels=ME_LEVELS,
+            block_search_threshold=self.magic["block_search_threshold"],
+            scan_distance=self.magic["scan_distance"],
+            error_power=self.magic["error_power"], device=self.device)
+
     def _scene_change_score(self, planes) -> float:
         """MAD vs previous input, downsampled 4x (schroencoder.c:1909
         calculate_sc_score analog): score = mad / running mad."""
@@ -132,30 +221,54 @@ class GopEncoder:
         return score
 
     def _is_intra(self, num, planes):
-        """(intra?, scene-change score) for display-order picture num."""
+        """backref: (intra?, scene-change score) for picture num."""
         is_intra = (num % self.gop_length) == 0
         sc = (self._scene_change_score(planes)
               if self.enable_scene_change else 0.0)
-        if (not is_intra and sc > SCENE_CHANGE_THRESHOLD
+        if (not is_intra and sc > self.scene_change_threshold
                 and self.last_ref is not None):
             is_intra = True
         return is_intra, sc
 
     def encode_frame(self, planes) -> bytes:
-        """Encode one frame without pipelining; returns its parse units."""
+        """Display-order input; returns coded-order parse units (references
+        before the B pictures that use them).  The biref engine may return
+        b'' while it buffers a subgroup."""
+        if self.gop_structure == "biref":
+            num = self.frame_number
+            self.frame_number += 1
+            sc = (self._scene_change_score(planes)
+                  if self.enable_scene_change else 0.0)
+            self._queue.append((num, planes, sc))
+            return self._drain_subgroups(final=False)
         num = self.frame_number
         is_intra, sc = self._is_intra(num, planes)
         return bytes(self._encode_ref(planes, num, is_intra, sc))
 
     def flush(self) -> bytes:
-        """encode_frame holds nothing back in the backref GOP."""
-        return b""
+        """Code what the biref engine still buffers and finish its pending
+        pictures (the backref engine holds nothing back)."""
+        out = bytearray()
+        if self.gop_structure == "biref":
+            out += self._drain_subgroups(final=True)
+            while self._pends2:
+                out += self._finish_pending2(self._pends2.popleft())
+        return bytes(out)
 
     def encode_stream(self, frames) -> bytes:
-        """Encode a sequence with device/host pipelining: the P step of
-        frame N+1 is queued on the device before the host entropy coding
-        of frame N runs, so device compute and C++ arith coding overlap."""
+        """Encode a sequence with device/host pipelining: the inter step of
+        a later picture is queued on the device before the host entropy
+        coding of an earlier one runs, so device compute and C++ arith
+        coding overlap.  With CBR the per-band pick runs on the device
+        against each picture's own tables; only the TM5 lambda crosses
+        pictures, `pipeline_depth` pictures late."""
         out = bytearray()
+        if self.gop_structure == "biref":
+            for planes in frames:
+                out += self.encode_frame(planes)
+            out += self.flush()
+            out += self._chain.add([bs.make_eos_unit()], final_eos=True)
+            return bytes(out)
         pends = deque()  # (pending dict, (num, ref_num, retired, sc))
         for planes in frames:
             num = self.frame_number
@@ -169,9 +282,7 @@ class GopEncoder:
             meta = (num, self.last_ref, self.prev_ref, sc)
             pending = ei_inter.start_inter_picture(
                 planes, self._params(1), self.ref_frames[self.last_ref],
-                base_qi=self.base_qi_inter,
-                me_levels=ME_LEVELS,
-                scan_distance=SCAN_DISTANCE)
+                base_qi=self.base_qi_inter, **self._step_kw())
             # the new recon tensors become the reference at once; the
             # device stream orders the dependency
             if self.prev_ref is not None:
@@ -181,12 +292,286 @@ class GopEncoder:
             self.last_ref = num
             self.frame_number += 1
             pends.append((pending, meta))
-            if len(pends) > PIPELINE_DEPTH:
+            if len(pends) > self.pipeline_depth:
                 out += self._finish_pending(pends.popleft())
         while pends:
             out += self._finish_pending(pends.popleft())
         out += self._chain.add([bs.make_eos_unit()], final_eos=True)
         return bytes(out)
+
+    # ---- rate control ---------------------------------------------------
+
+    def _band_scales(self, intra: bool) -> np.ndarray:
+        """Per-band lambda multipliers (perceptual weights + magic scales,
+        schroquantiser.c:856-880)."""
+        cpd_h, cpd_v = cycles_per_degree(
+            self.vf.height, self.vf.aspect_ratio_numerator,
+            self.vf.aspect_ratio_denominator, PERCEPTUAL_DISTANCE,
+            self.vf.interlaced_coding)
+        return band_lambda_scales(
+            self.intra_wavelet if intra else self.inter_wavelet,
+            self.depth, PERCEPTUAL_WEIGHTING, cpd_h, cpd_v,
+            inter_cpd_scale=self.magic["inter_cpd_scale"], intra=intra,
+            subband0_scale=self.magic["subband0_lambda_scale"],
+            diagonal_scale=self.magic["diagonal_lambda_scale"])
+
+    def _band_scales3(self, intra: bool) -> np.ndarray:
+        """Per-(component, band) lambda multipliers, component-major
+        (3*nb,): the luma scales plus magic_chroma_lambda_scale on the
+        chroma components (schroquantiser.c:865-880)."""
+        s = self._band_scales(intra)
+        c = self.magic["chroma_lambda_scale"]
+        return np.concatenate([s, s * c, s * c])
+
+    def _quant_args(self, kind: str) -> dict:
+        """kwargs for start_inter_picture's quant selection: with the TM5
+        controller, the on-device RD pick (lam_bands), seeded by the TM5
+        lambda and fitted per frame so that the corrected bit estimate of
+        the picks matches this picture's complexity-weighted allocation
+        (the reference's entropy_to_lambda, schroquantiser.c:887-960);
+        without a controller, nothing (fixed base indices)."""
+        if self.rc is None:
+            return {}
+        corr = np.maximum(self.acorr.inter, 1e-3)
+        alloc = {"I": self.rc.I_frame_alloc,
+                 "P": self.rc.P_frame_alloc,
+                 "B": self.rc.B_frame_alloc}[kind]
+        oh = self._oh_inter or 0.0
+        # buffer-aware cap, not a hard per-frame budget: a full reservoir
+        # lets pictures spend up to ~3x their complexity allocation
+        # (quality rides the buffer, like the reference's get_alloc curve,
+        # schroengine.c:552-637), a draining one tightens toward 1x
+        occ = max(self.rc.buffer_level / self.rc.buffer_size, 0.0)
+        if occ > 0.7:
+            # reservoir healthy: the buffer is the CBR contract, so the
+            # TM5 stable-quality spend rides it
+            target = 0.0
+        else:
+            cap = alloc * (1.0 + 2.0 * occ)
+            target = max(cap - oh, 0.25 * alloc)
+        return {"lam_bands": (self.rc.frame_lambda(kind)
+                              * self._band_scales3(False)),
+                "corr_bands": corr,
+                "target_bits": target,
+                "me_lam": self._me_lam()}
+
+    def _rc_update(self, kind: str, bits: int, num: int) -> bytes:
+        """Updates the CBR model; returns a PADDING parse unit when the
+        reservoir overran (schroencoder.c:2601-2611), else b''."""
+        if self.rc is None:
+            return b""
+        pad = self.rc.update(kind, bits, num, 1)
+        return bs.make_padding_unit(pad) if pad else b""
+
+    def _acorr_update(self, pending, unit_bits: int = 0) -> None:
+        """EMA the inter arith-correction tables from a finished inter
+        picture's actual vs estimated per-band bits, and the non-residual
+        overhead EMA that feeds the lambda-fit target."""
+        est = pending.get("band_bits_est")
+        if est is not None:
+            self.acorr.update(False, pending["band_bits_actual"], est)
+        if unit_bits:
+            oh = max(unit_bits - float(
+                np.sum(pending.get("band_bits_actual", 0.0))), 0.0)
+            self._oh_inter = (oh if self._oh_inter is None
+                              else 0.8 * self._oh_inter + 0.2 * oh)
+
+    def _me_lam(self) -> float:
+        """Mode-decision lambda (frame_me_lambda analog): tracks the
+        newest finished reference's coarsest luma quant step (QF/8 SAD
+        per bit)."""
+        qi = self._last_max_qi
+        if qi is None:
+            qi = self.base_qi_inter
+        return (float(tables.QUANT_FACTOR[min(int(qi), 60)]) / 8.0
+                * self.magic["me_lambda_scale"])
+
+    # ---- tworef / BBBP engine -------------------------------------------
+    # Re-expression of the reference's tworef GOP machinery
+    # (schroengine.c:685-796 handle_gop_tworef, :247-304 code_BBBP,
+    # :127-245 pick_refs/pick_retire).  The decoder-visible reference
+    # buffer is modelled explicitly: coding a P *expires* the previous P
+    # (schroengine.c:276 expire_reference) but the retire lags one
+    # subgroup (pick_retire returns the oldest EXPIRED ref), because the
+    # reference decoder retires BEFORE binding refs (schrodecoder.c:1302).
+    # The most recent AU's intra picture stays unexpired until the next
+    # AU, so steady-state P pictures have two references (previous P +
+    # long-term I), exactly as the reference's pick_refs yields.
+
+    def _pick_refs(self, fn: int):
+        """ref0 = most recent back ref (expiry ignored); ref1 = earliest
+        forward unexpired ref, else newest older unexpired back ref."""
+        back = [n for n in self._refbuf if n < fn]
+        ref0 = max(back)
+        fwd = [n for n, exp in self._refbuf.items() if n > fn and not exp]
+        if fwd:
+            return ref0, min(fwd)
+        older = [n for n, exp in self._refbuf.items()
+                 if n < ref0 and not exp]
+        return ref0, (max(older) if older else None)
+
+    def _pick_retire(self):
+        """Oldest expired ref; forced oldest-overall when the buffer holds
+        max_refs pictures (schroengine.c:186-205's forced retire)."""
+        expired = [n for n, e in self._refbuf.items() if e]
+        if expired:
+            return min(expired)
+        if len(self._refbuf) >= self.max_refs:
+            return min(self._refbuf)
+        return None
+
+    def _retire_and_add(self, retire, fn: int):
+        # pending pictures keep their own handles on the planes they read
+        if retire is not None:
+            self._refbuf.pop(retire, None)
+            self.ref_frames.pop(retire, None)
+        self._refbuf[fn] = False
+
+    def _drain_subgroups(self, final: bool) -> bytes:
+        """Cut completed subgroups off the display-order queue and encode
+        them (handle_gop_tworef's boundary logic, schroengine.c:703-776):
+        an AU boundary ends the subgroup *with* the AU frame as its intra
+        last picture (open GOP: the preceding B's reference the new I
+        forward); a scene cut at the head becomes an I, a cut mid-subgroup
+        ends the subgroup just before the cut frame."""
+        out = bytearray()
+        while self._queue:
+            sg = self.subgroup_length
+            n = len(self._queue)
+            take = None
+            last_is_intra = False
+            for j in range(min(sg, n)):
+                num, _, sc = self._queue[j]
+                is_au = (self._au_frame is None
+                         or (num - self._au_frame) >= self.gop_length)
+                cut = (self.enable_scene_change
+                       and sc > self.scene_change_threshold
+                       and self._refbuf)
+                if is_au:
+                    # open GOP: the AU frame ends the subgroup as its
+                    # intra last picture; closed GOP cuts before it so no
+                    # picture crosses the AU (schroengine.c:729-736)
+                    if self.open_gop or j == 0:
+                        take, last_is_intra = j + 1, True
+                    else:
+                        take, last_is_intra = j, False
+                    break
+                if cut:
+                    if j == 0:
+                        take, last_is_intra = 1, True
+                    else:
+                        take, last_is_intra = j, False
+                    break
+            if take is None:
+                if n >= sg:
+                    take = sg
+                elif final:
+                    take = n
+                else:
+                    break  # wait for more frames
+            group = [self._queue.pop(0) for _ in range(take)]
+            out += self._encode_subgroup(group, last_is_intra)
+        return bytes(out)
+
+    def _encode_subgroup(self, group, last_is_intra: bool) -> bytes:
+        out = bytearray()
+        num, planes, sc = group[-1]
+        if last_is_intra or not self._refbuf:
+            while self._pends2:
+                out += self._finish_pending2(self._pends2.popleft())
+            retire = self._pick_retire()
+            out += self._encode_ref(planes, num, True, sc,
+                                    retired=retire, manage_refs=False)
+            self._retire_and_add(retire, num)
+            intra_num = num
+        else:
+            out += self._start_ref_biref(planes, num, sc)
+            intra_num = None
+        for (bnum, bplanes, bsc) in group[:-1]:
+            out += self._start_b_biref(bplanes, bnum, bsc)
+        if intra_num is not None:
+            # expire_refs_before (schroengine.c:294-296): pre-AU refs
+            # become retire candidates for subsequent ref pictures
+            for n in self._refbuf:
+                if n < intra_num:
+                    self._refbuf[n] = True
+            self._au_frame = intra_num
+        return bytes(out)
+
+    def _start_ref_biref(self, planes, num, sc) -> bytes:
+        """Code the subgroup-last P: ref0 = previous I/P, ref1 = long-term
+        unexpired ref (the last AU's intra) when one exists; the retire
+        lags by one subgroup (schroengine.c:267-277)."""
+        retire = self._pick_retire()
+        ref0, ref1 = self._pick_refs(num)
+        refs = [ref0] if ref1 is None else [ref0, ref1]
+        pending = ei_inter.start_inter_picture(
+            planes, self._params(len(refs)), self.ref_frames[ref0],
+            base_qi=self.base_qi_inter,
+            ref2=(self.ref_frames[ref1] if ref1 is not None else None),
+            want_recon=True, **self._step_kw(), **self._quant_args("P"))
+        meta = (num, refs, retire, True, "P", sc)
+        self.ref_frames[num] = RefFrame(tuple(pending["recon"]))
+        self._retire_and_add(retire, num)
+        # expire_reference(encoder->last_ref) after coding each P
+        if self._enc_last_ref in self._refbuf:
+            self._refbuf[self._enc_last_ref] = True
+        self._enc_last_ref = num
+        self._pends2.append((pending, meta))
+        return self._drain_pends2()
+
+    def _start_b_biref(self, planes, num, sc) -> bytes:
+        ref0, ref1 = self._pick_refs(num)
+        pending = ei_inter.start_inter_picture(
+            planes, self._params(2), self.ref_frames[ref0],
+            base_qi=self.base_qi_b, ref2=self.ref_frames[ref1],
+            want_recon=self.enable_md5, **self._step_kw(),
+            **self._quant_args("B"))
+        meta = (num, [ref0, ref1], None, False, "B", sc)
+        self._pends2.append((pending, meta))
+        return self._drain_pends2()
+
+    def _drain_pends2(self) -> bytes:
+        """Finish the oldest pending pictures beyond `pipeline_depth`.  A
+        picture's rate-control, arith-correction and overhead updates are
+        committed here, so the lambda of picture n rests on the pictures
+        up to n - pipeline_depth - 1: the lag is part of the rate
+        decision and of the stream."""
+        out = bytearray()
+        while len(self._pends2) > self.pipeline_depth:
+            out += self._finish_pending2(self._pends2.popleft())
+        return bytes(out)
+
+    def _finish_pending2(self, pend) -> bytes:
+        pending, (num, refs, retired, is_ref, kind, sc) = pend
+        unit = ei_inter.finish_inter_picture(
+            pending, num, refs[0], is_ref=is_ref, retired=retired,
+            ref2_num=refs[1] if len(refs) > 1 else None)
+        self._acorr_update(pending, len(unit) * 8)
+        if kind != "B":
+            self._last_max_qi = int(np.max(
+                pending["qi_bands"][:pending["nb"]]))
+        pad_unit = self._rc_update(kind, len(unit) * 8, num)
+        units = []
+        if self.enable_md5 and pending["recon"] is not None:
+            units.append(self._md5_unit(pending["recon"]))
+        units.append(unit)
+        self.stats.record(frame=num, intra=False, b_picture=(kind == "B"),
+                          bits=len(unit) * 8, sc_score=round(sc, 3),
+                          dc_ratio=round(pending["dc_ratio"], 3),
+                          badblock=round(pending["badblock_ratio"], 3),
+                          qi_bands=pending["qi_bands"].tolist(),
+                          target_bits=pending["target_bits"],
+                          lam_scale=pending["lam_scale"],
+                          buffer_level=(self.rc.buffer_level if self.rc
+                                        else None),
+                          base_lambda=(self.rc.base_lambda if self.rc
+                                       else None))
+        if pad_unit:
+            units.append(pad_unit)
+        return self._chain.add(units)
+
+    # ---- reference pictures ---------------------------------------------
 
     def _md5_unit(self, recon) -> bytes:
         planes = tuple(pl.cpu().numpy() for pl in recon)
@@ -207,55 +592,135 @@ class GopEncoder:
                           dc_ratio=round(pending["dc_ratio"], 3))
         return self._chain.add(units)
 
+    def _seed_rc_from_intra(self, planes, p) -> None:
+        """Calibrate the TM5 base lambda against this content before the
+        first picture is coded: transform the first frame, build its
+        exact stat tables, and solve for the lambda whose RD pick costs
+        the I-frame allocation (lambda_for_bits: the reference's
+        entropy_to_lambda bisection, schroquantiser.c:887-960, applied
+        once at stream start)."""
+        dims = [(p.iwt_luma_height, p.iwt_luma_width),
+                (p.iwt_chroma_height, p.iwt_chroma_width),
+                (p.iwt_chroma_height, p.iwt_chroma_width)]
+        band_lists = []
+        for plane, (oh, ow) in zip(planes, dims):
+            prepped = _prep_plane(
+                torch.tensor(np.asarray(plane, np.uint8),
+                             device=self.device), oh, ow)
+            pyr = _forward(prepped, p.transform_depth,
+                           p.wavelet_filter_index)
+            band_lists.append(sl.subband_arrays(pyr, p.transform_depth))
+        stats = stats_tables(band_lists, p, intra=True,
+                             error_power=self.magic["error_power"])
+        corr_i = np.maximum(self.acorr.intra, 1e-3)
+        bits_c = np.asarray(stats[0], np.float64) * corr_i
+        # only seed when the allocation is binding: if even the finest
+        # pick (row 0) costs less than the target, the content is cheaper
+        # than the budget and the default quality-level lambda is the
+        # right regime.  Reservoir-aware first-I target: the intra may
+        # borrow deeply from the buffer (high-quality refs are what make
+        # the cheap B's work), so fit to ~0.3 buffer rather than the
+        # pro-rata allocation
+        target = max(self.rc.I_frame_alloc, 0.3 * self.rc.buffer_size)
+        max_bits = float(bits_c[0].sum())
+        if target >= 0.9 * max_bits:
+            return
+        lam = lambda_for_bits(bits_c, stats[1], target,
+                              band_scales=self._band_scales3(True))
+        if np.isfinite(lam) and lam > 0:
+            # base_lambda is the I-level lambda; P/B derive via the magic
+            # scales; never seed finer than the default quality level
+            self.rc.base_lambda = float(min(lam, self.rc.base_lambda))
+
     def _encode_ref(self, planes, num, is_intra, sc_score,
-                    retired="auto") -> bytes:
+                    retired="auto", manage_refs=True) -> bytes:
         if retired == "auto":
             retired = self.prev_ref
         units = []
+        pad_unit = b""
         if is_intra:
             units.append(bs.write_sequence_header(self.vf, profile=8,
                                                   level=0))
             if not self._sent_stream_aux:
+                # codec-comment + CBR bitrate auxiliary data with the
+                # first coded frame (schroencoder.c:1480-1507, :744)
                 self._sent_stream_aux = True
                 units.append(bs.make_aux_unit(
                     1, b"schroedinger-tpu 2.0"))      # ENCODER_STRING
+                if self.rc is not None:
+                    units.append(bs.make_aux_unit(
+                        bs.AUX_BITRATE,
+                        int(self.rc.bitrate).to_bytes(4, "big")))
             p = self._params(0)
-            nb = subband_count(p.transform_depth)
-            qm = np.asarray(p.quant_matrix[:nb], np.int32)
-            qi_bands = np.tile(np.clip(self.base_qi_intra - qm, 0, 60), 3)
-            qis = {}
-            for comp in range(3):
-                for i in range(nb):
-                    hcb, vcb = ei_intra._codeblock_counts(p, i)
-                    qis[(comp, i)] = np.full(
-                        (vcb, hcb), int(qi_bands[comp * nb + i]), np.int32)
-            unit, recon = ei_intra.encode_picture(
-                planes, p, num, quant_indices=qis, is_ref=True,
-                retired=retired, return_recon=True, device=self.device)
+            if self.rc is not None:
+                if self.rc.intra_cbr_lambda is None:
+                    # first intra: seed the TM5 base lambda by fitting
+                    # this frame's exact stat tables to its allocation
+                    self._seed_rc_from_intra(planes, p)
+                intra_lambda = self.rc.frame_lambda("I")
+                # fused intra path: transform, stats, RD pick and
+                # quantisation on the device, host entropy coding and
+                # serial DC-predict band 0, device reconstruction
+                (unit, recon, qi_bands, _stats, bb_act,
+                 bb_est) = ei_intra.encode_picture_fused(
+                    planes, p, num,
+                    intra_lambda * self._band_scales3(True),
+                    is_ref=True, retired=retired, corr=self.acorr.intra,
+                    error_power=self.magic["error_power"],
+                    device=self.device)
+                self.acorr.update(True, bb_act, bb_est)
+                oh = max(len(unit) * 8 - float(np.sum(bb_act)), 0.0)
+                self._oh_intra = (oh if self._oh_intra is None
+                                  else 0.8 * self._oh_intra + 0.2 * oh)
+                pad_unit = self._rc_update("I", len(unit) * 8, num)
+            else:
+                nb = subband_count(p.transform_depth)
+                qm = np.asarray(p.quant_matrix[:nb], np.int32)
+                qi_bands = np.tile(np.clip(self.base_qi_intra - qm, 0, 60),
+                                   3)
+                qis = {}
+                for comp in range(3):
+                    for i in range(nb):
+                        hcb, vcb = ei_intra._codeblock_counts(p, i)
+                        qis[(comp, i)] = np.full(
+                            (vcb, hcb), int(qi_bands[comp * nb + i]),
+                            np.int32)
+                unit, recon = ei_intra.encode_picture(
+                    planes, p, num, quant_indices=qis, is_ref=True,
+                    retired=retired, return_recon=True, device=self.device)
         else:
             unit, recon, dc_ratio = ei_inter.encode_inter_picture(
                 planes, self._params(1), num, self.last_ref,
                 self.ref_frames[self.last_ref],
                 base_qi=self.base_qi_inter, is_ref=True, retired=retired,
-                me_levels=ME_LEVELS,
-                scan_distance=SCAN_DISTANCE)
-            if dc_ratio > ME_BAILOUT_LIMIT:
+                **self._step_kw())
+            if dc_ratio > self.magic["me_bailout_limit"]:
                 # intra bailout (schroencoder.c:2373-2384): motion
                 # compensation failed for most blocks -> code this
                 # picture as intra instead (same number/retire)
                 return self._encode_ref(planes, num, True, sc_score,
-                                        retired=retired)
+                                        retired=retired,
+                                        manage_refs=manage_refs)
         if self.enable_md5:
             units.append(self._md5_unit(recon))
         units.append(unit)
+        if pad_unit:
+            units.append(pad_unit)
 
-        if self.prev_ref is not None:
-            self.ref_frames.pop(self.prev_ref, None)
-        self.prev_ref = self.last_ref
-        self.last_ref = num
+        if manage_refs:
+            if self.prev_ref is not None:
+                self.ref_frames.pop(self.prev_ref, None)
+            self.prev_ref = self.last_ref
+            self.last_ref = num
         self.ref_frames[num] = RefFrame(tuple(recon))
         if num == self.frame_number:
             self.frame_number += 1
         self.stats.record(frame=num, intra=bool(is_intra),
-                          bits=len(unit) * 8, sc_score=round(sc_score, 3))
+                          bits=len(unit) * 8, sc_score=round(sc_score, 3),
+                          qi_bands=(np.asarray(qi_bands).tolist()
+                                    if is_intra else None),
+                          buffer_level=(self.rc.buffer_level if self.rc
+                                        else None),
+                          base_lambda=(self.rc.base_lambda if self.rc
+                                       else None))
         return self._chain.add(units)

@@ -1,20 +1,20 @@
-"""Dirac inter (long-GOP) picture encoder, one reference, fixed quantiser.
+"""Dirac inter (long-GOP) picture encoder: one or two references, fixed
+quantisers or the on-device RD pick.
 
-Port of `schroedinger_tpu/encoder/inter.py` for the one-ref P picture at
-fixed quant indices.  Per picture:
-  device: hierarchical ME (the patch-refine kernel on CUDA) -> subpel
-          refine -> DC stats -> RD split + mode -> OBMC render ->
-          residual -> forward IWT -> quantise -> reconstruction
-  host:   MV entropy coding, subband arith coding (shared native C++)
+Port of `schroedinger_tpu/encoder/inter.py`.  Per picture:
+  device: hierarchical ME per reference (the patch-refine kernel on CUDA)
+          -> subpel refine -> DC stats -> RD split + mode -> OBMC render
+          -> residual -> forward IWT -> [61-way stat tables -> per-band
+          RD pick with the lambda fit] -> quantise -> reconstruction
+  host:   MV entropy coding, subband arith coding (native C++)
 
 `start_inter_picture` queues the device work and returns a pending dict
 whose `recon` tensors can serve as the next picture's reference at once;
-`finish_inter_picture` fetches the coded data with one copy to the host
-and writes the parse unit.
+`finish_inter_picture` fetches the coded data and writes the parse unit.
 
-Not ported yet: two references (biref / B pictures and their batching),
-the 61-way stat tables and on-device RD quantiser pick, multiquant
-refinement, phase-correlation candidates and the estimation switches.
+Not ported yet: batching of a subgroup's B pictures, multiquant
+refinement, lagged host picks (`want_stats`, `qi_bands_override`),
+phase-correlation candidates and the estimation switches.
 """
 from __future__ import annotations
 
@@ -24,22 +24,28 @@ import numpy as np
 import torch
 from torch.profiler import record_function
 
-from schroedinger_tpu import tables
-from schroedinger_tpu.bitstream import (BitWriter, parse_code_picture,
-                                        write_parse_info, write_picture_header)
-from schroedinger_tpu.coding import native as _native
-from schroedinger_tpu.coding import subband as sb
-from schroedinger_tpu.params import (Params, subband_count, subband_info,
-                                     subband_position)
+from schroedinger_tpu_torch import tables
+from schroedinger_tpu_torch.bitstream import (BitWriter,
+                                              parse_code_picture,
+                                              write_parse_info,
+                                              write_picture_header)
+from schroedinger_tpu_torch.coding import native as _native
+from schroedinger_tpu_torch.coding import subband as sb
+from schroedinger_tpu_torch.params import (Params, subband_count,
+                                           subband_info, subband_position)
 from schroedinger_tpu_torch.coding import slices as sl
 from schroedinger_tpu_torch.decoder.core import RefFrame
+from schroedinger_tpu_torch.devices import resolve_device
 from schroedinger_tpu_torch.encoder import me as me_mod
 from schroedinger_tpu_torch.encoder.intra import _codeblock_counts
 from schroedinger_tpu_torch.encoder.lowdelay import _forward
+from schroedinger_tpu_torch.encoder.me import _take
+from schroedinger_tpu_torch.encoder.ratecontrol import band_tables, rd_pick
 from schroedinger_tpu_torch.ops.pad import pad_edge, pad_zero
 from schroedinger_tpu_torch.decoder.lowdelay import _inverse
 from schroedinger_tpu_torch.ops import obmc
 from schroedinger_tpu_torch.ops import quant as q
+from schroedinger_tpu_torch.ops.patch_refine import extract_ref_patches
 
 _P_FIELD_ORDER = ("split", "pred_mode", "using_global", "dx1", "dy1",
                   "dx2", "dy2", "dc0", "dc1", "dc2")
@@ -224,19 +230,210 @@ def make_rd_split_body(p: Params):
     return body
 
 
-def make_p_step(p: Params, me_levels: int = 5, scan_distance: float = 4.0):
-    """(front, back) of one one-ref, fixed-quantiser P picture.
+def make_rd_split_body2(p: Params):
+    """Two-reference RD split + mode search (candidate modes DC / ref1 /
+    ref2 / biref, schro_mode_decision over one motion field per mode,
+    schromotionest.c:520-695).
 
-      front(y, u, v, ref_y, up_y, up_u, up_v, qi_bands)
-          -> (flats (3,), preds (3,), fields int16 (10, yb, xb))
-      back(flats, preds, qi_bands) -> (qflats int16 (3,), recon u8 (3,))
+        body(c, P1, P2, dy1, dx1, sad1, dy2, dx2, sad2, sad_dc,
+             mean_y, mean_u, mean_v, lam) -> MV-field dict
+    where c is the edge-padded int32 luma on the block grid, P1/P2 the
+    margin-padded pel references, dyN/dxN per-block MVs in subpel units
+    with their SADs from the subpel refine.  Modes are picked at all
+    three granularities; distortion of aggregate vectors and of the biref
+    average is measured at full pel (a decision heuristic: coded MVs keep
+    subpel precision).  Integer fields are exact; costs are float32."""
+    ynb, xnb = p.y_num_blocks, p.x_num_blocks
+    ybsep, xbsep = p.ybsep_luma, p.xbsep_luma
+    prec = p.mv_precision
+    margin = me_mod.ME_BOUND_PEL + 16
+    B = me_mod.ME_BOUND_PEL
 
-    qi_bands: (3*nb,) host ints, component-major."""
-    if p.num_refs != 1:
-        raise NotImplementedError("two-reference inter coding is not ported")
+    def iavg(a, n):
+        return torch.round(a.to(torch.float32) / n).to(torch.int32)
+
+    def e2(a):
+        return a.repeat_interleave(2, 0).repeat_interleave(2, 1)
+
+    def e4(a):
+        return a.repeat_interleave(4, 0).repeat_interleave(4, 1)
+
+    def clipf(v):
+        if prec:
+            v = torch.round(v.to(torch.float32) / (1 << prec)).to(torch.int32)
+        return v.clamp(-B, B)
+
+    def dcs(my, mu, mv_):
+        return tuple((m - 128).clamp(-128, 127) for m in (my, mu, mv_))
+
+    def body(c, P1, P2, dy1, dx1, sad1, dy2, dx2, sad2, sad_dc,
+             mean_y, mean_u, mean_v, lam):
+        f32 = torch.float32
+        dev = c.device
+        k11 = torch.tensor(1.1, dtype=f32, device=dev)
+        k095 = torch.tensor(0.95, dtype=f32, device=dev)
+
+        # current blocks at the three granularities
+        cb2 = me_mod._to_blocks(c, ynb, ybsep, xnb, xbsep)
+        cb1 = me_mod._to_blocks(c, ynb // 2, 2 * ybsep, xnb // 2, 2 * xbsep)
+        cb0 = me_mod._to_blocks(c, ynb // 4, 4 * ybsep, xnb // 4, 4 * xbsep)
+
+        def gran_sads(dy, dx, P):
+            """(quad, super) MC SADs of aggregated vectors vs ref P."""
+            qdy, qdx = iavg(_pool2(dy), 4), iavg(_pool2(dx), 4)
+            sdy = iavg(_pool2(_pool2(dy)), 16)
+            sdx = iavg(_pool2(_pool2(dx)), 16)
+            sq = me_mod.block_sads_at(cb1, P, clipf(qdy), clipf(qdx),
+                                      ynb // 2, xnb // 2, 2 * ybsep,
+                                      2 * xbsep, margin)
+            ss = me_mod.block_sads_at(cb0, P, clipf(sdy), clipf(sdx),
+                                      ynb // 4, xnb // 4, 4 * ybsep,
+                                      4 * xbsep, margin)
+            return (qdy, qdx, sq), (sdy, sdx, ss)
+
+        (q1y, q1x, sad1_q), (s1y, s1x, sad1_s) = gran_sads(dy1, dx1, P1)
+        (q2y, q2x, sad2_q), (s2y, s2x, sad2_s) = gran_sads(dy2, dx2, P2)
+
+        def bi_sad(cb, m1y, m1x, m2y, m2x, nby, nbx, bs_y, bs_x):
+            p1 = extract_ref_patches(P1, clipf(m1y), clipf(m1x), nby, nbx,
+                                     bs_y, bs_x, 0, margin)
+            p2 = extract_ref_patches(P2, clipf(m2y), clipf(m2x), nby, nbx,
+                                     bs_y, bs_x, 0, margin)
+            avg = (p1[:, :bs_y, :bs_x] + p2[:, :bs_y, :bs_x] + 1) >> 1
+            return (cb - avg).abs().sum((1, 2), dtype=torch.int32).reshape(
+                nby, nbx)
+
+        sad_bi = bi_sad(cb2, dy1, dx1, dy2, dx2, ynb, xnb, ybsep, xbsep)
+        sad_bi_q = bi_sad(cb1, q1y, q1x, q2y, q2x, ynb // 2, xnb // 2,
+                          2 * ybsep, 2 * xbsep)
+        sad_bi_s = bi_sad(cb0, s1y, s1x, s2y, s2x, ynb // 4, xnb // 4,
+                          4 * ybsep, 4 * xbsep)
+
+        # DC SADs at quad / superblock granularity
+        mq = torch.round(_block_mean_f32(c, ynb // 2, 2 * ybsep, xnb // 2,
+                                         2 * xbsep)).to(torch.int32)
+        cq = c.reshape(ynb // 2, 2 * ybsep, xnb // 2, 2 * xbsep)
+        sad_dc_q = (cq - mq[:, None, :, None]).abs().sum(
+            (1, 3), dtype=torch.int32)
+        ms = torch.round(_block_mean_f32(c, ynb // 4, 4 * ybsep, xnb // 4,
+                                         4 * xbsep)).to(torch.int32)
+        cs = c.reshape(ynb // 4, 4 * ybsep, xnb // 4, 4 * xbsep)
+        sad_dc_s = (cs - ms[:, None, :, None]).abs().sum(
+            (1, 3), dtype=torch.int32)
+
+        d = dcs(mean_y, mean_u, mean_v)
+        dq = dcs(mq, iavg(_pool2(mean_u), 4), iavg(_pool2(mean_v), 4))
+        ds = dcs(ms, iavg(_pool2(_pool2(mean_u)), 16),
+                 iavg(_pool2(_pool2(mean_v)), 16))
+
+        # predicted-vector stand-in: superblock mean per ref
+        s1y_b, s1x_b = e4(s1y), e4(s1x)
+        s2y_b, s2x_b = e4(s2y), e4(s2x)
+
+        def mode_cost(sdc, sr1, sr2, sbi, bits_dc, bits_r1, bits_r2):
+            """4-way mode pick (first minimum in the order DC, ref1, ref2,
+            biref); returns (mode, cost)."""
+            c_dc = sdc.to(f32) * k11 + lam * bits_dc
+            c_r1 = sr1.to(f32) + lam * bits_r1
+            c_r2 = sr2.to(f32) + lam * bits_r2
+            c_bi = sbi.to(f32) * k095 + lam * (bits_r1 + bits_r2)
+            costs = torch.stack([c_dc, c_r1, c_r2, c_bi])
+            mode = torch.argmin(costs, dim=0)
+            return mode.to(torch.int32), _take(costs, mode)
+
+        bits_dc2 = 2 + _sbits(d[0]) + _sbits(d[1]) + _sbits(d[2])
+        bits_r1_2 = 2 + _sbits(dy1 - s1y_b) + _sbits(dx1 - s1x_b)
+        bits_r2_2 = 2 + _sbits(dy2 - s2y_b) + _sbits(dx2 - s2x_b)
+        mode2, cost2 = mode_cost(sad_dc, sad1, sad2, sad_bi,
+                                 bits_dc2, bits_r1_2, bits_r2_2)
+
+        bits_dc1 = 2 + _sbits(dq[0]) + _sbits(dq[1]) + _sbits(dq[2])
+        bits_r1_1 = 2 + _sbits(q1y - e2(s1y)) + _sbits(q1x - e2(s1x))
+        bits_r2_1 = 2 + _sbits(q2y - e2(s2y)) + _sbits(q2x - e2(s2x))
+        mode1, cost1 = mode_cost(sad_dc_q, sad1_q, sad2_q, sad_bi_q,
+                                 bits_dc1, bits_r1_1, bits_r2_1)
+
+        bits_dc0 = 2 + _sbits(ds[0]) + _sbits(ds[1]) + _sbits(ds[2])
+        bits_r1_0 = 2 + _sbits(s1y) + _sbits(s1x)
+        bits_r2_0 = 2 + _sbits(s2y) + _sbits(s2x)
+        mode0, cost0 = mode_cost(sad_dc_s, sad1_s, sad2_s, sad_bi_s,
+                                 bits_dc0, bits_r1_0, bits_r2_0)
+
+        split_sb = torch.argmin(
+            torch.stack([cost0, _pool2(cost1), _pool2(_pool2(cost2))]),
+            dim=0).to(torch.int32)
+        sbf = e4(split_sb)
+
+        def sel(blk, quad, sup):
+            return torch.where(sbf == 2, blk,
+                               torch.where(sbf == 1, e2(quad), e4(sup)))
+
+        mode = sel(mode2, mode1, mode0)
+        use1 = ((mode & 1) != 0).to(torch.int32)
+        use2 = ((mode & 2) != 0).to(torch.int32)
+        is_dc = (mode == 0).to(torch.int32)
+        zero = torch.zeros((ynb, xnb), dtype=torch.int32, device=dev)
+        return {
+            "split": sbf,
+            "pred_mode": mode,
+            "using_global": zero,
+            "dx1": sel(dx1, q1x, s1x) * use1,
+            "dy1": sel(dy1, q1y, s1y) * use1,
+            "dx2": sel(dx2, q2x, s2x) * use2,
+            "dy2": sel(dy2, q2y, s2y) * use2,
+            "dc0": sel(d[0], dq[0], ds[0]) * is_dc,
+            "dc1": sel(d[1], dq[1], ds[1]) * is_dc,
+            "dc2": sel(d[2], dq[2], ds[2]) * is_dc,
+        }
+
+    return body
+
+
+_STEP_CACHE = {}
+
+
+def get_p_step(p: Params, rdo_pick: bool = False, want_recon: bool = True,
+               me_levels: int = 5, block_search_threshold: float = 15.0,
+               scan_distance: float = 4.0, error_power: float = 4.0):
+    """make_p_step, built once per picture variant."""
+    vf = p.video_format
+    key = vf.picture_luma_size() + (
+        p.transform_depth, int(p.wavelet_filter_index), vf.chroma_format,
+        p.mv_precision, p.xbsep_luma, p.ybsep_luma, p.xblen_luma,
+        p.yblen_luma, p.num_refs, want_recon, rdo_pick, me_levels,
+        round(block_search_threshold * 16), round(scan_distance * 4),
+        round(error_power * 16))
+    hit = _STEP_CACHE.get(key)
+    if hit is None:
+        hit = _STEP_CACHE[key] = make_p_step(
+            p, rdo_pick=rdo_pick, want_recon=want_recon, me_levels=me_levels,
+            block_search_threshold=block_search_threshold,
+            scan_distance=scan_distance, error_power=error_power)
+    return hit
+
+
+def make_p_step(p: Params, rdo_pick: bool = False, want_recon: bool = True,
+                me_levels: int = 5, block_search_threshold: float = 15.0,
+                scan_distance: float = 4.0, error_power: float = 4.0):
+    """(front, back, shapes3) of one inter picture with p.num_refs
+    references.
+
+      front(y, u, v, ref1, ref2, lam)
+          -> (flats (3,), preds (3,), fields int16 (10, yb, xb), badblock)
+        y/u/v: u8 plane tensors; ref1/ref2: RefFrame (ref2 None for one
+        reference); lam: float32 scalar tensor, the mode-decision lambda.
+      back(flats, preds, qsel) -> dict
+        qsel is a (3*nb,) int array of quant indices, component-major,
+        or, with rdo_pick, (lam_bands, target_bits, corr_bands): the
+        quant indices are then chosen on the device against this
+        picture's own exact stat tables.  The dict holds qflats (3 int16
+        tensors), recon (3 u8 tensors, None without want_recon), qi_bands
+        (int32 tensor) and, with rdo_pick, rc_bits and rc_err
+        (61, 3*nb)."""
     vf = p.video_format
     depth = p.transform_depth
     wavelet = p.wavelet_filter_index
+    num_refs = p.num_refs
     nb = subband_count(depth)
     xnb, ynb = p.x_num_blocks, p.y_num_blocks
     h_shift = vf.chroma_format.h_shift
@@ -247,9 +444,15 @@ def make_p_step(p: Params, me_levels: int = 5, scan_distance: float = 4.0):
     pic_sizes = [vf.picture_luma_size(), vf.picture_chroma_size(),
                  vf.picture_chroma_size()]
     shapes3 = [_band_shapes(oh, ow, depth) for (oh, ow) in iwt_dims]
-    sizes3 = [np.asarray([h * w for (h, w) in shapes], np.int64)
-              for shapes in shapes3]
-    band_id3 = [np.repeat(np.arange(len(sizes)), sizes) for sizes in sizes3]
+    sizes3 = [[h * w for (h, w) in shapes] for shapes in shapes3]
+    # static (column, lo, hi) slices of the three flats laid end to end;
+    # columns are component-major: ci*nb + band
+    bounds = []
+    boff = 0
+    for ci, sizes in enumerate(sizes3):
+        for bi, bn in enumerate(sizes):
+            bounds.append((ci * nb + bi, boff, boff + bn))
+            boff += bn
 
     pw0, ph0 = vf.picture_luma_size()
     # magic_scan_distance drives the exhaustive coarse-scan radius
@@ -260,30 +463,68 @@ def make_p_step(p: Params, me_levels: int = 5, scan_distance: float = 4.0):
     subpel_body = (me_mod.make_subpel_body(
         ph0, pw0, p.xbsep_luma, p.ybsep_luma, xnb, ynb, p.mv_precision)
         if p.mv_precision > 0 else None)
-    rd_split_body = make_rd_split_body(p)
-    render_body = obmc.make_render_body(p, 1)
+    rd_split_body = (make_rd_split_body(p) if num_refs == 1
+                     else make_rd_split_body2(p))
+    render_body = obmc.make_render_body(p, num_refs)
     pad_h, pad_w = p.ybsep_luma * ynb, p.xbsep_luma * xnb
+    rd_margin = me_mod.ME_BOUND_PEL + 16
+    bb_thr = int(block_search_threshold * p.xbsep_luma * p.ybsep_luma)
+    consts = {}     # device -> (QF, QO, per-component band-size tensors)
 
-    def front(y, u, v, ref_y, up_y, up_u, up_v, qi_bands):
-        dev = y.device
-        dy, dx, sad_mc = me_body(y, ref_y)
+    def device_consts(dev):
+        hit = consts.get(dev)
+        if hit is None:
+            hit = consts[dev] = (
+                torch.as_tensor(tables.QUANT_FACTOR, dtype=torch.int32,
+                                device=dev),
+                torch.as_tensor(tables.QUANT_OFFSET_3_8, dtype=torch.int32,
+                                device=dev),
+                [torch.as_tensor(sizes, device=dev) for sizes in sizes3])
+        return hit
+
+    def me_pass(y, ref: RefFrame):
+        with record_function("me_pass"):
+            dy, dx, sad = me_body(y, ref.planes[0])
+            if subpel_body is not None:
+                dy, dx, sad = subpel_body(y, ref.get_upsampled()[0], dy, dx)
+            return dy, dx, sad
+
+    def padref(r):
+        h, w = r.shape
+        return pad_edge(pad_edge(r, 0, pad_h - h, 0, pad_w - w),
+                        rd_margin, rd_margin, rd_margin, rd_margin)
+
+    def front(y, u, v, ref1, ref2, lam):
+        dy, dx, sad_mc = me_pass(y, ref1)
         sad_dc, mean_y = _dc_stats(y, p.ybsep_luma, p.xbsep_luma, ynb, xnb)
         mean_u = _block_means(u, p.ybsep_luma >> v_shift,
                               p.xbsep_luma >> h_shift, ynb, xnb)
         mean_v = _block_means(v, p.ybsep_luma >> v_shift,
                               p.xbsep_luma >> h_shift, ynb, xnb)
-        if subpel_body is not None:
-            dy, dx, sad_mc = subpel_body(y, up_y, dy, dx)
-        # RD lambda scales with the quant step (QF/4), ~step/2 SAD per bit
-        lam = torch.tensor(
-            np.float32(tables.QUANT_FACTOR[int(np.max(qi_bands[:nb]))])
-            / np.float32(8.0), dtype=torch.float32, device=dev)
         cpad = pad_edge(y, 0, pad_h - y.shape[0], 0,
                         pad_w - y.shape[1]).to(torch.int32)
-        fields = rd_split_body(cpad, ref_y, dy, dx, sad_mc, sad_dc,
-                               mean_y, mean_u, mean_v, lam)
+        best_pred = torch.minimum(sad_mc, sad_dc)
+        if num_refs == 1:
+            with record_function("rd_split"):
+                fields = rd_split_body(cpad, ref1.planes[0], dy, dx, sad_mc,
+                                       sad_dc, mean_y, mean_u, mean_v, lam)
+        else:
+            dy2, dx2, sad2 = me_pass(y, ref2)
+            with record_function("rd_split"):
+                fields = rd_split_body(
+                    cpad, padref(ref1.planes[0]), padref(ref2.planes[0]),
+                    dy, dx, sad_mc, dy2, dx2, sad2, sad_dc, mean_y, mean_u,
+                    mean_v, lam)
+            best_pred = torch.minimum(best_pred, sad2)
+        # badblock ratio (schromotionest.c:114-126 via
+        # magic_block_search_threshold): share of blocks whose best
+        # available prediction SAD exceeds threshold x block area
+        badblock = (best_pred > bb_thr).to(torch.float32).mean()
 
-        preds = render_body(fields, (up_y, up_u, up_v), None)
+        with record_function("render"):
+            preds = render_body(
+                fields, tuple(ref1.get_upsampled()),
+                tuple(ref2.get_upsampled()) if ref2 is not None else None)
         flats = []
         for plane, pred, (oh, ow) in zip((y, u, v), preds, iwt_dims):
             res = plane.to(torch.int16) - 128 - pred.to(torch.int16)
@@ -291,38 +532,64 @@ def make_p_step(p: Params, me_levels: int = 5, scan_distance: float = 4.0):
             flats.append(sl.flatten_pyramid(pyr, depth)[0])
         f16 = torch.stack([fields[k].to(torch.int16)
                            for k in _P_FIELD_ORDER])
-        return tuple(flats), tuple(preds), f16
+        return tuple(flats), tuple(preds), f16, badblock
 
-    def back(flats, preds, qi_bands):
+    def back(flats, preds, qsel):
         dev = flats[0].device
-        QF = torch.as_tensor(tables.QUANT_FACTOR, dtype=torch.int32,
-                             device=dev)
-        QO = torch.as_tensor(tables.QUANT_OFFSET_3_8, dtype=torch.int32,
-                             device=dev)
+        QF, QO, sizes_t = device_consts(dev)
+        out = {"rc_bits": None, "rc_err": None, "lam_scale": None}
+        if rdo_pick:
+            lam_bands, target_bits, corr_bands = qsel
+            with record_function("stat_tables"):
+                rc_bits, rc_err = band_tables(
+                    torch.cat(flats), bounds, 3 * nb, False, error_power)
+            with record_function("rd_pick"):
+                qi_t, s_fit = rd_pick(rc_bits, rc_err, lam_bands,
+                                      corr_bands, target_bits, s_hi=1.0)
+                lam_fit = s_fit * lam_bands
+                if target_bits > 0:
+                    # the JAX step scales its lambdas by the fitted s
+                    # and then picks at s once more, so its final pick
+                    # runs at s squared (its intra step picks at s).
+                    # The port does the same: it is held to that
+                    # encoder's streams
+                    qi_t, _ = rd_pick(rc_bits, rc_err, s_fit * lam_fit,
+                                      corr_bands)
+            out.update(rc_bits=rc_bits, rc_err=rc_err, lam_scale=s_fit)
+        else:
+            qi_t = torch.as_tensor(np.asarray(qsel, np.int32), device=dev)
+        out["qi_bands"] = qi_t
+        qi_t = qi_t.long()
         outq = []
         outr = []
-        for ci, (flat, pred, shapes, (wpic, hpic)) in enumerate(
-                zip(flats, preds, shapes3, pic_sizes)):
-            qi_c = np.asarray(qi_bands[ci * nb:(ci + 1) * nb], np.int64)
-            band_id = torch.as_tensor(qi_c[band_id3[ci]], device=dev)
-            qf = QF[band_id]
-            qo = QO[band_id]
-            qq = q.quantise(flat, qf, qo)
-            outq.append(qq.to(torch.int16))
-            dq = q.dequantise(qq, qf, qo).to(torch.int16)
-            rres = _inverse(sl.arrays_to_pyramid(
-                sl.unflatten(dq, shapes), depth), wavelet)
-            rec = (rres[:hpic, :wpic].to(torch.int32)
-                   + pred.to(torch.int32) + 128)
-            outr.append(rec.clamp(0, 255).to(torch.uint8))
-        return tuple(outq), tuple(outr)
+        with record_function("quantise_recon"):
+            for ci, (flat, pred, shapes, (wpic, hpic)) in enumerate(
+                    zip(flats, preds, shapes3, pic_sizes)):
+                qi_c = qi_t[ci * nb:(ci + 1) * nb]
+                n = int(flat.numel())
+                qf = torch.repeat_interleave(QF[qi_c], sizes_t[ci],
+                                             output_size=n)
+                qo = torch.repeat_interleave(QO[qi_c], sizes_t[ci],
+                                             output_size=n)
+                qq = q.quantise(flat, qf, qo)
+                outq.append(qq.to(torch.int16))
+                if not want_recon:
+                    continue
+                dq = q.dequantise(qq, qf, qo).to(torch.int16)
+                rres = _inverse(sl.arrays_to_pyramid(
+                    sl.unflatten(dq, shapes), depth), wavelet)
+                rec = (rres[:hpic, :wpic].to(torch.int32)
+                       + pred.to(torch.int32) + 128)
+                outr.append(rec.clamp(0, 255).to(torch.uint8))
+        out["qflats"] = tuple(outq)
+        out["recon"] = tuple(outr) if want_recon else None
+        return out
 
     return front, back, shapes3
 
 
 def write_prediction_parameters(w: BitWriter, p: Params) -> None:
-    """Mirror of read_picture_prediction_parameters (one-ref, no global
-    motion)."""
+    """Mirror of read_picture_prediction_parameters (no global motion)."""
     if p.have_global_motion:
         raise NotImplementedError("global motion is not ported")
     blocks = [(0, 0, 0, 0), (8, 8, 4, 4), (12, 12, 8, 8),
@@ -355,38 +622,108 @@ def _to_device_planes(planes_u8, device):
 
 
 def start_inter_picture(planes_u8, p: Params, ref1: RefFrame,
-                        base_qi: int = 20, me_levels: int = 5,
-                        scan_distance: float = 4.0) -> dict:
-    """Queue the device work of one P picture (nothing waits for the
+                        base_qi: int = 20, ref2: Optional[RefFrame] = None,
+                        want_recon: bool = True, lam_bands=None,
+                        me_lam: Optional[float] = None, me_levels: int = 5,
+                        block_search_threshold: float = 15.0,
+                        scan_distance: float = 4.0, error_power: float = 4.0,
+                        target_bits: float = 0.0, corr_bands=None,
+                        device=None) -> dict:
+    """Queue the device work of one inter picture (nothing waits for the
     device).  The pending dict's `recon` tensors can serve as the next
-    picture's reference at once.  Tensors run on ref1's device."""
+    picture's reference at once.  ref2 runs the two-reference step
+    (tworef P and B pictures); want_recon=False skips the reconstruction
+    of a non-reference picture.  `device` None means the card; the
+    references must lie there.
+
+    lam_bands: (nb,) or (3*nb,) per-band RD lambdas -> the quant indices
+    are chosen on the device against this picture's own exact stat tables
+    (the reference's current-frame estimate tables,
+    schroquantiser.c:772-780), with corr_bands scaling the bit estimates
+    and target_bits > 0 engaging the lambda fit; only the lambda crosses
+    pictures.  Without lam_bands the picture is coded at base_qi less the
+    quant matrix."""
+    dev = resolve_device(device)
+    if (ref2 is None) != (p.num_refs == 1):
+        raise ValueError(f"p.num_refs={p.num_refs} does not match the "
+                         "references given")
+    for ref in (ref1, ref2):
+        if ref is not None and ref.planes[0].device.type != dev.type:
+            raise ValueError(f"reference on {ref.planes[0].device}, "
+                             f"picture on {dev}")
     nb = subband_count(p.transform_depth)
     qm = np.asarray(p.quant_matrix[:nb], np.int32)
-    qi_bands = np.tile(np.clip(base_qi - qm, 0, 60), 3).astype(np.int32)
-    front, back, shapes3 = make_p_step(p, me_levels=me_levels,
-                                       scan_distance=scan_distance)
-    dev = ref1.planes[0].device
+    rdo_pick = lam_bands is not None
+    front, back, shapes3 = get_p_step(
+        p, rdo_pick=rdo_pick, want_recon=want_recon, me_levels=me_levels,
+        block_search_threshold=block_search_threshold,
+        scan_distance=scan_distance, error_power=error_power)
     y, u, v = _to_device_planes(planes_u8, dev)
-    ups = ref1.get_upsampled()
-    flats, preds, f16 = front(y, u, v, ref1.planes[0], ups[0], ups[1],
-                              ups[2], qi_bands)
-    qflats, recon = back(flats, preds, qi_bands)
-    return {"p": p, "qi_bands": qi_bands, "shapes3": shapes3,
-            "fields": f16, "qflats": qflats, "recon": recon}
+    if rdo_pick:
+        lam_bands = np.asarray(lam_bands, np.float64)
+        if lam_bands.size == nb:
+            lam_bands = np.tile(lam_bands, 3)
+        cb = (np.ones(3 * nb) if corr_bands is None
+              else np.asarray(corr_bands, np.float64))
+        qsel = (torch.as_tensor(lam_bands.astype(np.float32), device=dev),
+                float(np.float32(target_bits or 0.0)),
+                torch.as_tensor(cb.astype(np.float32), device=dev))
+        lam = np.float32(me_lam if me_lam is not None
+                         else float(tables.QUANT_FACTOR[base_qi]) / 8.0)
+        qi_bands = None
+    else:
+        qi_bands = np.tile(np.clip(base_qi - qm, 0, 60), 3).astype(np.int32)
+        qsel = qi_bands
+        # RD lambda scales with the quant step (QF/4), ~step/2 SAD per bit
+        lam = (np.float32(tables.QUANT_FACTOR[int(np.max(qi_bands[:nb]))])
+               / np.float32(8.0))
+    lam = torch.tensor(lam, dtype=torch.float32, device=dev)
+    flats, preds, f16, badblock = front(y, u, v, ref1, ref2, lam)
+    outs = back(flats, preds, qsel)
+    return {"p": p, "qi_bands": qi_bands, "shapes3": shapes3, "nb": nb,
+            "fields": f16, "badblock": badblock, "rdo": rdo_pick,
+            "qflats": outs["qflats"], "recon": outs["recon"],
+            "qi_dev": outs["qi_bands"], "rc_bits": outs["rc_bits"],
+            "rc_err": outs["rc_err"], "lam_scale_dev": outs["lam_scale"],
+            "target_bits": qsel[1] if rdo_pick else None}
 
 
 def finish_inter_picture(pending: dict, frame_number: int, ref1_num: int,
                          is_ref: bool = True,
-                         retired: Optional[int] = None):
-    """Fetch the picture's fields and quantised bands (one copy to the
-    host) and entropy-code the parse unit.  Returns the unit's bytes and
-    sets pending["dc_ratio"]."""
+                         retired: Optional[int] = None,
+                         ref2_num: Optional[int] = None):
+    """Fetch the picture's fields, quant indices and quantised bands (one
+    int16 copy to the host, and one float32 copy of the bits table) and
+    entropy-code the parse unit.  Returns the unit's bytes and sets
+    pending["dc_ratio"], ["badblock_ratio"], ["qi_bands"],
+    ["band_bits_actual"], ["band_bits_est"] and ["lam_scale"] (the scale
+    the lambda fit settled on; 1 where target_bits was 0, None without
+    the RD pick)."""
     f16 = pending["fields"]
     qflats = pending["qflats"]
+    nb = pending["nb"]
     nf, yb, xb = f16.shape
-    wire = torch.cat([f16.reshape(-1), *qflats]).cpu().numpy()
+    with record_function("p_transfer"):
+        wire = torch.cat([f16.reshape(-1),
+                          pending["qi_dev"].to(torch.int16),
+                          *qflats]).cpu().numpy()
+        rc0 = None
+        pending["lam_scale"] = None
+        if pending["rdo"]:
+            fw = torch.cat([pending["rc_bits"].reshape(-1),
+                            pending["badblock"].reshape(1),
+                            pending["lam_scale_dev"].reshape(1)]
+                           ).cpu().numpy()
+            rc0 = fw[:-2].reshape(61, 3 * nb)
+            pending["badblock_ratio"] = float(fw[-2])
+            pending["lam_scale"] = float(fw[-1])
+        else:
+            pending["badblock_ratio"] = float(pending["badblock"].cpu())
     off = nf * yb * xb
     fields = wire[:off].reshape(nf, yb, xb)
+    qi_bands = wire[off:off + 3 * nb].astype(np.int32)
+    off += 3 * nb
+    pending["qi_bands"] = qi_bands
     host_q = []
     for qf in qflats:
         host_q.append(wire[off:off + qf.numel()])
@@ -396,21 +733,34 @@ def finish_inter_picture(pending: dict, frame_number: int, ref1_num: int,
     # DC-block ratio: the reference's intra-bailout signal
     # (schroencoder.c:2373-2384)
     pending["dc_ratio"] = float(np.mean(mv["pred_mode"] == 0))
-    return _write_p_unit(pending["p"], frame_number, [ref1_num], is_ref,
-                         retired, mv, host_q, pending["shapes3"],
-                         pending["qi_bands"])
+    refs = [ref1_num] if ref2_num is None else [ref1_num, ref2_num]
+    unit, band_bits = _write_p_unit(pending["p"], frame_number, refs, is_ref,
+                                    retired, mv, host_q, pending["shapes3"],
+                                    qi_bands)
+    # per-(component, band) actual and estimated coded bits at the picked
+    # quant indices, for the arith-correction EMA tables
+    # (schroencoder.c:2548-2590 analog): row qi of the bits table, column
+    # j, is the estimate of coding band j at its picked index
+    pending["band_bits_actual"] = band_bits
+    pending["band_bits_est"] = (
+        rc0[np.clip(qi_bands, 0, 60), np.arange(3 * nb)]
+        if rc0 is not None and rc0.any() else None)
+    return unit
 
 
 def encode_inter_picture(planes_u8, p: Params, frame_number: int,
                          ref1_num: int, ref1: RefFrame,
                          base_qi: int = 20, is_ref: bool = True,
                          retired: Optional[int] = None, me_levels: int = 5,
-                         scan_distance: float = 4.0):
-    """Encode one P picture (start + finish).  Returns (parse_unit_bytes,
+                         scan_distance: float = 4.0, device=None, **quant):
+    """Encode one P picture (start + finish).  `quant` passes on to
+    start_inter_picture (lam_bands, corr_bands, target_bits, me_lam,
+    block_search_threshold, error_power).  Returns (parse_unit_bytes,
     recon_planes, dc_ratio)."""
     pend = start_inter_picture(planes_u8, p, ref1, base_qi=base_qi,
                                me_levels=me_levels,
-                               scan_distance=scan_distance)
+                               scan_distance=scan_distance, device=device,
+                               **quant)
     unit = finish_inter_picture(pend, frame_number, ref1_num,
                                 is_ref=is_ref, retired=retired)
     return unit, pend["recon"], pend["dc_ratio"]
@@ -418,9 +768,13 @@ def encode_inter_picture(planes_u8, p: Params, frame_number: int,
 
 def _write_p_unit(p: Params, frame_number: int, refs, is_ref: bool,
                   retired: Optional[int], mv, host_q, shapes3, qi_bands):
-    """Host entropy coding + parse-unit assembly for an inter picture.
+    """Host entropy coding + parse-unit assembly for an inter picture
+    with len(refs) references.
 
-    qi_bands: (3*nb,) quant indices, component-major."""
+    qi_bands: (3*nb,) quant indices, component-major.  Returns
+    (unit_bytes, band_bits): band_bits is the (3*nb,) per-(component,
+    band) coded payload bits (actual_subband_bits analog,
+    schroencoder.c:2532-2546) that feed the arith-correction EMA."""
     if p.is_noarith:
         raise NotImplementedError("no-arith inter coding is not ported")
     nb = subband_count(p.transform_depth)
@@ -464,6 +818,7 @@ def _write_p_unit(p: Params, frame_number: int, refs, is_ref: bool,
         w.write_uint(p.codeblock_mode_index)
     w.sync()
 
+    band_bits = np.zeros(3 * nb, np.float64)
     for comp in range(3):
         bands = sl.unflatten(host_q[comp], shapes3[comp])
         for index in range(nb):
@@ -483,6 +838,7 @@ def _write_p_unit(p: Params, frame_number: int, refs, is_ref: bool,
                     qdata, parent_q, position, hcb, vcb,
                     p.codeblock_mode_index == 1,
                     np.full((vcb, hcb), qi, np.int32))
+            band_bits[comp * nb + index] = 8 * len(payload)
             w.write_uint(len(payload))
             if first_qi == -1:
                 first_qi = qi
@@ -490,4 +846,4 @@ def _write_p_unit(p: Params, frame_number: int, refs, is_ref: bool,
             w.sync()
             w.write_bytes(bytes(payload))
     w.sync()
-    return w.get_bytes()
+    return w.get_bytes(), band_bits

@@ -10,6 +10,11 @@ tensor never takes the plain path: the wrapper launches or raises.
 
 LAUNCHES counts kernel launches (and nothing else), so a run can show
 that its ME went through the kernel.
+
+`patch_refine_probe` launches one of the kernel's four compile-time cost
+variants (the port of the TPU probe `tools/profile_pk_parts.py:113`; see
+the source's head and `tools/profile_patch_refine.py`); PROBE_LAUNCHES
+counts those launches.
 """
 from __future__ import annotations
 
@@ -33,6 +38,10 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-O3",
               "-std=c++17", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 LAUNCHES = 0        # kernel launches since import (or the last reset)
+PROBE_LAUNCHES = 0  # launches of the cost probe's variants, likewise
+# the probe's variants, by their number in the source; only "full" gives
+# right answers
+PROBE_VARIANTS = ("full", "nostage", "nosad", "onewindow")
 BUILD_LOG = ""      # nvcc's output of the last build (ptxas usage lines)
 LIBRARY = None      # path of the built library, set by build()
 
@@ -87,6 +96,9 @@ def _load():
         vp, ci = ctypes.c_void_p, ctypes.c_int
         lib.patch_refine_launch.argtypes = [vp] * 7 + [ci] * 8 + [vp]
         lib.patch_refine_launch.restype = ci
+        lib.patch_refine_probe_launch.argtypes = [ci] + [vp] * 7 + [ci] * 8 \
+            + [vp]
+        lib.patch_refine_probe_launch.restype = ci
         _lib = lib
     return _lib
 
@@ -139,10 +151,10 @@ def _check(name, t, dtype, shape, device):
         raise ValueError(f"patch_refine: {name} is not contiguous")
 
 
-def patch_refine_cuda(cur_blocks, P, mv_y, mv_x, nby, nbx, bs_y, bs_x, rad,
-                      margin):
-    """Launch the CUDA kernel (no plain fallback).  P must be u8."""
-    global LAUNCHES
+def _launch(variant, cur_blocks, P, mv_y, mv_x, nby, nbx, bs_y, bs_x, rad,
+            margin):
+    """Check the arguments and launch the kernel (variant None) or the
+    probe's variant of that number.  Returns the three output tensors."""
     dev = cur_blocks.device
     if dev.type != "cuda":
         raise ValueError(f"patch_refine_cuda: tensors on {dev}")
@@ -160,16 +172,40 @@ def patch_refine_cuda(cur_blocks, P, mv_y, mv_x, nby, nbx, bs_y, bs_x, rad,
     outs = [torch.empty((nby, nbx), dtype=torch.int32, device=dev)
             for _ in range(3)]
     stream = torch.cuda.current_stream(dev).cuda_stream
-    err = _load().patch_refine_launch(
-        cur_blocks.data_ptr(), P.data_ptr(), mv_y.data_ptr(),
-        mv_x.data_ptr(), outs[0].data_ptr(), outs[1].data_ptr(),
-        outs[2].data_ptr(), nby, nbx, bs_y, bs_x, rad, margin, Ph, Pw,
-        stream)
+    args = (cur_blocks.data_ptr(), P.data_ptr(), mv_y.data_ptr(),
+            mv_x.data_ptr(), outs[0].data_ptr(), outs[1].data_ptr(),
+            outs[2].data_ptr(), nby, nbx, bs_y, bs_x, rad, margin, Ph, Pw,
+            stream)
+    if variant is None:
+        err = _load().patch_refine_launch(*args)
+    else:
+        err = _load().patch_refine_probe_launch(variant, *args)
     if err != 0:
         raise RuntimeError(f"patch_refine kernel launch failed: CUDA error "
                            f"{err}")
-    LAUNCHES += 1
     return tuple(outs)
+
+
+def patch_refine_cuda(cur_blocks, P, mv_y, mv_x, nby, nbx, bs_y, bs_x, rad,
+                      margin):
+    """Launch the CUDA kernel (no plain fallback).  P must be u8."""
+    global LAUNCHES
+    outs = _launch(None, cur_blocks, P, mv_y, mv_x, nby, nbx, bs_y, bs_x,
+                   rad, margin)
+    LAUNCHES += 1
+    return outs
+
+
+def patch_refine_probe(variant: str, cur_blocks, P, mv_y, mv_x, nby, nbx,
+                       bs_y, bs_x, rad, margin):
+    """Launch one cost variant of the kernel (PROBE_VARIANTS) on CUDA
+    tensors.  Same arguments and outputs as patch_refine_cuda; only
+    "full" computes the search, the others exist to be timed."""
+    global PROBE_LAUNCHES
+    outs = _launch(PROBE_VARIANTS.index(variant), cur_blocks, P, mv_y, mv_x,
+                   nby, nbx, bs_y, bs_x, rad, margin)
+    PROBE_LAUNCHES += 1
+    return outs
 
 
 def patch_refine(cur_blocks, P, mv_y, mv_x, nby, nbx, bs_y, bs_x, rad,

@@ -15,7 +15,7 @@ the same bits as the wrapping int32 arithmetic of the JAX version.
 """
 import torch
 
-from schroedinger_tpu import tables
+from schroedinger_tpu_torch import tables
 
 
 def wrap32(x):

@@ -18,7 +18,7 @@ from __future__ import annotations
 
 import torch
 
-from schroedinger_tpu.wavelets import HAS_SHIFT, Wavelet
+from schroedinger_tpu_torch.wavelets import HAS_SHIFT, Wavelet
 
 
 def _shift_edge(x, off: int, axis: int):

@@ -1,13 +1,21 @@
 """Where the time of the 1080p slice goes, on one NVIDIA GPU.
 
-    python -m schroedinger_tpu_torch.profile_slice [--frames 6] [--out DIR]
+    python -m schroedinger_tpu_torch.profile_slice
+        [--config backref|flagship|draining]
+        [--frames N] [--out DIR]
 
-Encodes pan + noise 1080p25 4:2:0 frames with the port's GopEncoder
-(backref, fixed quantisers, quarter-pel MVs, MD5) under torch.profiler
-after a 2-frame warm-up, then decodes the stream the same way.  Prints,
-per run: wall time, the device's busy time (union of kernel intervals)
-and idle share, the host time in the entropy-coding calls, and the top
-kernels (not aten ops) by device time.  Writes a Chrome trace of the encode to DIR.
+Encodes pan + noise 1080p25 4:2:0 frames with the port's GopEncoder under
+torch.profiler after a warm-up, then decodes the stream the same way.
+`--config backref` (6 frames, 2 of warm-up) is the fixed-quantiser
+I P P P slice; `--config flagship` (13 frames, 6 of warm-up) the biref
+TM5 CBR encode with the on-device RD pick; `--config draining` (9 frames,
+6 of warm-up) the flagship at 1 Mbit/s with a half-empty reservoir, where
+the RD pick runs its 22-step lambda fit.  Prints, per run: wall time,
+the device's busy time (union of kernel intervals) and idle share, the
+host time in the entropy-coding calls and in the encoder's stage spans
+(each ME pass, the RD split, the render, the stat tables, the RD pick,
+quantise + reconstruction, the fetch), and the top kernels (not aten ops)
+by device time.  Writes a Chrome trace of the encode to DIR.
 """
 from __future__ import annotations
 
@@ -21,15 +29,32 @@ from torch.profiler import ProfilerActivity, profile
 
 from schroedinger_tpu_torch.decoder.core import StreamDecoder
 from schroedinger_tpu_torch.encoder.gop import GopEncoder
-from schroedinger_tpu_torch.slice_config import (CONFIG, make_frames,
-                                                 video_format)
+from schroedinger_tpu_torch.slice_config import (CONFIG, CONFIG_FLAGSHIP,
+                                                 CONFIG_FLAGSHIP_DRAINING,
+                                                 make_frames, video_format)
+
+# name -> (encoder options, frames, warm-up frames)
+CONFIGS = {"backref": (CONFIG, 6, 2), "flagship": (CONFIG_FLAGSHIP, 13, 6),
+           "draining": (CONFIG_FLAGSHIP_DRAINING, 9, 6)}
+# record_function spans of the port: host entropy coding, then the inter
+# and intra steps' stages (host time of a stage = its enqueue, not the
+# device's work)
+HOST_SPANS = ("encode_subband_arith", "decode_subband_arith",
+              "motion_encode", "motion_decode", "frame_md5")
+STAGE_SPANS = ("me_pass", "rd_split", "render", "stat_tables", "rd_pick",
+               "quantise_recon", "p_transfer")
+
+
+_CUDA = torch.autograd.DeviceType.CUDA
 
 
 def _device_busy_us(prof):
-    """Union of the device kernel/memcpy intervals, in microseconds."""
+    """Union of the device kernel/memcpy intervals, in microseconds (the
+    device-side mirrors of record_function spans are no work and are left
+    out)."""
     spans = sorted((e.time_range.start, e.time_range.end)
                    for e in prof.events()
-                   if e.device_type == torch.autograd.DeviceType.CUDA)
+                   if e.device_type == _CUDA and not e.is_user_annotation)
     busy, cur_s, cur_e = 0.0, None, None
     for s, e in spans:
         if cur_e is None or s > cur_e:
@@ -51,22 +76,37 @@ def _report(tag, prof, wall_s, n_frames):
           f"{1 - busy_us / 1e6 / wall_s:.3f}; {n_dev} device events "
           f"({n_dev / n_frames:.0f} per frame)", flush=True)
     avg = prof.key_averages()
-    host = {k.key: k.cpu_time_total for k in avg}
-    for name in ("encode_subband_arith", "decode_subband_arith",
-                 "motion_encode", "motion_decode", "frame_md5"):
+    # a record_function span has a host row (its time on the host clock
+    # and the time of the kernels launched under it) and a device-side
+    # mirror (first to last of those kernels on the device's timeline)
+    host = {k.key: k for k in avg if k.device_type != _CUDA}
+    mirror = {k.key: k for k in avg
+              if k.device_type == _CUDA and k.is_user_annotation}
+    for name in HOST_SPANS + STAGE_SPANS:
         if name in host:
-            print(f"{tag}: host {name} {host[name] / 1e3:.1f} ms", flush=True)
+            k = host[name]
+            line = (f"{tag}: span {name} x{k.count}: host "
+                    f"{k.cpu_time_total / 1e3:.1f} ms, kernels under it "
+                    f"{k.device_time_total / 1e3:.1f} ms")
+            if name in mirror:
+                line += (f", on the device's timeline "
+                         f"{mirror[name].device_time_total / 1e3:.1f} ms")
+            print(line, flush=True)
     rows = sorted((k for k in avg if k.device_time_total > 0
-                   and not k.key.startswith("aten::")),
+                   and k.device_type == _CUDA and not k.is_user_annotation),
                   key=lambda k: -k.device_time_total)[:12]
-    for k in rows:
+    # the port's own kernels always, then the top rows
+    own = [k for k in avg if k.device_type == _CUDA
+           and "patch_refine" in k.key and k not in rows]
+    for k in own + rows:
         print(f"{tag}: device {k.device_time_total / 1e3:8.2f} ms "
               f"{k.count:6d}x {k.key[:90]}", flush=True)
 
 
 def main() -> int:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--frames", type=int, default=6)
+    ap.add_argument("--config", choices=sorted(CONFIGS), default="backref")
+    ap.add_argument("--frames", type=int, default=None)
     ap.add_argument("--out", default=os.path.join("build", "traces"))
     a = ap.parse_args()
     if not torch.cuda.is_available():
@@ -75,12 +115,13 @@ def main() -> int:
                            "--format=csv,noheader"], capture_output=True,
                           text=True, check=True).stdout.strip()
     print(f"card: {card}", flush=True)
+    config, n_frames, n_warm = CONFIGS[a.config]
     vf = video_format(1920, 1080)
-    frames = make_frames(a.frames, 1920, 1080)
-    GopEncoder(vf, device="cuda", **CONFIG).encode_stream(frames[:2])
+    frames = make_frames(a.frames or n_frames, 1920, 1080)
+    GopEncoder(vf, device="cuda", **config).encode_stream(frames[:n_warm])
     torch.cuda.synchronize()
 
-    enc = GopEncoder(vf, device="cuda", **CONFIG)
+    enc = GopEncoder(vf, device="cuda", **config)
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -88,8 +129,13 @@ def main() -> int:
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     _report("encode", prof, wall, len(frames))
+    fitted = [f for f in enc.stats.frames if (f.get("target_bits") or 0) > 0]
+    print(f"encode: the lambda fit ran on {len(fitted)} pictures and bound "
+          f"(scale < 0.99) on "
+          f"{sum(1 for f in fitted if f['lam_scale'] < 0.99)}", flush=True)
     os.makedirs(a.out, exist_ok=True)
-    prof.export_chrome_trace(os.path.join(a.out, "encode_trace.json"))
+    prof.export_chrome_trace(
+        os.path.join(a.out, f"encode_trace_{a.config}.json"))
 
     dec = StreamDecoder(device="cuda")
     with profile(activities=[ProfilerActivity.CPU,

@@ -1,18 +1,31 @@
-"""The port's slice: the encoder configuration and its input frames.
+"""The port's slices: the encoder configurations and their input frames.
 
 `GopEncoder(video_format(w, h), device=..., **CONFIG)` is the
 fixed-quantiser backref long-GOP encode (quarter-pel MVs, MD5 aux
-units) that the smoke run, the profiler and the parity tests drive;
-`make_frames` makes their pan + noise input from a seed.
+units); `**CONFIG_FLAGSHIP` is the flagship: the biref engine (I, two-
+reference P, subgroups of three two-reference B pictures) under TM5 CBR
+at 8 Mbit/s and 25 frames/s with the on-device RD pick, MD5 on so that a
+decoder can check every picture.  The smoke run, the profiler and the
+parity tests drive both; `make_frames` makes their pan + noise input from
+a seed.  `**CONFIG_FLAGSHIP_DRAINING` is the flagship at 1 Mbit/s with
+its reservoir half empty at the start: at 1080p the per-picture lambda
+fit then binds (the reservoir is below 0.7 of its size and a P picture's
+allocation is less than its cost at the controller's lambda), which the
+full reservoir of a stream's first pictures never shows.
 """
 from __future__ import annotations
 
 import numpy as np
 
-from schroedinger_tpu.video_format import ChromaFormat, VideoFormat
+from schroedinger_tpu_torch.video_format import ChromaFormat, VideoFormat
 
 CONFIG = dict(gop_structure="backref", bitrate=0, mv_precision=2,
               enable_md5=True)
+CONFIG_FLAGSHIP = dict(gop_structure="biref", bitrate=8_000_000, fps=25,
+                       mv_precision=2, gop_length=24, subgroup_length=4,
+                       enable_md5=True, enable_b_batch=False)
+CONFIG_FLAGSHIP_DRAINING = dict(CONFIG_FLAGSHIP, bitrate=1_000_000,
+                                buffer_level=1_500_000)
 
 
 def video_format(width, height):

@@ -1,7 +1,8 @@
 """Card-only checks of the port (marked `cuda`; they skip without a GPU).
 
-The patch-refine CUDA kernel against its plain PyTorch version, and a
-small stream encoded on the card against the CPU encode.  This file
+The patch-refine CUDA kernel and its cost probe against the plain PyTorch
+version, small streams of both slices encoded on the card against the CPU
+encode, and the entry points' default device.  This file
 imports no JAX, so it also runs where only PyTorch is installed:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py -q
@@ -14,8 +15,8 @@ from schroedinger_tpu_torch.decoder.core import StreamDecoder
 from schroedinger_tpu_torch.encoder import me as me_mod
 from schroedinger_tpu_torch.encoder.gop import GopEncoder
 from schroedinger_tpu_torch.ops import patch_refine as pr
-from schroedinger_tpu_torch.slice_config import (CONFIG, make_frames,
-                                                 video_format)
+from schroedinger_tpu_torch.slice_config import (CONFIG, CONFIG_FLAGSHIP,
+                                                 make_frames, video_format)
 
 
 @pytest.fixture
@@ -86,3 +87,78 @@ def test_small_stream_on_card_equals_cpu(cuda_device):
     dec = StreamDecoder(device=cuda_device)
     out = dec.decode_stream(s_gpu)
     assert len(out) == 4 and dec.md5_failures == [] and dec.errors == []
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bs", [4, 16])
+def test_probe_full_variant_matches_plain(cuda_device, bs):
+    """Of the probe's four variants only `full` computes the search: it
+    equals the plain version; the others launch and are counted."""
+    args = _case(2, bs, False, cuda_device)
+    before = pr.PROBE_LAUNCHES
+    got = pr.patch_refine_probe("full", *args)
+    want = pr.patch_refine_plain(*args)
+    for variant in pr.PROBE_VARIANTS[1:]:
+        outs = pr.patch_refine_probe(variant, *args)
+        assert all(o.shape == w.shape for o, w in zip(outs, want))
+    torch.cuda.synchronize()
+    assert pr.PROBE_LAUNCHES == before + 4
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    with pytest.raises(ValueError):
+        pr.patch_refine_probe("nowindow", *args)
+
+
+def _psnr(a, b):
+    mse = np.mean((a.astype(np.float64) - b.astype(np.float64)) ** 2)
+    return 99.0 if mse == 0 else 10 * np.log10(255.0 ** 2 / mse)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("w,h,rate,level,launches,binds", [
+    (128, 64, 500_000, 0, 2 * (1 + 2 * 7), False),
+    (320, 192, 100_000, 150_000, None, True)],
+    ids=["full-reservoir", "binding-fit"])
+def test_small_flagship_stream_on_card_within_bands_of_cpu(
+        cuda_device, w, h, rate, level, launches, binds):
+    """The biref CBR slice at a small size: float sums differ between the
+    card and the CPU, so the streams are held in bands (luma PSNR within
+    0.7 dB, bytes within 15 %), not bytes; both decode with every MD5
+    matching, and two-reference pictures launch the kernel twice as often
+    as one-reference ones.  With a half-empty reservoir at a rate the
+    content cannot meet, the 22-step lambda fit binds on the card as on
+    the CPU."""
+    frames = make_frames(9, w, h)
+    vf = video_format(w, h)
+    cfg = dict(CONFIG_FLAGSHIP, bitrate=rate, buffer_level=level)
+    before = pr.LAUNCHES
+    e_gpu = GopEncoder(vf, **cfg)                            # device=None
+    s_gpu = e_gpu.encode_stream(frames)
+    # I, one-reference P, 3 B, two-reference P, 3 B; 128x64 has a
+    # 3-level pyramid, so 2 refine launches per reference
+    assert pr.LAUNCHES > before
+    if launches is not None:
+        assert pr.LAUNCHES - before == launches
+    e_cpu = GopEncoder(vf, device="cpu", **cfg)
+    s_cpu = e_cpu.encode_stream(frames)
+    for enc in (e_gpu, e_cpu):
+        scales = [f["lam_scale"] for f in enc.stats.frames
+                  if not f["intra"]]
+        assert len(scales) == 8
+        assert any(s < 0.99 for s in scales) == binds, scales
+    psnrs = []
+    for stream, device in ((s_gpu, None), (s_cpu, "cpu")):
+        dec = StreamDecoder(device=device)
+        out = dec.decode_stream(stream)
+        assert len(out) == 9 and dec.md5_failures == [] and dec.errors == []
+        psnrs.append(np.mean([_psnr(o[0], f[0])
+                              for o, f in zip(out, frames)]))
+    assert abs(psnrs[0] - psnrs[1]) < 0.7
+    assert abs(len(s_gpu) - len(s_cpu)) < 0.15 * len(s_cpu)
+
+
+@pytest.mark.cuda
+def test_entry_points_default_to_the_card(cuda_device):
+    enc = GopEncoder(video_format(128, 64), **CONFIG)
+    dec = StreamDecoder()
+    assert enc.device.type == "cuda" and dec.device.type == "cuda"

@@ -6,7 +6,8 @@ aux units) and the decode of its stream, at 128x64.
   (b) the JAX decoder decodes the port's stream with no MD5 failure;
   (c) the port's decoder decodes the JAX stream to the JAX decoder's
       planes;
-  (d) importing and running the port leaves jax unimported;
+  (d) importing and running the port (both slices) leaves jax and the
+      JAX package unimported;
   (e) reference state carried across with convert.py seeds the port's
       inter step to the JAX step's exact output.
 """
@@ -95,8 +96,8 @@ def test_d_port_runs_without_jax():
         sys.path.insert(0, {REPO!r})
         from schroedinger_tpu_torch.decoder.core import StreamDecoder
         from schroedinger_tpu_torch.encoder.gop import GopEncoder
-        from schroedinger_tpu_torch.slice_config import (CONFIG, make_frames,
-                                                         video_format)
+        from schroedinger_tpu_torch.slice_config import (
+            CONFIG, CONFIG_FLAGSHIP, make_frames, video_format)
         frames = make_frames(3, 64, 64)
         s = GopEncoder(video_format(64, 64), device="cpu",
                        **CONFIG).encode_stream(frames)
@@ -105,6 +106,18 @@ def test_d_port_runs_without_jax():
         assert len(out) == 3 and d.md5_failures == [] and d.errors == []
         assert "jax" not in sys.modules, sorted(
             m for m in sys.modules if m.startswith("jax"))
+        flag = make_frames(6, 64, 64)
+        s = GopEncoder(video_format(64, 64), device="cpu",
+                       **dict(CONFIG_FLAGSHIP, bitrate=300_000)
+                       ).encode_stream(flag)
+        d = StreamDecoder(device="cpu")
+        out = d.decode_stream(s)
+        assert len(out) == 6 and d.md5_failures == [] and d.errors == []
+        loaded = sorted(m for m in sys.modules
+                        if m == "jax" or m.startswith("jax.")
+                        or m == "schroedinger_tpu"
+                        or m.startswith("schroedinger_tpu."))
+        assert loaded == [], loaded
         print("NOJAX-OK")
     """)
     env = dict(os.environ)
@@ -139,7 +152,8 @@ def test_e_convert_roundtrip_seeds_inter_step(frames):
     ju, jrec, *_ = j_inter.encode_inter_picture(frames[1], p, 1, 0, jref,
                                                 base_qi=20, retired=0)
     tu, trec, *_ = t_inter.encode_inter_picture(frames[1], p, 1, 0, tref,
-                                                base_qi=20, retired=0)
+                                                base_qi=20, retired=0,
+                                                device="cpu")
     assert tu == ju
     for a, b in zip(trec, jrec):
         np.testing.assert_array_equal(a.numpy(), np.asarray(b))
@@ -188,12 +202,143 @@ def test_encode_frame_path_matches_jax(frames):
 
 
 def test_unported_options_raise():
-    for kw in (dict(gop_structure="biref"), dict(bitrate=8_000_000),
+    vf = video_format(W, H)
+    for kw in (dict(gop_structure="biref", enable_b_batch=True),
+               dict(bitrate=8_000_000),
+               dict(gop_structure="biref", bitrate=8_000_000,
+                    rdo_cbr=False),
                dict(quantiser_engine=object())):
         with pytest.raises(NotImplementedError):
-            t_gop.GopEncoder(video_format(W, H), **kw)
+            t_gop.GopEncoder(vf, device="cpu", **kw)
     # options whose non-default branches are not ported are not taken
     for kw in (dict(block_size="small"), dict(codeblock_size="full"),
                dict(enable_multiquant=True), dict(downsample_levels=3)):
         with pytest.raises(TypeError):
-            t_gop.GopEncoder(video_format(W, H), **kw)
+            t_gop.GopEncoder(vf, device="cpu", **kw)
+    # nor magic constants that only unported engines read
+    with pytest.raises(ValueError, match="keyframe_weight"):
+        t_gop.GopEncoder(vf, device="cpu", magic={"keyframe_weight": 7.5})
+    enc = t_gop.GopEncoder(vf, device="cpu", magic={"scan_distance": 2.0})
+    assert enc.magic["scan_distance"] == 2.0 and len(enc.magic) == 12
+
+
+def test_entry_points_need_the_card_unless_asked_for_the_cpu(frames):
+    """With no `device` the port's entry points mean the card: where
+    there is none they raise, they do not carry on on the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: nothing to refuse")
+    vf = video_format(W, H)
+    p = t_gop.GopEncoder(vf, device="cpu", **CONFIG)._params(0)
+    ref = convert.ref_frame_from_numpy(frames[0], device="cpu")
+    for call in (lambda: t_gop.GopEncoder(vf, **CONFIG),
+                 lambda: t_core.StreamDecoder(),
+                 lambda: t_intra.encode_picture(frames[0], p, 0),
+                 lambda: t_intra.encode_picture_fused(
+                     frames[0], p, 0, np.ones(30)),
+                 lambda: t_dintra.decode_picture(b"", p),
+                 lambda: t_inter.start_inter_picture(
+                     frames[1], t_gop.GopEncoder(
+                         vf, device="cpu", **CONFIG)._params(1), ref),
+                 lambda: convert.ref_frame_from_numpy(frames[0])):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
+
+
+def _two_ref_params():
+    from schroedinger_tpu_torch.slice_config import CONFIG_FLAGSHIP
+    vf = video_format(W, H)
+    return (t_gop.GopEncoder(vf, device="cpu",
+                             **CONFIG_FLAGSHIP)._params(2),
+            j_gop.GopEncoder(vf, **CONFIG_FLAGSHIP)._params(2))
+
+
+@pytest.mark.parametrize("lam", [0.5, 6.0, 40.0])
+def test_rd_split_body2_fields_exact(lam):
+    """The two-reference RD split + mode search on seeded inputs: every
+    field equals the JAX body's (modes DC / ref1 / ref2 / biref at all
+    three granularities; lam moves the split)."""
+    import jax.numpy as jnp
+    from schroedinger_tpu.encoder import me as j_me
+    from schroedinger_tpu_torch.encoder import me as t_me
+    tp, jp = _two_ref_params()
+    ynb, xnb = tp.y_num_blocks, tp.x_num_blocks
+    bs_ = tp.ybsep_luma
+    rng = np.random.default_rng(int(lam * 10))
+    ph, pw = ynb * bs_, xnb * bs_
+    margin = t_me.ME_BOUND_PEL + 16
+    assert margin == j_me.ME_BOUND_PEL + 16
+    # a smooth scene seen three times with independent noise: the current
+    # picture, and two references displaced by (+1, -2) and (-1, +2) pel
+    yy, xx = np.mgrid[0:ph + 16, 0:pw + 16]
+    scene = 128 + 60 * np.sin(xx / 9.0) * np.cos(yy / 7.0)
+
+    def view(oy, ox):
+        v = scene[8 + oy:8 + oy + ph, 8 + ox:8 + ox + pw]
+        return (v + rng.normal(0, 4, (ph, pw))).clip(0, 255).astype(np.uint8)
+
+    c = view(0, 0).astype(np.int32)
+    P1 = np.pad(view(1, -2), margin, mode="edge")
+    P2 = np.pad(view(-1, 2), margin, mode="edge")
+    sub = 1 << tp.mv_precision
+
+    def mvs(pel):
+        # the true vector, off by a subpel step in one block of five
+        off = rng.integers(-2, 3, (ynb, xnb)) * (rng.random((ynb, xnb)) < .2)
+        return (pel * sub + off).astype(np.int32)
+
+    def sads():
+        return rng.integers(230, 350, (ynb, xnb))
+
+    args = [mvs(1), mvs(-2), sads(), mvs(-1), mvs(2), sads(),
+            rng.integers(0, 1500, (ynb, xnb)),
+            rng.integers(0, 256, (ynb, xnb)),
+            rng.integers(0, 256, (ynb, xnb)),
+            rng.integers(0, 256, (ynb, xnb))]
+    args = [a.astype(np.int32) for a in args]
+    want = j_inter.make_rd_split_body2(jp)(
+        jnp.asarray(c), jnp.asarray(P1), jnp.asarray(P2),
+        *[jnp.asarray(a) for a in args], jnp.float32(lam))
+    got = t_inter.make_rd_split_body2(tp)(
+        torch.tensor(c), torch.tensor(P1), torch.tensor(P2),
+        *[torch.tensor(a) for a in args],
+        torch.tensor(lam, dtype=torch.float32))
+    assert set(got) == set(want)
+    for k in want:
+        assert got[k].dtype == torch.int32, k
+        np.testing.assert_array_equal(got[k].numpy(), np.asarray(want[k]),
+                                      err_msg=k)
+    # the search really chose: all four modes at small lambdas, and
+    # whole superblocks beside single blocks at the large one
+    modes = set(np.unique(np.asarray(want["pred_mode"])).tolist())
+    splits = set(np.unique(np.asarray(want["split"])).tolist())
+    assert modes == ({0, 1, 2, 3} if lam < 10 else {1, 2, 3})
+    assert splits == ({2} if lam < 10 else {0, 2})
+
+
+def test_two_reference_render_exact(frames):
+    """The two-reference OBMC patch render (modes DC, ref1, ref2 and the
+    weighted biref average, quarter-pel MVs) equals the JAX render."""
+    import jax.numpy as jnp
+    from schroedinger_tpu.ops import obmc as j_obmc
+    from schroedinger_tpu_torch.ops import obmc as t_obmc
+    tp, jp = _two_ref_params()
+    ynb, xnb = tp.y_num_blocks, tp.x_num_blocks
+    rng = np.random.default_rng(21)
+    mv = {k: rng.integers(-37, 38, (ynb, xnb)).astype(np.int32)
+          for k in ("dx1", "dy1", "dx2", "dy2")}
+    mv["pred_mode"] = rng.integers(0, 4, (ynb, xnb)).astype(np.int32)
+    for k in ("dc0", "dc1", "dc2"):
+        mv[k] = rng.integers(-128, 128, (ynb, xnb)).astype(np.int32)
+    r1 = convert.ref_frame_from_numpy(frames[0], device="cpu")
+    r2 = convert.ref_frame_from_numpy(frames[2], device="cpu")
+    ups1 = [u.numpy() for u in r1.get_upsampled()]
+    ups2 = [u.numpy() for u in r2.get_upsampled()]
+    got = t_obmc.make_render_body(tp, 2)(
+        {k: torch.tensor(v) for k, v in mv.items()},
+        tuple(r1.get_upsampled()), tuple(r2.get_upsampled()))
+    want = j_obmc.make_render_body(jp, 2)(
+        {k: jnp.asarray(v) for k, v in mv.items()},
+        tuple(jnp.asarray(u) for u in ups1),
+        tuple(jnp.asarray(u) for u in ups2))
+    for g, w_ in zip(got, want):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w_))
