@@ -5,21 +5,27 @@
 Phases (each prints lines; any failure ends the run with a non-zero exit
 and no result line):
   0. the card's name and power limit (nvidia-smi); no CUDA -> fail
-  1. build the patch-refine kernel (with its probe variants) from csrc/
-     with nvcc, and the C++ entropy coder with g++
-  2. kernel == plain version (torch.equal) at the four 1080p refine shapes
-     of one inter picture, on random planes/MVs and on a flat all-tie
-     plane; the kernel timed on the device alone (CUDA-graph replay) and
-     as the encoder launches it from Python, the plain version from
-     Python, beside the least time the card could take (the bytes the
-     function needs over its memory rate, its operations over its rate)
+  1. build the ME search kernel (with its probe variants) from csrc/ with
+     nvcc, and the C++ entropy coder with g++
+  2. kernel == plain version (torch.equal) at the seven 1080p launch
+     shapes of one reference (coarse scan, four hint refines, median and
+     zero SAD), on random planes, on a flat all-tie plane, with hints at
+     +-bound and with hints beyond the contract; each shape timed on the
+     device alone (CUDA-graph replay) and as the encoder launches it from
+     Python, the plain version from Python, beside the least time the
+     card could take (the bytes the function needs over its memory rate,
+     its operations over its rate); then one whole 1080p ME pyramid
+     (make_me_body) on the card with the kernel and with the plain
+     version: equal (dy, dx, sad), 7 launches, no call of the plain
+     pieces on the kernel's run
   3. the backref path: a small stream encoded on the card must equal the
      CPU encode byte for byte; then 4 frames of 1080p25 4:2:0 pan + noise
      through GopEncoder(**CONFIG) (fixed quantisers, quarter-pel MVs, MD5)
-     and StreamDecoder on the card: 4 kernel launches per P picture, all
+     and StreamDecoder on the card: 7 kernel launches per P picture, all
      frames out, no MD5 failure, no picture error, luma PSNR >= 30 dB
-  4. the cost probe (tools/profile_patch_refine.py) at its geometry: the
-     `full` variant == plain, the four variants timed
+  4. the cost probe (tools/profile_patch_refine.py) at its geometry and
+     at the seven launch shapes: the `full` variant == plain, the four
+     variants timed
   5. the flagship path: a 128x64 CBR stream on the card within the bands
      of the CPU encode (luma PSNR within 0.7 dB, bytes within 15 %; the
      count of differing per-band quantiser picks is printed); a 6-frame
@@ -29,8 +35,8 @@ and no result line):
      decode clean; then 13 frames of 1080p25 4:2:0 through
      GopEncoder(**CONFIG_FLAGSHIP) (biref, TM5 CBR at 8 Mbit/s, on-device
      RD pick, MD5) and StreamDecoder: 13 frames in presentation order, at
-     least one two-reference P and six B pictures, 8 kernel launches per
-     two-reference picture and 4 per one-reference picture, no MD5
+     least one two-reference P and six B pictures, 14 kernel launches per
+     two-reference picture and 7 per one-reference picture, no MD5
      failure, no picture error, luma PSNR >= 30 dB on every frame, stream
      bytes within 0.1x-4x of the pro-rata 13 * 8e6 / 25 / 8
 The last two lines are the nvidia-smi line and
@@ -57,7 +63,9 @@ from schroedinger_tpu_torch.tools.profile_patch_refine import (gpu_line,
                                                                graph_ms,
                                                                time_ms)
 
-RAD = probe_tool.RAD
+# searches per reference of a 1080p inter picture: the coarse scan, four
+# hint refines (5-level pyramid), the median and the zero SAD
+LAUNCHES_PER_REF = 5 + 2
 # the card's published peaks (NVIDIA H100 SXM data sheet): device memory
 # rate, and the float32 rate outside the tensor cores, which stands in for
 # the integer units' rate (the data sheet gives none; theirs is not higher)
@@ -66,35 +74,50 @@ ALU_OPS_PER_S = 67e12
 
 
 def refine_bound_ms(args):
-    """The least time the card could take for one patch_refine call on
-    these arguments.  Bytes: what the function needs, each read or
-    written once: per ME block its bs_y x bs_x current samples and its
-    (bs_y + 2rad) x (bs_x + 2rad) reference window at one byte a sample
-    (the samples are 8-bit, whatever type carries them), the two int32
-    hint fields in and the three int32 fields out, over the memory rate.
-    Operations: nb * (2rad+1)^2 * bs_y * bs_x absolute differences of
-    three operations (subtract, abs, add) over the ALU rate.  Returns
-    (ms, "bytes" or "operations")."""
-    _, _, _, _, nby, nbx, bs_y, bs_x, rad, _ = args
-    nb = nby * nbx
-    nbytes = (nb * bs_y * bs_x + nb * (bs_y + 2 * rad) * (bs_x + 2 * rad)
-              + 2 * nb * 4 + 3 * nb * 4)
+    """The least time the card could take for one me_search call on these
+    arguments.  Bytes: what the function needs, each read or written
+    once: the current plane, of the reference plane the smaller of the
+    whole plane and the sum of the blocks' (bs_y + 2rad) x (bs_x + 2rad)
+    windows, the int32 hint field where it is read, and the int32 mv and
+    sad out, over the memory rate.  Operations: nb * (2rad+1)^2 * bs_y *
+    bs_x absolute differences of three operations (subtract, abs, add)
+    over the ALU rate.  Returns (ms, "bytes" or "operations")."""
+    cur, _, field, scale, bs_y, bs_x, rad, _, _ = args
+    h, w = cur.shape
+    nb = (h // bs_y) * (w // bs_x)
+    windows = nb * (bs_y + 2 * rad) * (bs_x + 2 * rad)
+    nbytes = (h * w + min(h * w, windows) + 3 * nb * 4
+              + (field.numel() * 4 if field is not None and scale else 0))
     ops = 3 * nb * (2 * rad + 1) ** 2 * bs_y * bs_x
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = ops / ALU_OPS_PER_S * 1e3
     return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
-def refine_inputs(nby, nbx, bs, flat, dev, seed):
-    """The probe tool's inputs with hints over the ME's whole range."""
-    return probe_tool.make_inputs(nby, nbx, bs, dev, seed=seed, flat=flat,
-                                  hint_bound=me_mod.ME_BOUND_PEL)
+def search_cases(shape, dev, seed):
+    """(label, me_search arguments) at one launch shape: random planes and
+    hints, the flat all-tie plane, hints at +-bound (the field's values
+    times the scale land on the bound and past it), and hints beyond the
+    contract (a bound past the margin, so the window clamp decides)."""
+    bound = me_mod.ME_BOUND_PEL
+    cases = [("random", probe_tool.make_inputs(shape, dev, seed=seed,
+                                               hint_bound=bound)),
+             ("flat", probe_tool.make_inputs(shape, dev, seed=seed,
+                                             flat=True, hint_bound=bound))]
+    if shape[5]:                         # the modes that read a field
+        cases += [
+            ("at the bound", probe_tool.make_inputs(
+                shape, dev, seed=seed + 50, hint_bound=bound + 8)),
+            ("beyond the contract", probe_tool.make_inputs(
+                shape, dev, seed=seed + 90, hint_bound=probe_tool.MARGIN + 60,
+                bound=probe_tool.MARGIN + 40))]
+    return cases
 
 
 def assert_equal_outputs(got, want, what):
-    """torch.equal on (dy, dx, sad); returns the largest |difference|."""
+    """torch.equal on (mv, sad); returns the largest |difference|."""
     worst = 0
-    for g, w_, name in zip(got, want, ("dy", "dx", "sad")):
+    for g, w_, name in zip(got, want, ("mv", "sad")):
         err = int((g.to(torch.int64) - w_).abs().max())
         worst = max(worst, err)
         if not torch.equal(g, w_):
@@ -103,90 +126,177 @@ def assert_equal_outputs(got, want, what):
     return worst
 
 
+class count_calls:
+    """Within the block, count the calls of the named functions of a
+    module (functions the kernel's path must not reach)."""
+
+    def __init__(self, module, *names):
+        self.module, self.names, self.calls = module, names, 0
+        self.saved = {}
+
+    def __enter__(self):
+        for n in self.names:
+            fn = self.saved[n] = getattr(self.module, n)
+
+            def counted(*a, fn=fn, **k):
+                self.calls += 1
+                return fn(*a, **k)
+            setattr(self.module, n, counted)
+        return self
+
+    def __exit__(self, *exc):
+        for n, fn in self.saved.items():
+            setattr(self.module, n, fn)
+
+
+def phase_whole_me(card):
+    """One 1080p ME pass (make_me_body, 5 levels) on the card with the
+    kernel and with the plain version: equal (dy, dx, sad)."""
+    dev = torch.device("cuda")
+    W, H = 1920, 1080
+    frames = make_frames(2, W, H)
+    cur = torch.tensor(frames[1][0], device=dev)
+    ref = torch.tensor(frames[0][0], device=dev)
+    body = me_mod.make_me_body(H, W, 16, 16, 120, 68, levels=5,
+                               coarse_radius=probe_tool.COARSE_RADIUS)
+    body(cur, ref)                       # warm-up
+    torch.cuda.synchronize()
+    with count_calls(me_mod, "_dense_scan", "block_sads_at") as c_me, \
+            count_calls(pr, "me_search_plain", "patch_refine_plain",
+                        "extract_ref_patches") as c_pr:
+        before = pr.LAUNCHES
+        t0 = time.perf_counter()
+        got = body(cur, ref)
+        torch.cuda.synchronize()
+        t_kernel = time.perf_counter() - t0
+        launches = pr.LAUNCHES - before
+    if c_me.calls or c_pr.calls:
+        raise AssertionError(f"phase2 ME pass on the card called plain "
+                             f"pieces {c_me.calls + c_pr.calls} times")
+    if launches != LAUNCHES_PER_REF:
+        raise AssertionError(f"phase2 ME pass: {launches} launches, "
+                             f"expected {LAUNCHES_PER_REF}")
+    kernel_search = me_mod.me_search
+    me_mod.me_search = pr.me_search_plain
+    try:
+        t0 = time.perf_counter()
+        want = body(cur, ref)
+        torch.cuda.synchronize()
+        t_plain = time.perf_counter() - t0
+    finally:
+        me_mod.me_search = kernel_search
+    for g, w_, name in zip(got, want, ("dy", "dx", "sad")):
+        if not torch.equal(g, w_):
+            raise AssertionError(f"phase2 ME pass: {name} differs from the "
+                                 f"plain run")
+    moved = int((got[0] != 0).sum() + (got[1] != 0).sum())
+    print(f"phase2 1080p ME pass (5 levels): kernel run == plain run on "
+          f"(dy, dx, sad), {launches} launches, no plain piece called, "
+          f"{moved} nonzero vector components; one pass {t_kernel * 1e3:.3f}"
+          f" ms with the kernel, {t_plain * 1e3:.3f} ms plain (host clock) "
+          f"[{card}]", flush=True)
+
+
 def phase_kernel(card):
-    """Kernel vs plain at the 1080p shapes; returns the summary entry."""
+    """Kernel vs plain at the seven 1080p launch shapes, then a whole ME
+    pass; returns the summary entry."""
     dev = torch.device("cuda")
     max_err = 0
     tot_dev = tot_call = tot_p = 0.0
     bound = {"bytes": 0.0, "operations": 0.0}   # ms bound by each
-    for seed, (level, nby, nbx, bs) in enumerate(probe_tool.REFINE_SHAPES):
-        for flat in (False, True):
-            args = refine_inputs(nby, nbx, bs, flat, dev, seed)
-            got = pr.patch_refine(*args)
-            want = pr.patch_refine_plain(*args)
+    shapes = []
+    for seed, shape in enumerate(probe_tool.REFINE_SHAPES):
+        labels = []
+        for label, args in search_cases(shape, dev, seed):
+            got = pr.me_search(*args)
+            want = pr.me_search_plain(*args)
             torch.cuda.synchronize()
             max_err = max(max_err, assert_equal_outputs(
-                got, want, f"patch_refine {level} "
-                           f"{'flat' if flat else 'random'}"))
-            if flat:
-                assert torch.equal(got[0], args[2] - RAD), "tie order"
-        args = refine_inputs(nby, nbx, bs, False, dev, seed)
+                got, want, f"me_search {shape[0]} {label}"))
+            if label == "flat":
+                hint = pr.upsample_hint(args[2], *got[1].shape, args[3],
+                                        args[7], dev)
+                assert torch.equal(got[0], hint - shape[4]), "tie order"
+            labels.append(label)
+        args = probe_tool.make_inputs(shape, dev, seed=seed)
         # turns: plain, kernel, kernel, plain.  Launched from Python a
         # call costs what the host needs to enqueue it; the graph replay
         # leaves the kernel's own time on the device, which is what the
         # bound speaks of
-        p1 = time_ms(pr.patch_refine_plain, args)
-        c1, d1 = time_ms(pr.patch_refine, args), graph_ms(pr.patch_refine,
-                                                          args)
-        c2, d2 = time_ms(pr.patch_refine, args), graph_ms(pr.patch_refine,
-                                                          args)
-        p2 = time_ms(pr.patch_refine_plain, args)
+        p1 = time_ms(pr.me_search_plain, args)
+        c1, d1 = time_ms(pr.me_search, args), graph_ms(pr.me_search, args)
+        c2, d2 = time_ms(pr.me_search, args), graph_ms(pr.me_search, args)
+        p2 = time_ms(pr.me_search_plain, args)
         dev_ms, call_ms, p_ms = (d1 + d2) / 2, (c1 + c2) / 2, (p1 + p2) / 2
         b_ms, by = refine_bound_ms(args)
         bound[by] += b_ms
         tot_dev += dev_ms
         tot_call += call_ms
         tot_p += p_ms
-        print(f"phase2 patch_refine {level} ({nby}x{nbx} blocks of "
-              f"{bs}x{bs}, rad {RAD}): kernel == plain on random and flat; "
-              f"kernel {dev_ms:.4f} ms on the device, {call_ms:.4f} ms "
-              f"launched from Python, plain {p_ms:.4f} ms, bound "
-              f"{b_ms:.5f} ms by {by} [{card}]", flush=True)
-    return {"name": "patch_refine", "route": "cuda",
+        shapes.append({"shape": shape[0], "ms": dev_ms, "call_ms": call_ms,
+                       "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": by})
+        print(f"phase2 me_search {probe_tool.describe(shape)}: kernel == "
+              f"plain on {', '.join(labels)}; kernel {dev_ms:.4f} ms on the "
+              f"device, {call_ms:.4f} ms launched from Python, plain "
+              f"{p_ms:.4f} ms, bound {b_ms:.5f} ms by {by} [{card}]",
+              flush=True)
+    print(f"phase2 me_search, the seven launches of one reference: "
+          f"{tot_dev:.4f} ms on the device, {tot_call:.4f} ms from Python, "
+          f"plain {tot_p:.4f} ms, bound {sum(bound.values()):.5f} ms "
+          f"[{card}]", flush=True)
+    phase_whole_me(card)
+    return {"name": "me_search", "route": "cuda",
             "source": "schroedinger_tpu_torch/csrc/patch_refine.cu",
             "replaces": "schroedinger_tpu/ops/pallas_me.py:71",
             "launches": None, "max_abs_err": max_err,
-            # the four launches of one reference of one inter picture:
+            # the seven launches of one reference of one inter picture:
             # device time, and the time of the calls as the encoder makes
             # them
             "ms": tot_dev, "call_ms": tot_call, "plain_ms": tot_p,
             "bound_ms": sum(bound.values()),
             "bound_by": max(bound, key=bound.get),
-            # no single PyTorch call computes a gather of windows, 25
-            # SADs and a first-minimum argmin
-            "library_ms": None}
+            # no single PyTorch call computes a gather of windows, the
+            # candidates' SADs and a first-minimum argmin
+            "library_ms": None, "shapes": shapes}
 
 
 def phase_probe(card):
-    """The cost probe's path at its own geometry; returns its entry."""
+    """The cost probe's path at its own geometry and at the seven launch
+    shapes; returns its entry."""
     dev = torch.device("cuda")
-    name, nby, nbx, bs = probe_tool.PROBE_SHAPE
-    args = probe_tool.make_inputs(nby, nbx, bs, dev)
-    got = pr.patch_refine_probe("full", *args)
-    want = pr.patch_refine_plain(*args)
+    shape = probe_tool.PROBE_SHAPE
+    args = probe_tool.make_inputs(shape, dev)
+    got = pr.me_search_probe("full", *args)
+    want = pr.me_search_plain(*args)
     torch.cuda.synchronize()
     max_err = assert_equal_outputs(got, want, "probe variant full")
-    plain_ms = time_ms(pr.patch_refine_plain, args)
+    plain_ms = time_ms(pr.me_search_plain, args)
     pr.PROBE_LAUNCHES = 0
-    times, device_times = probe_tool.probe(nby, nbx, bs, dev)
+    times, device_times = probe_tool.probe(shape, dev)
     launches = pr.PROBE_LAUNCHES
     if launches == 0:
         raise AssertionError("the probe launched no kernel")
     b_ms, by = refine_bound_ms(args)
-    print(f"phase4 probe ({nby}x{nbx} blocks of {bs}x{bs}, rad {RAD}): "
-          f"full == plain; launched from Python (on the device alone): "
-          + ", ".join(f"{v} {t:.4f} ({device_times[v]:.4f}) ms"
-                      for v, t in times.items())
-          + f"; plain {plain_ms:.4f} ms, bound {b_ms:.5f} ms by {by}; "
-          f"{launches} launches [{card}]", flush=True)
-    return {"name": "patch_refine_probe", "route": "cuda",
+    by_shape = {}
+    for s in [shape] + probe_tool.REFINE_SHAPES:
+        t, d = (times, device_times) if s is shape else probe_tool.probe(s,
+                                                                         dev)
+        by_shape[s[0]] = d
+        print(f"phase4 probe {probe_tool.describe(s)}: launched from Python "
+              f"(on the device alone): "
+              + ", ".join(f"{v} {t[v]:.4f} ({d[v]:.4f}) ms" for v in t)
+              + f" [{card}]", flush=True)
+    print(f"phase4 probe: full == plain at {shape[0]}; plain {plain_ms:.4f} "
+          f"ms, bound {b_ms:.5f} ms by {by}; {launches} launches at its own "
+          f"geometry [{card}]", flush=True)
+    return {"name": "me_search_probe", "route": "cuda",
             "source": "schroedinger_tpu_torch/csrc/patch_refine.cu",
             "replaces": "tools/profile_pk_parts.py:113",
             "launches": launches, "max_abs_err": max_err,
             "ms": device_times["full"], "call_ms": times["full"],
             "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": by,
             "library_ms": None, "variants_ms": device_times,
-            "variants_call_ms": times}
+            "variants_call_ms": times, "variants_ms_by_shape": by_shape}
 
 
 def psnr(a, b):
@@ -259,10 +369,11 @@ def phase_backref(card):
     n_p = sum(1 for f in enc.stats.frames if not f["intra"])
     print(f"phase3 coded {N - n_p} I + {n_p} P pictures "
           f"({'intra bailout/scene cut fired' if n_p != N - 1 else 'no intra bailout'}); "
-          f"patch_refine launches {launches}", flush=True)
-    if launches != 4 * n_p or n_p == 0:
-        raise AssertionError(f"expected 4 launches per P picture "
-                             f"({4 * n_p}), counted {launches}")
+          f"me_search launches {launches}", flush=True)
+    if launches != LAUNCHES_PER_REF * n_p or n_p == 0:
+        raise AssertionError(f"expected {LAUNCHES_PER_REF} launches per P "
+                             f"picture ({LAUNCHES_PER_REF * n_p}), counted "
+                             f"{launches}")
     vals = check_decoded(out, frames, dec, "phase3")
     print(f"phase3 1080p25 4:2:0 x{N}: {len(stream)} bytes, luma PSNR "
           f"mean {np.mean(vals):.3f} min {min(vals):.3f} dB, "
@@ -378,15 +489,17 @@ def phase_flagship(card):
     n_p2 = sum(1 for _, r, is_ref in kinds if r == 2 and is_ref)
     n_b = sum(1 for _, r, is_ref in kinds if r == 2 and not is_ref)
     print(f"phase5 coded {len(kinds) - n1 - n2} I, {n1} one-reference P, "
-          f"{n_p2} two-reference P, {n_b} B; patch_refine launches "
+          f"{n_p2} two-reference P, {n_b} B; me_search launches "
           f"{launches}", flush=True)
     if n_p2 < 1 or n_b < 6:
         raise AssertionError(f"expected >= 1 two-reference P and >= 6 B "
                              f"pictures, got {n_p2} and {n_b}")
-    if launches != 8 * n2 + 4 * n1:
-        raise AssertionError(f"expected 8 launches per two-reference and 4 "
-                             f"per one-reference picture "
-                             f"({8 * n2 + 4 * n1}), counted {launches}")
+    expect = LAUNCHES_PER_REF * (2 * n2 + n1)
+    if launches != expect:
+        raise AssertionError(f"expected {2 * LAUNCHES_PER_REF} launches per "
+                             f"two-reference and {LAUNCHES_PER_REF} per "
+                             f"one-reference picture ({expect}), counted "
+                             f"{launches}")
     vals = check_decoded(out, frames, dec, "phase5")
     share = N * CONFIG_FLAGSHIP["bitrate"] / CONFIG_FLAGSHIP["fps"] / 8
     if not 0.1 * share <= len(stream) <= 4 * share:

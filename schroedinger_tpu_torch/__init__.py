@@ -1,8 +1,8 @@
 """schroedinger_tpu_torch — the Dirac / VC-2 codec in PyTorch for CUDA.
 
 A port of `schroedinger_tpu` (the JAX reference package) to PyTorch, with
-the ME patch-refine search as a hand-written CUDA kernel for Hopper
-(`csrc/patch_refine.cu`).  Module paths mirror the JAX package's.  The
+the ME's full-pel search (`ops/patch_refine.me_search`) as a hand-written
+CUDA kernel for Hopper (`csrc/patch_refine.cu`).  Module paths mirror the JAX package's.  The
 port keeps its own copy of that package's host modules (params, tables,
 bitstream, the C++ arith/VLC/MV coder and MD5 under `coding/native/`).
 

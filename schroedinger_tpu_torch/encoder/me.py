@@ -1,12 +1,13 @@
 """Hierarchical block-matching motion estimation (PyTorch port of
 `schroedinger_tpu/encoder/me.py`).
 
-Every pyramid level evaluates all candidate displacements for all blocks
-at once on per-block patches of an edge-clamp-padded reference.  The
-coarsest level scans exhaustively around zero (dense shifted SADs); each
-finer level refines the upsampled parent vectors with `patch_refine`,
-which launches the CUDA kernel for CUDA tensors.  The final level runs a
-candidate competition (hierarchy vs zero vs 3x3-median 'predicted'), and
+Every full-pel search of the pyramid is one call of `me_search`
+(`ops/patch_refine.py`), which launches the CUDA kernel for CUDA tensors
+and runs its plain version for CPU tensors: the exhaustive scan around
+zero at the coarsest level, the refine of the upsampled parent vectors at
+each finer level, and, in the final level's candidate competition
+(hierarchy vs zero vs 3x3-median 'predicted'), the SADs at the median
+field and at zero.  That is levels + 2 searches per ME pass.
 `make_subpel_body` refines the winners to 1/2^prec pel.
 
 Not ported yet: injected candidates (n_extra / phase correlation), chroma
@@ -20,8 +21,8 @@ import torch
 from schroedinger_tpu_torch.ops.pad import pad_edge
 from schroedinger_tpu_torch.ops.obmc import (_round8, extract_patches,
                                              pad_halfpel)
-from schroedinger_tpu_torch.ops.patch_refine import (extract_ref_patches,
-                                                     patch_refine)
+from schroedinger_tpu_torch.ops.patch_refine import (
+    extract_ref_patches, me_search, to_blocks as _to_blocks)
 
 ME_BOUND_PEL = 124
 REFINE_RADIUS = 2       # hint-refine search radius below the coarsest level
@@ -40,17 +41,6 @@ def downsample2(x):
              + 2) >> 2).to(torch.uint8)
 
 
-def _pad_ref(ref, margin):
-    """Edge-clamp padded pel-grid reference: out[m+k, m+l] = ref[clip k,l]."""
-    return pad_edge(ref, margin, margin, margin, margin)
-
-
-def _to_blocks(c, nby, bs_y, nbx, bs_x):
-    """(nby*bs_y, nbx*bs_x) -> (nb, bs_y, bs_x)."""
-    return (c.reshape(nby, bs_y, nbx, bs_x).permute(0, 2, 1, 3)
-            .reshape(nby * nbx, bs_y, bs_x))
-
-
 def block_sads_at(cb, P, mv_y, mv_x, nby, nbx, bs_y, bs_x, margin):
     """Per-block SAD of the reference patch at each block's own MV (the
     radius-0 case of the patch search: no candidates, no pick)."""
@@ -66,8 +56,9 @@ def _block_sum(d, nby, bs_y, nbx, bs_x):
 
 def _dense_scan(c, r, nby, nbx, bs_y, bs_x, rad):
     """Exhaustive (2rad+1)^2 scan around zero displacement as dense
-    shifted SADs; bit-identical to patch_refine(cb, P, 0, 0, ..., rad,
-    margin) (same edge clamp, same (dy, dx) lexicographic tie order).
+    shifted SADs; bit-identical to me_search's coarse scan (scale 0, same
+    edge clamp, same (dy, dx) lexicographic tie order).  The plain
+    function the tests hold that mode to; the ME itself calls me_search.
 
     c, r: (nby*bs_y, nbx*bs_x) images.  Returns (dy, dx, sad)."""
     K = 2 * rad + 1
@@ -83,6 +74,13 @@ def _dense_scan(c, r, nby, nbx, bs_y, bs_x, rad):
     dx = best % K - rad
     sad = torch.gather(s, 0, best[None])[0]
     return dy.to(torch.int32), dx.to(torch.int32), sad
+
+
+def _plane(x):
+    """x contiguous and 16-byte aligned, as me_search takes its planes (a
+    copy only where a crop or a view needs one)."""
+    x = x.contiguous()
+    return x if x.data_ptr() % 16 == 0 else x.clone()
 
 
 def _median3x3_field(f):
@@ -135,66 +133,42 @@ def make_me_body(H, W, xbsep, ybsep, x_num_blocks, y_num_blocks,
             pyr_r.append(downsample2(pyr_r[-1]))
 
         mv = None
-        sad = None
         for lev in range(levels - 1, -1, -1):
-            c, r = pyr_c[lev], pyr_r[lev]
             bs_y = max(4, ybsep >> lev) if lev else ybsep
             bs_x = max(4, xbsep >> lev) if lev else xbsep
-            h, w = c.shape
+            h, w = pyr_c[lev].shape
             h = h // bs_y * bs_y
             w = w // bs_x * bs_x
-            c = c[:h, :w]
-            r = r[:h, :w]
-            nby, nbx = h // bs_y, w // bs_x
+            c = _plane(pyr_c[lev][:h, :w])
+            r = _plane(pyr_r[lev][:h, :w])
             if mv is None:
                 # coarsest level: exhaustive (2*coarse_radius+1)^2 scan
-                my, mx, sad = _dense_scan(c, r, nby, nbx, bs_y, bs_x,
-                                          coarse_radius)
+                mv, sad = me_search(c, r, None, 0, bs_y, bs_x,
+                                    coarse_radius, ME_BOUND_PEL, margin)
             else:
-                # upsample hints to this level's grid, scale x2
-                hint = mv * 2
-                hy, hx = hint.shape[0], hint.shape[1]
-                ys = torch.div(_arange32(nby, dev) * hy, nby,
-                               rounding_mode="floor").clamp(0, hy - 1)
-                xs = torch.div(_arange32(nbx, dev) * hx, nbx,
-                               rounding_mode="floor").clamp(0, hx - 1)
-                hint = hint[ys.long()[:, None], xs.long()[None, :]]
-                hint = hint.clamp(-ME_BOUND_PEL, ME_BOUND_PEL)
-                cb = _to_blocks(c.to(torch.int32), nby, bs_y, nbx, bs_x)
-                my, mx, sad = patch_refine(
-                    cb.contiguous(), _pad_ref(r, margin).contiguous(),
-                    hint[..., 0].contiguous(), hint[..., 1].contiguous(),
-                    nby, nbx, bs_y, bs_x, REFINE_RADIUS, margin)
-            mv = torch.stack([my, mx], dim=-1)
+                # hints: the parent's vectors upsampled to this level's
+                # grid and scaled x2
+                mv, sad = me_search(c, r, mv, 2, bs_y, bs_x, REFINE_RADIUS,
+                                    ME_BOUND_PEL, margin)
 
         mv = mv.clamp(-ME_BOUND_PEL, ME_BOUND_PEL)
 
         # final-level candidate competition: hierarchy vs zero vs the
-        # median-'predicted' field (schromotionest.c:520-695 analog)
-        h, w = pyr_c[0].shape
-        h = h // ybsep * ybsep
-        w = w // xbsep * xbsep
-        c0 = pyr_c[0][:h, :w]
-        r0 = pyr_r[0][:h, :w]
-        nby, nbx = h // ybsep, w // xbsep
-        cb = _to_blocks(c0.to(torch.int32), nby, ybsep, nbx, xbsep)
-        P = _pad_ref(r0, margin)
-
+        # median-'predicted' field (schromotionest.c:520-695 analog); c, r
+        # are level 0 cropped to whole blocks of ybsep x xbsep
+        nby, nbx = mv.shape[0], mv.shape[1]
         med = torch.stack([_median3x3_field(mv[..., 0]),
                            _median3x3_field(mv[..., 1])], dim=-1)
-
-        def sad_at(field):
-            return block_sads_at(cb, P, field[..., 0], field[..., 1],
-                                 nby, nbx, ybsep, xbsep, margin)
-
-        zdiff = (c0.to(torch.int32) - r0.to(torch.int32)).abs()
-        sad_zero = _block_sum(zdiff, nby, ybsep, nbx, xbsep)
+        _, sad_med = me_search(c, r, med.contiguous(), 1, ybsep, xbsep, 0,
+                               ME_BOUND_PEL, margin)
+        _, sad_zero = me_search(c, r, None, 0, ybsep, xbsep, 0,
+                                ME_BOUND_PEL, margin)
         zero = torch.zeros_like(mv)
 
         # the reference biases toward zero/predicted ("gravity",
         # schrometric.c:122)
         bias = ybsep * xbsep // 16
-        all_sads = torch.stack([sad, sad_at(med), sad_zero])
+        all_sads = torch.stack([sad, sad_med, sad_zero])
         all_mvs = torch.stack([mv, med, zero])
         biased = all_sads - torch.as_tensor(
             [0, bias, bias], dtype=torch.int32, device=dev)[:, None, None]

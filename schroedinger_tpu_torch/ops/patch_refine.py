@@ -1,20 +1,34 @@
-"""ME patch refine: (2rad+1)^2 full-pel SAD search around per-block hints.
+"""ME full-pel SAD search: every full-pel search of the ME pyramid.
 
-`patch_refine` is the entry point.  On CUDA tensors it launches the
+`me_search` is the entry point.  On CUDA tensors it launches the
 hand-written kernel `csrc/patch_refine.cu` (the port of the Pallas kernel
 `schroedinger_tpu/ops/pallas_me.py:71 make_patch_refine`), built with nvcc
 at first use into `build/schroedinger_tpu_torch/` and bound with ctypes.
-On CPU tensors it runs `patch_refine_plain`, the plain PyTorch version
-(the port of `schroedinger_tpu/encoder/me.py _patch_refine`).  A CUDA
-tensor never takes the plain path: the wrapper launches or raises.
+On CPU tensors it runs `me_search_plain`, the plain PyTorch version,
+composed of the hint upsample, the block split, the edge-padded reference
+and `patch_refine_plain` (the port of `schroedinger_tpu/encoder/me.py
+_patch_refine`).  A CUDA tensor never takes the plain path: the wrapper
+launches or raises.
+
+Per ME block (i, j) of the (h / bs_y) x (w / bs_x) grid on the u8 level
+planes `cur`, `ref`, it takes the hint clamp(scale * field[i*hy//nby,
+j*hx//nbx], -bound, bound) (zero without a field or at scale 0), searches
+the (2rad+1)^2 full-pel candidates around it in `ref` as edge-padded by
+`margin` (window origins clamped into the padded plane as
+jax.lax.dynamic_slice clamps), and returns the first minimum in (dy, dx)
+order: mv (nby, nbx, 2) int32, which the next level takes as its field,
+and sad (nby, nbx) int32.  The JAX ME's four uses:
+
+  coarse scan    scale 0, rad = coarse radius   (me._dense_scan)
+  hint refine    scale 2, rad 2, the parent's mv (upsample + _patch_refine)
+  median SAD     scale 1, rad 0, the median field (sad_at(med))
+  zero SAD       scale 0, rad 0                  (sad_zero)
 
 LAUNCHES counts kernel launches (and nothing else), so a run can show
-that its ME went through the kernel.
-
-`patch_refine_probe` launches one of the kernel's four compile-time cost
-variants (the port of the TPU probe `tools/profile_pk_parts.py:113`; see
-the source's head and `tools/profile_patch_refine.py`); PROBE_LAUNCHES
-counts those launches.
+that its ME went through the kernel.  `me_search_probe` launches one of
+the kernel's four compile-time cost variants (the port of the TPU probe
+`tools/profile_pk_parts.py:113`; see the source's head and
+`tools/profile_patch_refine.py`); PROBE_LAUNCHES counts those launches.
 """
 from __future__ import annotations
 
@@ -28,10 +42,12 @@ import time
 import torch
 
 from schroedinger_tpu_torch.ops.obmc import _round8, extract_patches
+from schroedinger_tpu_torch.ops.pad import pad_edge
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 _PKG = os.path.dirname(_HERE)
-SOURCE = os.path.join(_PKG, "csrc", "patch_refine.cu")
+CSRC = os.path.join(_PKG, "csrc")
+SOURCE = os.path.join(CSRC, "patch_refine.cu")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build",
                          "schroedinger_tpu_torch")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-O3",
@@ -55,22 +71,31 @@ def _nvcc():
     default = "/usr/local/cuda/bin/nvcc"
     if os.path.exists(default):
         return default
-    raise RuntimeError("nvcc not found: the patch-refine kernel is built "
+    raise RuntimeError("nvcc not found: the ME search kernel is built "
                        "with the CUDA toolkit")
+
+
+def _sources():
+    """Every file the build compiles or includes: the .cu and the headers
+    beside it in csrc/, sorted by name."""
+    return sorted(os.path.join(CSRC, n) for n in os.listdir(CSRC)
+                  if n.endswith((".cu", ".cuh", ".h")))
 
 
 def build() -> float:
     """Compile the kernel library unless it is built already.  The file
-    name carries a hash of the source, NVCC_FLAGS and nvcc's version, so
-    a change to any of them builds anew.  Sets LIBRARY; returns the
-    seconds spent compiling (0.0 when up to date)."""
+    name carries a hash of every source and header in csrc/, NVCC_FLAGS
+    and nvcc's version, so a change to any of them builds anew.  Sets
+    LIBRARY; returns the seconds spent compiling (0.0 when up to date)."""
     global BUILD_LOG, LIBRARY
     nvcc = _nvcc()
     version = subprocess.run([nvcc, "--version"], capture_output=True,
                              text=True, check=True).stdout
     key = hashlib.sha256()
-    with open(SOURCE, "rb") as f:
-        key.update(f.read())
+    for path in _sources():
+        key.update(os.path.basename(path).encode() + b"\0")
+        with open(path, "rb") as f:
+            key.update(f.read())
     key.update("\0".join([*NVCC_FLAGS, version]).encode())
     LIBRARY = os.path.join(BUILD_DIR,
                            f"libpatch_refine-{key.hexdigest()[:16]}.so")
@@ -94,13 +119,21 @@ def _load():
         build()
         lib = ctypes.CDLL(LIBRARY)
         vp, ci = ctypes.c_void_p, ctypes.c_int
-        lib.patch_refine_launch.argtypes = [vp] * 7 + [ci] * 8 + [vp]
-        lib.patch_refine_launch.restype = ci
-        lib.patch_refine_probe_launch.argtypes = [ci] + [vp] * 7 + [ci] * 8 \
-            + [vp]
-        lib.patch_refine_probe_launch.restype = ci
+        lib.me_search_launch.argtypes = [ci] + [vp] * 4 + [ci] * 10 + [vp]
+        lib.me_search_launch.restype = ci
         _lib = lib
     return _lib
+
+
+def to_blocks(c, nby, bs_y, nbx, bs_x):
+    """(nby*bs_y, nbx*bs_x) -> (nb, bs_y, bs_x)."""
+    return (c.reshape(nby, bs_y, nbx, bs_x).permute(0, 2, 1, 3)
+            .reshape(nby * nbx, bs_y, bs_x))
+
+
+def pad_ref(ref, margin):
+    """Edge-clamp padded pel-grid reference: out[m+k, m+l] = ref[clip k,l]."""
+    return pad_edge(ref, margin, margin, margin, margin)
 
 
 def extract_ref_patches(P, mv_y, mv_x, nby, nbx, bs_y, bs_x, rad, margin):
@@ -138,86 +171,119 @@ def patch_refine_plain(cur_blocks, P, mv_y, mv_x, nby, nbx, bs_y, bs_x, rad,
             best_sad.reshape(nby, nbx))
 
 
+def upsample_hint(field, nby, nbx, scale, bound, device):
+    """The hints of an nby x nbx grid: clamp(scale * field[i*hy//nby,
+    j*hx//nbx], -bound, bound), (nby, nbx, 2) int32; zeros without a
+    field or at scale 0."""
+    if field is None or scale == 0:
+        return torch.zeros((nby, nbx, 2), dtype=torch.int32, device=device)
+    hy, hx = field.shape[0], field.shape[1]
+    dev = field.device
+    ys = torch.div(torch.arange(nby, device=dev) * hy, nby,
+                   rounding_mode="floor")
+    xs = torch.div(torch.arange(nbx, device=dev) * hx, nbx,
+                   rounding_mode="floor")
+    return (field[ys[:, None], xs[None, :]] * scale).clamp(-bound, bound)
+
+
+def me_search_plain(cur, ref, field, scale, bs_y, bs_x, rad, bound, margin):
+    """me_search in plain PyTorch (any device): hint upsample, block
+    split, padded reference, patch_refine_plain.  Returns (mv, sad)."""
+    h, w = cur.shape
+    nby, nbx = h // bs_y, w // bs_x
+    hint = upsample_hint(field, nby, nbx, scale, bound, cur.device)
+    my, mx, sad = patch_refine_plain(
+        to_blocks(cur.to(torch.int32), nby, bs_y, nbx, bs_x),
+        pad_ref(ref, margin), hint[..., 0], hint[..., 1], nby, nbx, bs_y,
+        bs_x, rad, margin)
+    return torch.stack([my, mx], dim=-1), sad
+
+
 def _check(name, t, dtype, shape, device):
     if t.device != device:
-        raise ValueError(f"patch_refine: {name} on {t.device}, "
+        raise ValueError(f"me_search: {name} on {t.device}, "
                          f"expected {device}")
     if t.dtype != dtype:
-        raise TypeError(f"patch_refine: {name} is {t.dtype}, expected {dtype}")
+        raise TypeError(f"me_search: {name} is {t.dtype}, expected {dtype}")
     if tuple(t.shape) != tuple(shape):
-        raise ValueError(f"patch_refine: {name} has shape {tuple(t.shape)}, "
+        raise ValueError(f"me_search: {name} has shape {tuple(t.shape)}, "
                          f"expected {tuple(shape)}")
     if not t.is_contiguous():
-        raise ValueError(f"patch_refine: {name} is not contiguous")
+        raise ValueError(f"me_search: {name} is not contiguous")
+    if t.data_ptr() % 16:
+        raise ValueError(f"me_search: {name} is not 16-byte aligned")
 
 
-def _launch(variant, cur_blocks, P, mv_y, mv_x, nby, nbx, bs_y, bs_x, rad,
+def _launch(variant, cur, ref, field, scale, bs_y, bs_x, rad, bound,
             margin):
-    """Check the arguments and launch the kernel (variant None) or the
-    probe's variant of that number.  Returns the three output tensors."""
-    dev = cur_blocks.device
+    """Check the arguments and launch the kernel's variant of that number
+    (0 = the search).  Returns (mv, sad), views of one buffer."""
+    dev = cur.device
     if dev.type != "cuda":
-        raise ValueError(f"patch_refine_cuda: tensors on {dev}")
-    _check("cur_blocks", cur_blocks, torch.int32, (nby * nbx, bs_y, bs_x),
-           dev)
-    if P.ndim != 2:
-        raise ValueError(f"patch_refine: P must be 2-D, got {P.ndim}-D")
-    _check("P", P, torch.uint8, P.shape, dev)
-    Ph, Pw = P.shape
-    if Ph < _round8(bs_y + 2 * rad) or Pw < _round8(bs_x + 2 * rad):
-        raise ValueError(f"patch_refine: P {tuple(P.shape)} smaller than "
-                         "one search window")
-    _check("mv_y", mv_y, torch.int32, (nby, nbx), dev)
-    _check("mv_x", mv_x, torch.int32, (nby, nbx), dev)
-    outs = [torch.empty((nby, nbx), dtype=torch.int32, device=dev)
-            for _ in range(3)]
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    args = (cur_blocks.data_ptr(), P.data_ptr(), mv_y.data_ptr(),
-            mv_x.data_ptr(), outs[0].data_ptr(), outs[1].data_ptr(),
-            outs[2].data_ptr(), nby, nbx, bs_y, bs_x, rad, margin, Ph, Pw,
-            stream)
-    if variant is None:
-        err = _load().patch_refine_launch(*args)
-    else:
-        err = _load().patch_refine_probe_launch(variant, *args)
+        raise ValueError(f"me_search: tensors on {dev}, expected cuda")
+    if cur.ndim != 2:
+        raise ValueError(f"me_search: cur must be 2-D, got {cur.ndim}-D")
+    h, w = cur.shape
+    if h % bs_y or w % bs_x or h == 0 or w == 0:
+        raise ValueError(f"me_search: plane {h}x{w} is not a whole grid of "
+                         f"{bs_y}x{bs_x} blocks")
+    if scale not in (0, 1, 2) or min(bs_y, bs_x) < 1 or rad < 0 \
+            or bound < 0 or margin < 0:
+        raise ValueError(f"me_search: scale {scale}, block {bs_y}x{bs_x}, "
+                         f"rad {rad}, bound {bound}, margin {margin}")
+    if (h + 2 * margin < _round8(bs_y + 2 * rad)
+            or w + 2 * margin < _round8(bs_x + 2 * rad)):
+        raise ValueError("me_search: padded plane smaller than one search "
+                         "window")
+    _check("cur", cur, torch.uint8, (h, w), dev)
+    _check("ref", ref, torch.uint8, (h, w), dev)
+    hy = hx = 0
+    if field is not None:
+        if field.ndim != 3:
+            raise ValueError(f"me_search: field must be (hy, hx, 2), got "
+                             f"{tuple(field.shape)}")
+        hy, hx = field.shape[0], field.shape[1]
+        _check("field", field, torch.int32, (hy, hx, 2), dev)
+        if hy == 0 or hx == 0:
+            raise ValueError("me_search: empty field")
+    nby, nbx = h // bs_y, w // bs_x
+    out = torch.empty(3 * nby * nbx, dtype=torch.int32, device=dev)
+    err = _load().me_search_launch(
+        variant, cur.data_ptr(), ref.data_ptr(),
+        None if field is None else field.data_ptr(), out.data_ptr(), h, w,
+        hy, hx, scale, bs_y, bs_x, rad, bound, margin,
+        torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
-        raise RuntimeError(f"patch_refine kernel launch failed: CUDA error "
-                           f"{err}")
-    return tuple(outs)
+        raise RuntimeError(f"me_search kernel launch failed: error {err}")
+    nb = nby * nbx
+    return out[:2 * nb].view(nby, nbx, 2), out[2 * nb:].view(nby, nbx)
 
 
-def patch_refine_cuda(cur_blocks, P, mv_y, mv_x, nby, nbx, bs_y, bs_x, rad,
-                      margin):
-    """Launch the CUDA kernel (no plain fallback).  P must be u8."""
+def me_search(cur, ref, field, scale, bs_y, bs_x, rad, bound, margin):
+    """Full-pel (2rad+1)^2 SAD search per block around its hint (see the
+    module's head): (mv (nby, nbx, 2), sad (nby, nbx)), int32.
+
+    CUDA tensors launch the kernel (no plain fallback); CPU tensors run
+    me_search_plain."""
     global LAUNCHES
-    outs = _launch(None, cur_blocks, P, mv_y, mv_x, nby, nbx, bs_y, bs_x,
-                   rad, margin)
-    LAUNCHES += 1
-    return outs
+    if cur.device.type == "cuda":
+        outs = _launch(0, cur, ref, field, scale, bs_y, bs_x, rad, bound,
+                       margin)
+        LAUNCHES += 1
+        return outs
+    if cur.device.type != "cpu":
+        raise ValueError(f"me_search: unsupported device {cur.device}")
+    return me_search_plain(cur, ref, field, scale, bs_y, bs_x, rad, bound,
+                           margin)
 
 
-def patch_refine_probe(variant: str, cur_blocks, P, mv_y, mv_x, nby, nbx,
-                       bs_y, bs_x, rad, margin):
+def me_search_probe(variant: str, cur, ref, field, scale, bs_y, bs_x, rad,
+                    bound, margin):
     """Launch one cost variant of the kernel (PROBE_VARIANTS) on CUDA
-    tensors.  Same arguments and outputs as patch_refine_cuda; only
-    "full" computes the search, the others exist to be timed."""
+    tensors.  Same arguments and outputs as me_search; only "full"
+    computes the search, the others exist to be timed."""
     global PROBE_LAUNCHES
-    outs = _launch(PROBE_VARIANTS.index(variant), cur_blocks, P, mv_y, mv_x,
-                   nby, nbx, bs_y, bs_x, rad, margin)
+    outs = _launch(PROBE_VARIANTS.index(variant), cur, ref, field, scale,
+                   bs_y, bs_x, rad, bound, margin)
     PROBE_LAUNCHES += 1
     return outs
-
-
-def patch_refine(cur_blocks, P, mv_y, mv_x, nby, nbx, bs_y, bs_x, rad,
-                 margin):
-    """Exhaustive (2rad+1)^2 SAD search per block around its hint MV.
-
-    CUDA tensors launch the kernel; CPU tensors run the plain version."""
-    if cur_blocks.device.type == "cuda":
-        return patch_refine_cuda(cur_blocks, P, mv_y, mv_x, nby, nbx, bs_y,
-                                 bs_x, rad, margin)
-    if cur_blocks.device.type != "cpu":
-        raise ValueError(f"patch_refine: unsupported device "
-                         f"{cur_blocks.device}")
-    return patch_refine_plain(cur_blocks, P, mv_y, mv_x, nby, nbx, bs_y,
-                              bs_x, rad, margin)

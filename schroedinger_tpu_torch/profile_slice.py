@@ -14,12 +14,13 @@ the RD pick runs its 22-step lambda fit.  Prints, per run: wall time,
 the device's busy time (union of kernel intervals) and idle share, the
 host time in the entropy-coding calls and in the encoder's stage spans
 (each ME pass, the RD split, the render, the stat tables, the RD pick,
-quantise + reconstruction, the fetch), and the top kernels (not aten ops)
-by device time.  Writes a Chrome trace of the encode to DIR.
+quantise + reconstruction, the fetch) with the device events each
+launched, and the top kernels (not aten ops) by device time.  Writes a Chrome trace of the encode to DIR.
 """
 from __future__ import annotations
 
 import argparse
+import bisect
 import os
 import subprocess
 import time
@@ -46,6 +47,8 @@ STAGE_SPANS = ("me_pass", "rd_split", "render", "stat_tables", "rd_pick",
 
 
 _CUDA = torch.autograd.DeviceType.CUDA
+# the port's own kernels (csrc/patch_refine.cu)
+OWN_KERNELS = ("me_rows_kernel", "me_cands_kernel")
 
 
 def _device_busy_us(prof):
@@ -68,6 +71,23 @@ def _device_busy_us(prof):
     return busy, len(spans)
 
 
+def _events_under(prof, names):
+    """{span name: device events (kernels and copies) inside the span's
+    device-side mirrors}: on the one stream, the work that span
+    launched."""
+    starts = sorted(e.time_range.start for e in prof.events()
+                    if e.device_type == _CUDA and not e.is_user_annotation)
+    counts = {}
+    for e in prof.events():
+        if (e.device_type == _CUDA and e.is_user_annotation
+                and e.name in names):
+            counts[e.name] = (counts.get(e.name, 0)
+                              + bisect.bisect_right(starts, e.time_range.end)
+                              - bisect.bisect_left(starts,
+                                                   e.time_range.start))
+    return counts
+
+
 def _report(tag, prof, wall_s, n_frames):
     busy_us, n_dev = _device_busy_us(prof)
     print(f"{tag}: {n_frames} frames in {wall_s:.3f} s "
@@ -82,6 +102,7 @@ def _report(tag, prof, wall_s, n_frames):
     host = {k.key: k for k in avg if k.device_type != _CUDA}
     mirror = {k.key: k for k in avg
               if k.device_type == _CUDA and k.is_user_annotation}
+    events = _events_under(prof, STAGE_SPANS)
     for name in HOST_SPANS + STAGE_SPANS:
         if name in host:
             k = host[name]
@@ -90,14 +111,15 @@ def _report(tag, prof, wall_s, n_frames):
                     f"{k.device_time_total / 1e3:.1f} ms")
             if name in mirror:
                 line += (f", on the device's timeline "
-                         f"{mirror[name].device_time_total / 1e3:.1f} ms")
+                         f"{mirror[name].device_time_total / 1e3:.1f} ms, "
+                         f"{events.get(name, 0)} device events")
             print(line, flush=True)
     rows = sorted((k for k in avg if k.device_time_total > 0
                    and k.device_type == _CUDA and not k.is_user_annotation),
                   key=lambda k: -k.device_time_total)[:12]
     # the port's own kernels always, then the top rows
     own = [k for k in avg if k.device_type == _CUDA
-           and "patch_refine" in k.key and k not in rows]
+           and any(n in k.key for n in OWN_KERNELS) and k not in rows]
     for k in own + rows:
         print(f"{tag}: device {k.device_time_total / 1e3:8.2f} ms "
               f"{k.count:6d}x {k.key[:90]}", flush=True)

@@ -27,3 +27,5 @@ def _release_compiled_programs():
 def pytest_configure(config):
     config.addinivalue_line(
         "markers", "cuda: needs an NVIDIA GPU (skips where there is none)")
+    config.addinivalue_line(
+        "markers", "slow: long-running; the tier-1 run deselects it")

@@ -1,7 +1,7 @@
 """Card-only checks of the port (marked `cuda`; they skip without a GPU).
 
-The patch-refine CUDA kernel and its cost probe against the plain PyTorch
-version, small streams of both slices encoded on the card against the CPU
+The ME search CUDA kernel (every shape and mode the ME launches) and its
+cost probe against the plain PyTorch version, small streams of both slices encoded on the card against the CPU
 encode, and the entry points' default device.  This file
 imports no JAX, so it also runs where only PyTorch is installed:
 
@@ -26,23 +26,39 @@ def cuda_device():
     return torch.device("cuda")
 
 
-def _case(rad, bs, flat, dev, nby=5, nbx=7, bound=24):
+def _case(rad, bs, flat, dev, nby=5, nbx=7, bound=24, scale=1,
+          parent=None):
+    """me_search's arguments from a numpy seed: u8 planes (flat: every
+    candidate ties), a field at the grid's own size (scale 1) or at a
+    parent's (hy, hx) = `parent`, hints running past the contract."""
     margin = bound + 2 * rad + 16
-    rng = np.random.default_rng(7 * rad + bs + 100 * flat)
+    rng = np.random.default_rng(7 * rad + bs + 100 * flat + scale)
     if flat:
         cur = np.full((nby * bs, nbx * bs), 77, np.uint8)
         ref = np.full((nby * bs, nbx * bs), 90, np.uint8)
     else:
         cur = rng.integers(0, 256, (nby * bs, nbx * bs)).astype(np.uint8)
         ref = rng.integers(0, 256, (nby * bs, nbx * bs)).astype(np.uint8)
-    # hints run past the contract too: the window clamp must agree
-    mvy = rng.integers(-bound - 8, bound + 9, (nby, nbx)).astype(np.int32)
-    mvx = rng.integers(-bound - 8, bound + 9, (nby, nbx)).astype(np.int32)
-    cb = me_mod._to_blocks(torch.tensor(cur, device=dev).to(torch.int32),
-                           nby, bs, nbx, bs).contiguous()
-    P = me_mod._pad_ref(torch.tensor(ref, device=dev), margin).contiguous()
-    return (cb, P, torch.tensor(mvy, device=dev),
-            torch.tensor(mvx, device=dev), nby, nbx, bs, bs, rad, margin)
+    hy, hx = parent or (nby, nbx)
+    # hints run past the contract (|hint| <= margin - rad) and past the
+    # clamp: the hint clamp and the window clamp must agree
+    lim = (margin + 8) // max(scale, 1) + 8
+    field = rng.integers(-lim, lim + 1, (hy, hx, 2)).astype(np.int32)
+    return (torch.tensor(cur, device=dev), torch.tensor(ref, device=dev),
+            None if scale == 0 else torch.tensor(field, device=dev), scale,
+            bs, bs, rad, margin + 8, margin)
+
+
+def _assert_kernel_equals_plain(args):
+    before = pr.LAUNCHES
+    got = pr.me_search(*args)
+    assert pr.LAUNCHES == before + 1
+    want = pr.me_search_plain(*args)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert g.device.type == "cuda" and g.dtype == torch.int32
+        assert torch.equal(g, w)
+    return got
 
 
 @pytest.mark.cuda
@@ -50,28 +66,55 @@ def _case(rad, bs, flat, dev, nby=5, nbx=7, bound=24):
 @pytest.mark.parametrize("rad,bs", [(2, 4), (2, 8), (2, 16), (1, 16),
                                     (8, 4), (0, 16)])
 def test_patch_refine_kernel_matches_plain(cuda_device, rad, bs, flat):
+    """me_search's kernel == its plain version, hints given at the grid's
+    own size; (1, 16) takes the generic instance."""
     args = _case(rad, bs, flat, cuda_device)
-    before = pr.LAUNCHES
-    got = pr.patch_refine(*args)
-    assert pr.LAUNCHES == before + 1
-    want = pr.patch_refine_plain(*args)
-    torch.cuda.synchronize()
-    for g, w in zip(got, want):
-        assert g.device.type == "cuda" and g.dtype == torch.int32
-        assert torch.equal(g, w)
+    mv, _ = _assert_kernel_equals_plain(args)
+    if flat:                                    # the first candidate wins
+        assert torch.equal(mv, args[2].clamp(-args[7], args[7]) - rad)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("flat", [False, True], ids=["random", "flat"])
+@pytest.mark.parametrize("mode", ["coarse", "refine-4", "refine-8",
+                                  "refine-16", "zero", "generic-12",
+                                  "generic-6"])
+def test_me_search_modes_kernel_matches_plain(cuda_device, mode, flat):
+    """The ME's launches: the coarse scan (scale 0, radius 8), the refine
+    from a parent grid (scale 2) at each block size, the zero SAD, and a
+    block size no instance is specialised for."""
+    args = {"coarse": dict(rad=8, bs=4, scale=0),
+            "refine-4": dict(rad=2, bs=4, scale=2, parent=(3, 4)),
+            "refine-8": dict(rad=2, bs=8, scale=2, parent=(5, 7)),
+            "refine-16": dict(rad=2, bs=16, scale=2, parent=(5, 7)),
+            "zero": dict(rad=0, bs=16, scale=0),
+            "generic-12": dict(rad=3, bs=12, scale=2, parent=(3, 4)),
+            "generic-6": dict(rad=1, bs=6, scale=2, parent=(3, 4))}[mode]
+    _assert_kernel_equals_plain(_case(flat=flat, dev=cuda_device, **args))
 
 
 @pytest.mark.cuda
 def test_patch_refine_rejects_bad_inputs(cuda_device):
     args = list(_case(2, 8, False, cuda_device))
     bad_dtype = list(args)
-    bad_dtype[1] = args[1].to(torch.int32)          # P must be u8
+    bad_dtype[1] = args[1].to(torch.int32)          # ref must be u8
     with pytest.raises(TypeError):
-        pr.patch_refine(*bad_dtype)
+        pr.me_search(*bad_dtype)
     bad_layout = list(args)
-    bad_layout[2] = torch.stack([args[2], args[3]], -1)[..., 0]
+    bad_layout[2] = args[2].transpose(0, 1)         # field not contiguous
     with pytest.raises(ValueError):
-        pr.patch_refine(*bad_layout)
+        pr.me_search(*bad_layout)
+    bad_grid = list(args)
+    bad_grid[0] = args[0][:, 1:].contiguous()       # not whole blocks
+    bad_grid[1] = args[1][:, 1:].contiguous()
+    with pytest.raises(ValueError):
+        pr.me_search(*bad_grid)
+    bad_align = list(args)
+    buf = torch.zeros(args[0].numel() + 16, dtype=torch.uint8,
+                      device=cuda_device)
+    bad_align[0] = buf[8:8 + args[0].numel()].view(args[0].shape)
+    with pytest.raises(ValueError):                 # not 16-byte aligned
+        pr.me_search(*bad_align)
 
 
 @pytest.mark.cuda
@@ -94,19 +137,19 @@ def test_small_stream_on_card_equals_cpu(cuda_device):
 def test_probe_full_variant_matches_plain(cuda_device, bs):
     """Of the probe's four variants only `full` computes the search: it
     equals the plain version; the others launch and are counted."""
-    args = _case(2, bs, False, cuda_device)
+    args = _case(2, bs, False, cuda_device, scale=2, parent=(3, 4))
     before = pr.PROBE_LAUNCHES
-    got = pr.patch_refine_probe("full", *args)
-    want = pr.patch_refine_plain(*args)
+    got = pr.me_search_probe("full", *args)
+    want = pr.me_search_plain(*args)
     for variant in pr.PROBE_VARIANTS[1:]:
-        outs = pr.patch_refine_probe(variant, *args)
+        outs = pr.me_search_probe(variant, *args)
         assert all(o.shape == w.shape for o, w in zip(outs, want))
     torch.cuda.synchronize()
     assert pr.PROBE_LAUNCHES == before + 4
     for g, w in zip(got, want):
         assert torch.equal(g, w)
     with pytest.raises(ValueError):
-        pr.patch_refine_probe("nowindow", *args)
+        pr.me_search_probe("nowindow", *args)
 
 
 def _psnr(a, b):
@@ -116,7 +159,7 @@ def _psnr(a, b):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("w,h,rate,level,launches,binds", [
-    (128, 64, 500_000, 0, 2 * (1 + 2 * 7), False),
+    (128, 64, 500_000, 0, 5 * (1 + 2 * 7), False),
     (320, 192, 100_000, 150_000, None, True)],
     ids=["full-reservoir", "binding-fit"])
 def test_small_flagship_stream_on_card_within_bands_of_cpu(
@@ -135,7 +178,7 @@ def test_small_flagship_stream_on_card_within_bands_of_cpu(
     e_gpu = GopEncoder(vf, **cfg)                            # device=None
     s_gpu = e_gpu.encode_stream(frames)
     # I, one-reference P, 3 B, two-reference P, 3 B; 128x64 has a
-    # 3-level pyramid, so 2 refine launches per reference
+    # 3-level pyramid, so levels + 2 = 5 searches per reference
     assert pr.LAUNCHES > before
     if launches is not None:
         assert pr.LAUNCHES - before == launches
