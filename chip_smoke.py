@@ -39,6 +39,27 @@ and no result line):
      two-reference picture and 7 per one-reference picture, no MD5
      failure, no picture error, luma PSNR >= 30 dB on every frame, stream
      bytes within 0.1x-4x of the pro-rata 13 * 8e6 / 25 / 8
+  6. the batched kernel: me_search at N = 3 (the B pictures of a
+     subgroup against their shared reference) == its plain version
+     (torch.equal) and == three N = 1 launches at the seven 1080p launch
+     shapes, timed on the device (CUDA-graph replay) beside N = 1; and a
+     batched 1080p ME pass of three pictures: 7 launches, equal to three
+     single-picture passes
+  7. 128x64 on the card against the CPU for bench.py's configuration and
+     api.Encoder's default: the same stream (byte-equal is expected; the
+     gate is 0.7 dB luma PSNR and 15 % bytes)
+  8. smoke-1080p-bench-headline: bench.py's encoder (CONFIG_BENCH = the
+     flagship with MD5 off, B pictures batched) on 50 frames of bench.py's
+     pan + noise: every full subgroup's B pictures go as one batch of at
+     most 14 kernel launches (the mix is printed: 3 I, 11 P, 36 B in 12
+     batches unless a scene cut fires); api.Decoder (pipelined) and
+     StreamDecoder give equal planes, every I and P picture decodes to the
+     encoder's reconstruction (torch.equal), luma PSNR >= 30 dB on every
+     frame, bytes within 0.1x-4x of the pro-rata 2,000,000; encode and
+     both decoders' frames/s
+  9. smoke-1080p-api-default: api.Encoder(vf, EncoderConfig()) (constant
+     quality, pipeline depth 8, full-pel MVs, DD9,7 inter) on 13 frames,
+     api.Decoder, with the checks of phase 8 but the byte range
 The last two lines are the nvidia-smi line and
 {"ok": true, "device": {...}}; the kernel summary JSON comes before them.
 """
@@ -49,13 +70,16 @@ import time
 import numpy as np
 import torch
 
+from schroedinger_tpu_torch import api
 from schroedinger_tpu_torch import bitstream as bs
 from schroedinger_tpu_torch.coding import native as coder
+from schroedinger_tpu_torch.config import EncoderConfig
 from schroedinger_tpu_torch.decoder.core import StreamDecoder
 from schroedinger_tpu_torch.encoder import me as me_mod
 from schroedinger_tpu_torch.encoder.gop import GopEncoder
 from schroedinger_tpu_torch.ops import patch_refine as pr
-from schroedinger_tpu_torch.slice_config import (CONFIG, CONFIG_FLAGSHIP,
+from schroedinger_tpu_torch.slice_config import (CONFIG, CONFIG_BENCH,
+                                                 CONFIG_FLAGSHIP,
                                                  CONFIG_FLAGSHIP_DRAINING,
                                                  make_frames, video_format)
 from schroedinger_tpu_torch.tools import profile_patch_refine as probe_tool
@@ -81,14 +105,16 @@ def refine_bound_ms(args):
     windows, the int32 hint field where it is read, and the int32 mv and
     sad out, over the memory rate.  Operations: nb * (2rad+1)^2 * bs_y *
     bs_x absolute differences of three operations (subtract, abs, add)
-    over the ALU rate.  Returns (ms, "bytes" or "operations")."""
+    over the ALU rate.  A batch of n current planes counts n of each but
+    the one shared reference.  Returns (ms, "bytes" or "operations")."""
     cur, _, field, scale, bs_y, bs_x, rad, _, _ = args
-    h, w = cur.shape
+    n = cur.shape[0] if cur.ndim == 3 else 1
+    h, w = cur.shape[-2:]
     nb = (h // bs_y) * (w // bs_x)
-    windows = nb * (bs_y + 2 * rad) * (bs_x + 2 * rad)
-    nbytes = (h * w + min(h * w, windows) + 3 * nb * 4
+    windows = n * nb * (bs_y + 2 * rad) * (bs_x + 2 * rad)
+    nbytes = (n * h * w + min(h * w, windows) + 3 * n * nb * 4
               + (field.numel() * 4 if field is not None and scale else 0))
-    ops = 3 * nb * (2 * rad + 1) ** 2 * bs_y * bs_x
+    ops = 3 * n * nb * (2 * rad + 1) ** 2 * bs_y * bs_x
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = ops / ALU_OPS_PER_S * 1e3
     return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
@@ -516,6 +542,288 @@ def phase_flagship(card):
     return launches
 
 
+def batch_args(shape, dev, seed, n=3):
+    """me_search's arguments for a batch of n pictures at one launch
+    shape: n current planes and fields from n seeds, the first seed's
+    reference (the pictures share it)."""
+    cases = [probe_tool.make_inputs(shape, dev, seed=seed + 7 * k)
+             for k in range(n)]
+    args = list(cases[0])
+    args[0] = torch.stack([c[0] for c in cases])
+    if args[2] is not None:
+        args[2] = torch.stack([c[2] for c in cases])
+    return tuple(args)
+
+
+def picture_args(args, k):
+    """Picture k of a batch's arguments, as a single-picture call."""
+    one = list(args)
+    one[0] = args[0][k].clone()
+    one[2] = None if args[2] is None else args[2][k].clone()
+    return tuple(one)
+
+
+def phase_batch_kernel(card):
+    """Kernel at N = 3 == plain and == three N = 1 launches at the seven
+    1080p launch shapes; device time per launch at N = 3 beside N = 1;
+    then a batched 1080p ME pass.  Returns the entry's batch keys."""
+    dev = torch.device("cuda")
+    max_err = 0
+    t1 = t3 = b3 = 0.0
+    shapes = []
+    for seed, shape in enumerate(probe_tool.REFINE_SHAPES):
+        args3 = batch_args(shape, dev, seed)
+        before = pr.LAUNCHES
+        got = pr.me_search(*args3)
+        if pr.LAUNCHES != before + 1:
+            raise AssertionError("phase6: a batch made more than one launch")
+        want = pr.me_search_plain(*args3)
+        torch.cuda.synchronize()
+        max_err = max(max_err, assert_equal_outputs(
+            got, want, f"phase6 me_search N=3 {shape[0]}"))
+        for k in range(3):
+            one = pr.me_search(*picture_args(args3, k))
+            if not (torch.equal(got[0][k], one[0])
+                    and torch.equal(got[1][k], one[1])):
+                raise AssertionError(f"phase6 {shape[0]}: picture {k} of "
+                                     "the batch differs from its own launch")
+        args1 = picture_args(args3, 0)
+        # turns: N = 1, N = 3, N = 3, N = 1, on the device alone
+        d1a = graph_ms(pr.me_search, args1)
+        d3a = graph_ms(pr.me_search, args3)
+        d3b = graph_ms(pr.me_search, args3)
+        d1b = graph_ms(pr.me_search, args1)
+        d1, d3 = (d1a + d1b) / 2, (d3a + d3b) / 2
+        bound3, by3 = refine_bound_ms(args3)
+        t1, t3, b3 = t1 + d1, t3 + d3, b3 + bound3
+        shapes.append({"shape": shape[0], "ms_n1": d1, "ms_n3": d3,
+                       "bound_ms_n3": bound3, "bound_by_n3": by3})
+        print(f"phase6 me_search N=3 {probe_tool.describe(shape)}: kernel "
+              f"== plain == three N=1 launches; one launch {d3:.4f} ms on "
+              f"the device at N=3, {d1:.4f} ms at N=1 ({d3 / d1:.2f}x for "
+              f"3x the work); bound at N=3 {bound3:.5f} ms by {by3} "
+              f"[{card}]", flush=True)
+    print(f"phase6 me_search, the seven launches of one reference: "
+          f"{t3:.4f} ms on the device for three pictures at N=3, "
+          f"{t1:.4f} ms for one at N=1 (three single pictures: "
+          f"{3 * t1:.4f} ms); bound at N=3 {b3:.5f} ms [{card}]",
+          flush=True)
+
+    W, H = 1920, 1080
+    frames = make_frames(4, W, H)
+    cur = torch.stack([torch.tensor(f[0], device=dev) for f in frames[1:]])
+    ref = torch.tensor(frames[0][0], device=dev)
+    body = me_mod.make_me_body(H, W, 16, 16, 120, 68, levels=5,
+                               coarse_radius=probe_tool.COARSE_RADIUS)
+    body(cur, ref)                       # warm-up
+    torch.cuda.synchronize()
+    before = pr.LAUNCHES
+    got = body(cur, ref)
+    torch.cuda.synchronize()
+    launches = pr.LAUNCHES - before
+    if launches != LAUNCHES_PER_REF:
+        raise AssertionError(f"phase6 batched ME pass: {launches} launches,"
+                             f" expected {LAUNCHES_PER_REF}")
+    for k in range(3):
+        one = body(cur[k].clone(), ref)
+        for g, w_, name in zip(got, one, ("dy", "dx", "sad")):
+            if not torch.equal(g[k], w_):
+                raise AssertionError(f"phase6 batched ME pass: picture {k}"
+                                     f" {name} differs from its own pass")
+    print(f"phase6 1080p ME pass of a batch of 3 pictures: {launches} "
+          f"launches, equal to three single-picture passes [{card}]",
+          flush=True)
+    return {"batch_max_abs_err": max_err, "ms_n3": t3, "ms_n1": t1,
+            "bound_ms_n3": b3, "batch_shapes": shapes}
+
+
+def record_refs(enc):
+    """Keep every reference picture the encoder makes (its device
+    planes), by picture number, as the encoder stores it."""
+    made = {}
+
+    class Recording(dict):
+        def __setitem__(self, k, v):
+            made[k] = v
+            super().__setitem__(k, v)
+    enc.ref_frames = Recording(enc.ref_frames)
+    return made
+
+
+def record_batches(enc):
+    """Wrap the encoder's B-batch entry: per subgroup offered, its B
+    picture numbers, whether it went as one batch, and its launches."""
+    seen = []
+    orig = enc._start_b_batch
+
+    def wrapped(bs_):
+        before = pr.LAUNCHES
+        out = orig(bs_)
+        seen.append(([b[0] for b in bs_], out is not None,
+                     pr.LAUNCHES - before))
+        return out
+    enc._start_b_batch = wrapped
+    return seen
+
+
+def check_two_decoders(stream, frames, made, card, what):
+    """api.Decoder (pipelined) and StreamDecoder on the card: equal planes
+    for every frame, every reference picture equal to the encoder's
+    reconstruction, the checks of check_decoded.  The two are timed in
+    turns (pipelined, per-picture, per-picture, pipelined).  Returns
+    (PSNRs, pipelined frames/s, per-picture frames/s), the rates the means
+    of the two turns."""
+    runs = {"pipelined": [], "per-picture": []}
+    for name in ("pipelined", "per-picture", "per-picture", "pipelined"):
+        dec = api.Decoder() if name == "pipelined" else StreamDecoder()
+        t0 = time.perf_counter()
+        out = dec.decode_stream(stream)
+        torch.cuda.synchronize()
+        runs[name].append((time.perf_counter() - t0, dec, out))
+    _, dec, out = runs["pipelined"][0]
+    _, base, out2 = runs["per-picture"][0]
+    vals = check_decoded(out, frames, dec, what)
+    check_decoded(out2, frames, base, what)
+    for k, (a, b) in enumerate(zip(out, out2)):
+        if not all(np.array_equal(x, y) for x, y in zip(a, b)):
+            raise AssertionError(f"{what}: frame {k}: the pipelined and the "
+                                 "per-picture decoder differ")
+    for num, rf in made.items():
+        if not all(torch.equal(torch.from_numpy(x), y.cpu())
+                   for x, y in zip(out[num], rf.planes)):
+            raise AssertionError(f"{what}: reference picture {num} decodes "
+                                 "to other planes than the encoder's "
+                                 "reconstruction")
+    fps = {name: np.mean([len(frames) / r[0] for r in v])
+           for name, v in runs.items()}
+    return vals, fps["pipelined"], fps["per-picture"]
+
+
+def picture_mix(stream):
+    kinds = picture_kinds(stream)
+    n_i = sum(1 for _, r, _ in kinds if r == 0)
+    n_p = sum(1 for _, r, ref in kinds if r > 0 and ref)
+    n_b = sum(1 for _, r, ref in kinds if r > 0 and not ref)
+    return n_i, n_p, n_b
+
+
+def phase_small_card_vs_cpu(card):
+    """128x64: bench.py's configuration and api.Encoder's default on the
+    card against the CPU."""
+    small = make_frames(9, 128, 64)
+    vf_s = video_format(128, 64)
+    runs = {
+        "bench (B batched)": lambda dev: GopEncoder(
+            vf_s, device=dev, **dict(CONFIG_BENCH, bitrate=500_000)
+        ).encode_stream(small),
+        "api default": lambda dev: api.Encoder(
+            vf_s, EncoderConfig(), device=dev).encode_stream(small)}
+    for name, run in runs.items():
+        psnrs = []
+        streams = [run(None), run("cpu")]
+        for stream, dev in zip(streams, (None, "cpu")):
+            dec = api.Decoder(device=dev)
+            psnrs.append(np.mean(check_decoded(
+                dec.decode_stream(stream), small, dec,
+                f"phase7 {name} {dev or 'cuda'}")))
+        (s_gpu, s_cpu), (p_gpu, p_cpu) = streams, psnrs
+        print(f"phase7 128x64 x9 {name}: cuda {len(s_gpu)} bytes "
+              f"{p_gpu:.3f} dB, cpu {len(s_cpu)} bytes {p_cpu:.3f} dB; "
+              f"streams {'equal' if s_gpu == s_cpu else 'differ'} [{card}]",
+              flush=True)
+        if abs(p_gpu - p_cpu) >= 0.7 or \
+                abs(len(s_gpu) - len(s_cpu)) >= 0.15 * len(s_cpu):
+            raise AssertionError(f"phase7 {name}: card and CPU streams "
+                                 "outside the bands")
+
+
+def phase_bench_headline(card):
+    """smoke-1080p-bench-headline; returns its launch counts."""
+    W, H, N = 1920, 1080, 50
+    vf = video_format(W, H)
+    frames = make_frames(N, W, H)
+    # warm-up: I, P, a batch of 3 B (allocator, library init)
+    GopEncoder(vf, **CONFIG_BENCH).encode_stream(frames[:6])
+    torch.cuda.synchronize()
+    enc = GopEncoder(vf, **CONFIG_BENCH)
+    seen = record_batches(enc)
+    made = record_refs(enc)
+    ticks = []
+    pr.LAUNCHES = 0
+    t0 = time.perf_counter()
+    stream = enc.encode_stream(frames, progress=lambda i, n: ticks.append(
+        (i, n)))
+    torch.cuda.synchronize()
+    t_enc = time.perf_counter() - t0
+    launches = pr.LAUNCHES
+
+    n_i, n_p, n_b = picture_mix(stream)
+    batches = [s for s in seen if s[1]]
+    per_pic = [s for s in seen if not s[1]]
+    print(f"phase8 mix: {n_i} I, {n_p} P, {n_b} B; {len(batches)} batches "
+          f"of B pictures ({sum(len(s[0]) for s in batches)} B), per-"
+          f"picture subgroups offered {[s[0] for s in per_pic]}; launches "
+          f"per batch {sorted(set(s[2] for s in batches))}; me_search "
+          f"launches {launches}; progress called {len(ticks)} times",
+          flush=True)
+    if not batches or any(len(s[0]) == CONFIG_BENCH.get(
+            "subgroup_length", 4) - 1 for s in per_pic):
+        raise AssertionError(f"phase8: a full subgroup of B pictures went "
+                             f"per picture: {per_pic}")
+    if any(s[2] > 2 * LAUNCHES_PER_REF for s in batches):
+        raise AssertionError("phase8: a batch made more than "
+                             f"{2 * LAUNCHES_PER_REF} launches")
+    if len(ticks) != N or ticks[-1][0] != N - 1:
+        raise AssertionError(f"phase8: progress called {len(ticks)} times")
+    vals, fps_pipe, fps_base = check_two_decoders(stream, frames, made, card,
+                                                  "phase8")
+    share = N * CONFIG_BENCH["bitrate"] / CONFIG_BENCH["fps"] / 8
+    if not 0.1 * share <= len(stream) <= 4 * share:
+        raise AssertionError(f"phase8: {len(stream)} bytes outside 0.1x-4x "
+                             f"of the pro-rata {share:.0f}")
+    print(f"phase8 smoke-1080p-bench-headline x{N}: {len(stream)} bytes "
+          f"({len(stream) / share:.3f} of the pro-rata {share:.0f}), luma "
+          f"PSNR mean {np.mean(vals):.3f} min {min(vals):.3f} dB, "
+          f"{len(made)} reference pictures equal to the encoder's; encode "
+          f"{N / t_enc:.3f} frames/s, decode {fps_pipe:.3f} frames/s "
+          f"pipelined (api.Decoder), {fps_base:.3f} frames/s StreamDecoder "
+          f"[{card}]", flush=True)
+    return {"launches": launches,
+            "batch_launches": sum(s[2] for s in batches),
+            "batches": len(batches)}
+
+
+def phase_api_default(card):
+    """smoke-1080p-api-default; returns its launches."""
+    W, H, N = 1920, 1080, 13
+    vf = video_format(W, H)
+    frames = make_frames(N, W, H)
+    api.Encoder(vf, EncoderConfig()).encode_stream(frames[:6])   # warm-up
+    torch.cuda.synchronize()
+    enc = api.Encoder(vf, EncoderConfig())
+    seen = record_batches(enc._gop)
+    made = record_refs(enc._gop)
+    pr.LAUNCHES = 0
+    t0 = time.perf_counter()
+    stream = enc.encode_stream(frames)
+    torch.cuda.synchronize()
+    t_enc = time.perf_counter() - t0
+    launches = pr.LAUNCHES
+    n_i, n_p, n_b = picture_mix(stream)
+    vals, fps_pipe, fps_base = check_two_decoders(stream, frames, made, card,
+                                                  "phase9")
+    print(f"phase9 smoke-1080p-api-default x{N} (constant quality, "
+          f"pipeline depth {enc._gop.pipeline_depth}, mv precision "
+          f"{enc._gop.mv_precision}, inter wavelet "
+          f"{int(enc._gop.inter_wavelet)}): {n_i} I, {n_p} P, {n_b} B, "
+          f"{sum(1 for s in seen if s[1])} batches; {len(stream)} bytes, "
+          f"luma PSNR mean {np.mean(vals):.3f} min {min(vals):.3f} dB; "
+          f"me_search launches {launches}; encode {N / t_enc:.3f} frames/s,"
+          f" decode {fps_pipe:.3f} frames/s pipelined, {fps_base:.3f} "
+          f"frames/s StreamDecoder [{card}]", flush=True)
+    return launches
+
+
 def main() -> int:
     card = gpu_line()
     print(f"phase0 gpu: {card}", flush=True)
@@ -533,9 +841,15 @@ def main() -> int:
     print(f"phase1 built {coder.build()}", flush=True)
 
     entry = phase_kernel(card)
+    entry.update(phase_batch_kernel(card))
     entry["launches_backref"] = phase_backref(card)
     probe_entry = phase_probe(card)
-    entry["launches"] = phase_flagship(card)
+    entry["launches_flagship"] = phase_flagship(card)
+    phase_small_card_vs_cpu(card)
+    # this slice's main path: bench.py's headline encode; each count is
+    # set to 0 just before its path and read just after
+    entry.update(phase_bench_headline(card))
+    entry["launches_api_default"] = phase_api_default(card)
 
     print(json.dumps({"kernels": [entry, probe_entry]}), flush=True)
     print(card, flush=True)

@@ -8,7 +8,23 @@ bitstream, the C++ arith/VLC/MV coder and MD5 under `coding/native/`).
 
 This package imports `torch`, never `jax` and nothing of the JAX package.
 Every tensor function runs on the device of its inputs; the entry points
-take a `device` and run on the card unless the caller asks for the CPU.
+(`api.Encoder`, `api.Decoder`, `encoder.gop.GopEncoder`, the decoders,
+`tools/schro_tpu.py`) take a `device` and run on the card unless the
+caller asks for the CPU.
 """
 
 __version__ = "0.2.0"
+
+
+def clear_compiled_caches():
+    """Drop every module-level cache of built steps: the inter step (which
+    serves single pictures and batches of B pictures alike), the fused
+    intra step and the pipelined decoder's steps.  The counterpart of
+    `schroedinger_tpu.clear_compiled_caches`, which leaves the JAX
+    package's B-batch programs alive."""
+    from schroedinger_tpu_torch.decoder import pipeline
+    from schroedinger_tpu_torch.encoder import inter, intra
+
+    inter._STEP_CACHE.clear()
+    intra._I_STEP_CACHE.clear()
+    pipeline._DEC_CACHE.clear()

@@ -1,0 +1,290 @@
+"""Public push/pull codec API (SchroEncoder/SchroDecoder equivalents).
+
+Port of `schroedinger_tpu/api.py`.  The encoder dispatches on
+force_profile / rate_control exactly like schro_encoder_start
+(schroencoder.c:670-745):
+
+  vc2_low_delay -> VC-2 low-delay slices        (not ported: raises)
+  vc2_simple    -> intra-only, VLC residuals    (not ported: raises)
+  vc2_main      -> intra-only, arithmetic coding
+  main          -> long-GOP motion-compensated coding: the biref engine
+                   under constant_quality (the default), constant_lambda
+                   or constant_bitrate; lossless on the backref engine at
+                   quant index 0 with Haar-0
+
+What is not ported raises NotImplementedError naming its ROADMAP.md
+item: the two VC-2 profiles above, interlaced coding, the constant_error
+and constant_noise_threshold engines, and the backref engine under a
+quantiser engine or CBR (GopEncoder raises for the last three).  Both
+classes run on the card unless the caller passes device="cpu".
+"""
+from __future__ import annotations
+
+import math
+from typing import List, Optional, Tuple
+
+import numpy as np
+
+from schroedinger_tpu_torch import bitstream as bs
+from schroedinger_tpu_torch.config import PROFILES, EncoderConfig
+from schroedinger_tpu_torch.decoder.pipeline import PipelinedStreamDecoder
+from schroedinger_tpu_torch.devices import resolve_device
+from schroedinger_tpu_torch.encoder import intra as ei_intra
+from schroedinger_tpu_torch.encoder.gop import GopEncoder
+from schroedinger_tpu_torch.encoder.ratecontrol import QuantiserEngine
+from schroedinger_tpu_torch.params import Params, subband_count
+from schroedinger_tpu_torch.video_format import VideoFormat
+from schroedinger_tpu_torch.wavelets import MAX_DEPTH_S16, Wavelet
+
+_NEXT_SLICES = "ROADMAP.md Queue 1, next slices"
+
+
+def _quality_to_qi(quality: float) -> int:
+    """Monotone quality (0..10) -> base quant index; 10 is lossless."""
+    return int(np.clip(round((10.0 - quality) * 5.0), 0, 60))
+
+
+class Encoder:
+    """Dirac/VC-2 encoder with profile dispatch matching the reference."""
+
+    def __init__(self, video_format: VideoFormat,
+                 config: Optional[EncoderConfig] = None, device=None):
+        self.vf = video_format
+        self.cfg = config or EncoderConfig()
+        if self.cfg.get("interlaced_coding") or video_format.interlaced_coding:
+            raise NotImplementedError(
+                f"interlaced coding is not ported ({_NEXT_SLICES}: "
+                "interlaced coding)")
+        self.device = resolve_device(device)
+        self.frame_number = 0
+        self._out: List[bytes] = []
+        self._chain = bs.OffsetChain()
+        self._gop = None
+        self.profile = self._resolve_profile()
+
+        if self.profile == "vc2_low_delay":
+            raise NotImplementedError(
+                f"the vc2_low_delay profile is not ported ({_NEXT_SLICES}: "
+                "low delay and no-arith)")
+        if self.profile == "vc2_simple":
+            raise NotImplementedError(
+                f"the vc2_simple profile (no-arith intra) is not ported "
+                f"({_NEXT_SLICES}: low delay and no-arith)")
+        if self.profile == "vc2_main":
+            self._init_intra()
+        else:
+            self._init_gop()
+
+    def _resolve_profile(self) -> str:
+        fp = self.cfg.get("force_profile")
+        if isinstance(fp, (int, float)):
+            fp = PROFILES[int(fp)]
+        if fp and fp != "auto":
+            return fp
+        rc = self.cfg.rate_control
+        if rc == "low_delay":
+            return "vc2_low_delay"
+        if self.cfg.enable_noarith:
+            return "vc2_simple"
+        if self.cfg.gop_structure == "intra_only":
+            return "vc2_main"
+        return "main"
+
+    # ---- profile setups -------------------------------------------------
+
+    def _init_intra(self) -> None:
+        wavelet = Wavelet(self.cfg.enum_index("intra_wavelet"))
+        depth = min(self.cfg.transform_depth, MAX_DEPTH_S16[wavelet])
+        p = Params(video_format=self.vf, num_refs=0, is_noarith=False,
+                   wavelet_filter_index=wavelet, transform_depth=depth)
+        p.set_default_codeblocks()
+        p.set_default_quant_matrix()
+        self.params = p
+        if self.cfg.rate_control == "lossless":
+            self._base_qi = 0
+        else:
+            self._base_qi = _quality_to_qi(float(self.cfg.get("quality")))
+
+    def _init_gop(self) -> None:
+        cfg = self.cfg
+        bitrate = cfg.bitrate if cfg.rate_control == "constant_bitrate" \
+            else 0
+        fps = self.vf.frame_rate_numerator / self.vf.frame_rate_denominator
+        lossless = cfg.rate_control == "lossless"
+        qi = 0 if lossless else _quality_to_qi(float(cfg.get("quality")))
+        qengine = None
+        if cfg.rate_control == "constant_lambda":
+            # frame_lambda from quality, schroencoder.c:65
+            lam = math.exp(0.921034 * float(cfg.get("quality")) - 13.825)
+            qengine = QuantiserEngine("constant_lambda", lam=lam)
+        elif cfg.rate_control == "constant_quality":
+            # quality -> frame lambda + RDO pick, the reference's default
+            # mode (schroencoder.c:83-99, magic_error_power 4 neutral)
+            q = float(cfg.get("quality"))
+            ep = float(cfg.get("magic_error_power"))
+            q += -3.5 * (ep - 4)
+            q *= 1.0 + (ep - 4) * 0.2
+            if ep < 2.5:
+                q += 2
+            lam = math.exp(1.6447 * q - 16.2826)
+            qengine = QuantiserEngine("constant_lambda", lam=lam)
+        elif cfg.rate_control in ("constant_error",
+                                  "constant_noise_threshold"):
+            qengine = QuantiserEngine(
+                cfg.rate_control,
+                noise_threshold=float(cfg.get("noise_threshold")),
+                width=self.vf.width, height=self.vf.height)
+        intra_w = Wavelet(cfg.enum_index("intra_wavelet"))
+        inter_w = Wavelet(cfg.enum_index("inter_wavelet"))
+        if lossless:
+            # reference lossless long-GOP forces Haar-0 (schroengine.c:547)
+            intra_w = inter_w = Wavelet.HAAR_0
+        magic = {k: float(cfg.get("magic_" + k)) for k in (
+            "subband0_lambda_scale", "diagonal_lambda_scale",
+            "chroma_lambda_scale",
+            "me_lambda_scale", "I_lambda_scale", "P_lambda_scale",
+            "B_lambda_scale", "inter_cpd_scale", "keyframe_weight",
+            "inter_p_weight", "inter_b_weight", "allocation_scale",
+            "badblock_multiplier_nonref", "badblock_multiplier_ref",
+            "block_search_threshold", "scan_distance",
+            "me_bailout_limit", "error_power")}
+        est = []
+        if not cfg.get("enable_hierarchical_estimation"):
+            est.append("no_hierarchical")
+        if not cfg.get("enable_deep_estimation"):
+            est.append("no_deep")
+        if not cfg.get("enable_bigblock_estimation"):
+            est.append("no_bigblock")
+        if not (cfg.get("enable_zero_estimation")
+                or cfg.get("enable_bigblock_estimation")):
+            est.append("no_zero")
+        if cfg.get("enable_chroma_me") and cfg.get("enable_deep_estimation"):
+            # like the reference, chroma ME needs the deep estimator
+            # (schroencoder.c:646-648)
+            est.append("chroma_me")
+        if cfg.get("enable_fullscan_estimation"):
+            est.append("fullscan")
+        self._gop = GopEncoder(
+            self.vf,
+            intra_wavelet=intra_w,
+            inter_wavelet=inter_w,
+            transform_depth=min(cfg.transform_depth, 3) if lossless
+            else cfg.transform_depth,
+            gop_length=min(cfg.au_distance, 24),
+            base_qi_intra=qi,
+            base_qi_inter=qi if lossless else min(60, qi + 4),
+            bitrate=bitrate, fps=fps,
+            enable_md5=cfg.enable_md5,
+            mv_precision=cfg.mv_precision,
+            # adaptive maps to the tworef engine like the reference
+            # (schroencoder.c:599-604); lossless forces the backref
+            # handler (schroengine.c:991-995)
+            gop_structure=("biref" if not lossless
+                           and cfg.gop_structure in
+                           ("adaptive", "biref", "chained_biref")
+                           else "backref"),
+            subgroup_length=int(cfg.get("magic_subgroup_length")),
+            enable_phasecorr=bool(cfg.get("enable_phasecorr_estimation")),
+            quantiser_engine=qengine,
+            enable_scene_change=bool(
+                cfg.get("enable_scene_change_detection")),
+            scene_change_threshold=float(
+                cfg.get("magic_scene_change_threshold")),
+            perceptual_weighting=cfg.get("perceptual_weighting"),
+            perceptual_distance=float(cfg.get("perceptual_distance")),
+            open_gop=bool(cfg.get("open_gop")),
+            enable_psnr=bool(cfg.get("enable_psnr")),
+            enable_ssim=bool(cfg.get("enable_ssim")),
+            block_size=cfg.get("motion_block_size"),
+            block_overlap=cfg.get("motion_block_overlap"),
+            codeblock_size=cfg.get("codeblock_size"),
+            enable_multiquant=bool(cfg.get("enable_multiquant")),
+            enable_dc_multiquant=bool(cfg.get("enable_dc_multiquant")),
+            filtering=cfg.get("filtering"),
+            filter_value=float(cfg.get("filter_value")),
+            rdo_cbr=bool(cfg.get("enable_rdo_cbr")),
+            buffer_size=int(cfg.get("buffer_size")),
+            buffer_level=int(cfg.get("buffer_level")),
+            pipeline_depth=max(1, min(int(cfg.get("queue_depth")) - 1, 8)),
+            downsample_levels=int(cfg.get("downsample_levels")),
+            max_refs=int(cfg.get("max_refs")),
+            estimation=tuple(est),
+            magic=magic,
+            device=self.device)
+
+    # ---- push/pull ------------------------------------------------------
+
+    def push_frame(self, planes) -> None:
+        if self._gop is not None:
+            self._out.append(self._gop.encode_frame(planes))
+            self.frame_number += 1
+            return
+        p = self.params
+        nb = subband_count(p.transform_depth)
+        qm = p.quant_matrix[:nb]
+        qis = {}
+        for comp in range(3):
+            for i in range(nb):
+                hcb, vcb = ei_intra._codeblock_counts(p, i)
+                qi = int(np.clip(self._base_qi - qm[i], 0, 60))
+                qis[(comp, i)] = np.full((vcb, hcb), qi, np.int32)
+        units = [bs.write_sequence_header(self.vf, profile=2, level=0),
+                 ei_intra.encode_picture(planes, p, self.frame_number,
+                                         quant_indices=qis, is_ref=False,
+                                         device=self.device)]
+        self._out.append(self._chain.add(units))
+        self.frame_number += 1
+
+    def pull(self) -> Optional[bytes]:
+        if self._out:
+            return self._out.pop(0)
+        return None
+
+    def end_of_stream(self) -> bytes:
+        if self._gop is not None:
+            tail = self._gop.flush()
+            return tail + self._gop._chain.add([bs.make_eos_unit()],
+                                               final_eos=True)
+        return self._chain.add([bs.make_eos_unit()], final_eos=True)
+
+    def encode_stream(self, frames) -> bytes:
+        if self._gop is not None:
+            out = self._gop.encode_stream(frames)   # includes flush + EOS
+            self.frame_number = self._gop.frame_number
+            return out
+        out = bytearray()
+        for f in frames:
+            self.push_frame(f)
+            out += self.pull()
+        out += self.end_of_stream()
+        return bytes(out)
+
+
+class Decoder:
+    """Dirac/VC-2 decoder: the pipelined stream decoder (host entropy
+    decode overlaps the device's render; falls back per picture where
+    needed)."""
+
+    def __init__(self, device=None):
+        self._core = PipelinedStreamDecoder(device=device)
+
+    @property
+    def md5_failures(self):
+        return self._core.md5_failures
+
+    @property
+    def errors(self):
+        return self._core.errors
+
+    @property
+    def vf(self):
+        return self._core.vf
+
+    def decode_stream(self, stream: bytes) -> List[Tuple[np.ndarray, ...]]:
+        frames = self._core.decode_stream(stream)
+        vf = self._core.vf
+        if vf is not None and vf.interlaced_coding:
+            raise NotImplementedError(
+                f"weaving decoded fields into frames (frontends.py) is not "
+                f"ported ({_NEXT_SLICES}: interlaced coding)")
+        return frames

@@ -29,21 +29,23 @@ def arrays_to_pyramid(arrays, depth: int):
 
 
 def flatten_pyramid(pyr, depth: int):
-    """Concatenate all subbands into one flat tensor.
+    """Concatenate all subbands into one flat tensor (one per leading
+    index of a batched pyramid: (..., n)).
 
     Returns (flat, shapes) where shapes[i] is the (h, w) of subband i."""
     arrays = subband_arrays(pyr, depth)
     shapes = [tuple(a.shape[-2:]) for a in arrays]
-    flat = torch.cat([a.reshape(-1) for a in arrays])
+    flat = torch.cat([a.reshape(*a.shape[:-2], -1) for a in arrays], -1)
     return flat, shapes
 
 
 def unflatten(flat, shapes):
-    """Split a flat band tensor back into 2-D views (device twin of
-    `schroedinger_tpu.coding.slices.unflatten_host`)."""
+    """Split a flat band tensor (..., n) back into (..., h, w) views
+    (device twin of `schroedinger_tpu.coding.slices.unflatten_host`)."""
     out = []
     pos = 0
     for (h, w) in shapes:
-        out.append(flat[pos:pos + h * w].reshape(h, w))
+        out.append(flat[..., pos:pos + h * w].reshape(*flat.shape[:-1], h,
+                                                      w))
         pos += h * w
     return out

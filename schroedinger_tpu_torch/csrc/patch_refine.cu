@@ -22,6 +22,12 @@
 // Out: mv (nby, nbx, 2) int32 = hint + (a - rad, b - rad), then sad
 // (nby, nbx) int32, in one buffer; mv is the next level's F as it is.
 //
+// A batch of n current planes against one shared reference (the B
+// pictures of a subgroup share both references) is one launch: the
+// picture is blockIdx.y, cur and F hold n planes and fields back to back,
+// and the buffer holds the n mv fields, then the n sad fields.  n = 1 is
+// the single-picture search, with the same grid and the same code.
+//
 // What bounds it on this card.  At the finest 1080p level (68x120 blocks
 // of 16x16, rad 2) one call is 52 M absolute differences over 4.2 MB of
 // u8 planes: operations bind at levels 0 and 1 (0.0023 ms at the float32
@@ -105,12 +111,25 @@ constexpr int kMaxSmem = 48 * 1024;      // the cands kernel's slices
 enum Probe { kFull = 0, kNoStage = 1, kNoSad = 2, kOneWindow = 3 };
 
 struct Args {
-  const uint8_t* cur;
-  const uint8_t* ref;
-  const int32_t* field;                  // (hy, hx, 2) or null
-  int32_t* out;                          // mv (nb, 2) then sad (nb)
+  const uint8_t* cur;                    // (n, h, w)
+  const uint8_t* ref;                    // (h, w), shared
+  const int32_t* field;                  // (n, hy, hx, 2) or null
+  int32_t* mv;                           // (n, nb, 2)
+  int32_t* sad;                          // (n, nb)
   int h, w, hy, hx, scale, bs_y, bs_x, rad, bound, margin, nby, nbx;
 };
+
+// The arguments of picture blockIdx.y of the batch.
+__device__ __forceinline__ Args picture_of(const Args& a) {
+  Args p = a;
+  const size_t n = blockIdx.y;
+  const size_t nb = static_cast<size_t>(a.nby) * a.nbx;
+  p.cur += n * a.h * a.w;
+  if (a.field != nullptr) p.field += n * 2 * a.hy * a.hx;
+  p.mv += n * 2 * nb;
+  p.sad += n * nb;
+  return p;
+}
 
 __host__ __device__ constexpr int round8(int n) { return (n + 7) & ~7; }
 
@@ -170,9 +189,9 @@ __device__ __forceinline__ void write_out(const Args& p, int b,
                                           unsigned long long best, int K,
                                           int rad) {
   const int cand = static_cast<int>(best & 0xffffffffull);
-  p.out[2 * b] = wv.hint_y + cand / K - rad;
-  p.out[2 * b + 1] = wv.hint_x + cand % K - rad;
-  p.out[2 * p.nby * p.nbx + b] = static_cast<int32_t>(best >> 32);
+  p.mv[2 * b] = wv.hint_y + cand / K - rad;
+  p.mv[2 * b + 1] = wv.hint_x + cand % K - rad;
+  p.sad[b] = static_cast<int32_t>(best >> 32);
 }
 
 // Butterfly reduce-scatter over the lanes of a group (xor offsets O,
@@ -286,7 +305,8 @@ __device__ __forceinline__ int stage_windows(const Args& p, const Window& wv,
 
 template <int BY, int BX, int R, int kProbe>
 __global__ void __launch_bounds__(kThreads)
-    me_rows_kernel(const Args p) {
+    me_rows_kernel(const Args a) {
+  const Args p = picture_of(a);
   using S = RowsShape<BY, BX, R>;
   constexpr int G = S::kGroup;
   constexpr int WPL = S::kWords;
@@ -405,7 +425,8 @@ __host__ __device__ inline int cands_slice_bytes(int by, int bx, int rad) {
 // BY_, BX_, R_ = 0: the generic instance, sizes from the arguments.
 template <int BY_, int BX_, int R_, int kProbe>
 __global__ void __launch_bounds__(kThreads)
-    me_cands_kernel(const Args p) {
+    me_cands_kernel(const Args a) {
+  const Args p = picture_of(a);
   extern __shared__ __align__(16) unsigned char smem[];
   const int by = BY_ ? BY_ : p.bs_y;
   const int bx = BX_ ? BX_ : p.bs_x;
@@ -479,65 +500,70 @@ __global__ void __launch_bounds__(kThreads)
 // --- launch -------------------------------------------------------------
 
 template <int BY, int BX, int R, int kProbe>
-int launch_rows(const Args& p, cudaStream_t stream) {
+int launch_rows(const Args& p, int n, cudaStream_t stream) {
   constexpr int per_warp = RowsShape<BY, BX, R>::kBlocks;
   const int warps = (p.nby * p.nbx + per_warp - 1) / per_warp;
   me_rows_kernel<BY, BX, R, kProbe>
-      <<<(warps + kWarps - 1) / kWarps, kThreads, 0, stream>>>(p);
+      <<<dim3((warps + kWarps - 1) / kWarps, n), kThreads, 0, stream>>>(p);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <int BY, int BX, int R, int kProbe>
-int launch_cands(const Args& p, cudaStream_t stream) {
+int launch_cands(const Args& p, int n, cudaStream_t stream) {
   const int smem = kWarps * cands_slice_bytes(p.bs_y, p.bs_x, p.rad);
   if (smem > kMaxSmem) return -2;
   me_cands_kernel<BY, BX, R, kProbe>
-      <<<(p.nby * p.nbx + kWarps - 1) / kWarps, kThreads, smem, stream>>>(p);
+      <<<dim3((p.nby * p.nbx + kWarps - 1) / kWarps, n), kThreads, smem,
+         stream>>>(p);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <int kProbe>
-int launch(const Args& p, cudaStream_t stream) {
+int launch(const Args& p, int n, cudaStream_t stream) {
   const int by = p.bs_y, bx = p.bs_x, rad = p.rad;
   if (by == 16 && bx == 16 && rad == 2)
-    return launch_rows<16, 16, 2, kProbe>(p, stream);
+    return launch_rows<16, 16, 2, kProbe>(p, n, stream);
   if (by == 16 && bx == 16 && rad == 0)
-    return launch_rows<16, 16, 0, kProbe>(p, stream);
+    return launch_rows<16, 16, 0, kProbe>(p, n, stream);
   if (by == 8 && bx == 8 && rad == 2)
-    return launch_rows<8, 8, 2, kProbe>(p, stream);
+    return launch_rows<8, 8, 2, kProbe>(p, n, stream);
   if (by == 4 && bx == 4 && rad == 2)
-    return launch_rows<4, 4, 2, kProbe>(p, stream);
+    return launch_rows<4, 4, 2, kProbe>(p, n, stream);
   if (by == 4 && bx == 4 && rad == 8)
-    return launch_cands<4, 4, 8, kProbe>(p, stream);
-  return launch_cands<0, 0, 0, kProbe>(p, stream);
+    return launch_cands<4, 4, 8, kProbe>(p, n, stream);
+  return launch_cands<0, 0, 0, kProbe>(p, n, stream);
 }
 
 }  // namespace
 
-// One search on `stream` (see the head note); variant 0 is the search,
-// 1..3 the cost probe's variants (Probe above).  Returns
-// cudaGetLastError() (0 = launched), -1 for an unknown variant, -2 when a
-// generic shape needs more than 48 KB of shared memory.
-extern "C" int me_search_launch(int variant, const void* cur,
+// One search of a batch of n pictures on `stream` (see the head note);
+// variant 0 is the search, 1..3 the cost probe's variants (Probe above).
+// Returns cudaGetLastError() (0 = launched), -1 for an unknown variant,
+// -2 when a generic shape needs more than 48 KB of shared memory, -3 for
+// a batch of more than 65535 pictures (the grid's y limit).
+extern "C" int me_search_launch(int variant, int n, const void* cur,
                                 const void* ref, const void* field,
                                 void* out, int h, int w, int hy, int hx,
                                 int scale, int bs_y, int bs_x, int rad,
                                 int bound, int margin, void* stream) {
+  const int nby = h / bs_y, nbx = w / bs_x;
+  int32_t* mv = static_cast<int32_t*>(out);
   Args p{static_cast<const uint8_t*>(cur), static_cast<const uint8_t*>(ref),
-         static_cast<const int32_t*>(field), static_cast<int32_t*>(out),
-         h, w, hy, hx, scale, bs_y, bs_x, rad, bound, margin,
-         h / bs_y, w / bs_x};
-  if (p.nby <= 0 || p.nbx <= 0) return 0;
+         static_cast<const int32_t*>(field), mv,
+         mv + 2 * static_cast<size_t>(n) * nby * nbx,
+         h, w, hy, hx, scale, bs_y, bs_x, rad, bound, margin, nby, nbx};
+  if (nby <= 0 || nbx <= 0 || n <= 0) return 0;
+  if (n > 65535) return -3;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (variant) {
     case kFull:
-      return launch<kFull>(p, st);
+      return launch<kFull>(p, n, st);
     case kNoStage:
-      return launch<kNoStage>(p, st);
+      return launch<kNoStage>(p, n, st);
     case kNoSad:
-      return launch<kNoSad>(p, st);
+      return launch<kNoSad>(p, n, st);
     case kOneWindow:
-      return launch<kOneWindow>(p, st);
+      return launch<kOneWindow>(p, n, st);
     default:
       return -1;
   }

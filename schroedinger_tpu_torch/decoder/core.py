@@ -144,9 +144,15 @@ def decode_residual(payload_reader: BitReader, payload: bytes, p: Params,
 class StreamDecoder:
     """Decodes a full Dirac stream; returns frames in presentation order
     as (y, u, v) numpy u8 planes.  All tensor work runs on `device`: the
-    card when None (an error where there is none), the CPU on request."""
+    card when None (an error where there is none), the CPU on request.
+    The telemetry overlay (`decoder/overlay.py`) is not ported: asking
+    for it raises NotImplementedError."""
 
-    def __init__(self, device=None):
+    def __init__(self, telemetry=None, device=None):
+        if telemetry:
+            raise NotImplementedError("the telemetry overlay "
+                                      "(decoder/overlay.py) is not ported")
+        self.telemetry = False
         self.device = resolve_device(device)
         self.vf: Optional[VideoFormat] = None
         self.refs: Dict[int, RefFrame] = {}

@@ -8,20 +8,24 @@ Port of `schroedinger_tpu/encoder/gop.py` `GopEncoder` for two engines:
 - "biref": the tworef / BBBP engine.  Display-order frames buffer into
   subgroups of `subgroup_length`; the last picture of each subgroup is
   coded first as a P (two references once a long-term intra exists), then
-  the earlier ones as non-reference two-reference B pictures.  With
-  `bitrate` the TM5 controller (`ratecontrol.CbrControllerTM5`) sets one
-  lambda per picture kind, and every picture picks its quantisers on the
-  device against its own exact stat tables; without it the pictures are
-  coded at the fixed base indices.
+  the earlier ones as non-reference two-reference B pictures, all of a
+  full subgroup's B pictures as one batch (`enable_b_batch`, the JAX
+  default) where the JAX encoder batches them.  With `bitrate` the TM5
+  controller (`ratecontrol.CbrControllerTM5`) sets one lambda per picture
+  kind, and with a `QuantiserEngine` in constant_lambda mode one lambda
+  holds for the stream; every picture then picks its quantisers on the
+  device against its own exact stat tables.  Without either the pictures
+  are coded at the fixed base indices.
 
-Not ported yet (the constructor raises NotImplementedError for them):
-batching a subgroup's B pictures into one step, CBR on the backref engine,
-CBR without the TM5 controller (`rdo_cbr=False`), the quantiser engines,
-interlaced (field) coding and deep (>8-bit) video.  The JAX encoder's
-other options (block and codeblock sizes, multiquant, pyramid depth,
-phase correlation, prefilters, no-arith coding, the estimation switches,
-perceptual weighting, PSNR/SSIM postanalysis) are not taken: the port
-runs their defaults, which the parity tests hold to the JAX package.
+The constructor takes the JAX encoder's whole signature with its
+defaults.  An option the port does not implement yet raises
+NotImplementedError when its value differs from the JAX default (see
+UNPORTED_DEFAULTS), so that `GopEncoder(vf, **kw)` gives the JAX
+encoder's stream for every `kw` it accepts.  Not ported yet besides:
+CBR on the backref engine, CBR without the TM5 controller
+(`rdo_cbr=False`), the quantiser engines other than constant_lambda and
+any engine on the backref engine, interlaced (field) coding and deep
+(>8-bit) video.
 """
 from __future__ import annotations
 
@@ -52,20 +56,29 @@ from schroedinger_tpu_torch.utils.telemetry import FrameStats
 from schroedinger_tpu_torch.video_format import VideoFormat
 from schroedinger_tpu_torch.wavelets import MAX_DEPTH_S16, Wavelet
 
-# the JAX GopEncoder's defaults for the options the port does not take
-ME_LEVELS = 5                       # downsample_levels
-PERCEPTUAL_WEIGHTING = "ccir959"
-PERCEPTUAL_DISTANCE = 4.0
+# the JAX GopEncoder's defaults of the options whose other values the
+# port does not implement yet: a value other than these raises
+# NotImplementedError.  The ported paths run exactly these settings.
+UNPORTED_DEFAULTS = dict(
+    enable_phasecorr=False, stats=None, perceptual_weighting="ccir959",
+    perceptual_distance=4.0, enable_psnr=False, enable_ssim=False,
+    block_size="automatic", block_overlap="automatic",
+    codeblock_size="automatic", enable_multiquant=False,
+    enable_dc_multiquant=False, filtering="none", downsample_levels=5,
+    enable_noarith=False, estimation=())
 
-# magic_* tuning constants (schroencoder.c:4513-4535 defaults): the ones
-# the ported engines read (the allocation engine's weights are not among
-# them)
+# magic_* tuning constants (schroencoder.c:4513-4535 defaults), the JAX
+# encoder's whole set.  keyframe_weight, inter_p_weight, inter_b_weight,
+# allocation_scale and the badblock multipliers are read only by the
+# allocation engine (rdo_cbr=False), which the port does not take yet
 MAGIC_DEFAULTS = dict(
     subband0_lambda_scale=10.0, diagonal_lambda_scale=1.0,
     chroma_lambda_scale=0.1, me_lambda_scale=1.0, I_lambda_scale=1.0,
     P_lambda_scale=0.25, B_lambda_scale=0.01, inter_cpd_scale=1.0,
-    me_bailout_limit=0.33, block_search_threshold=15.0, scan_distance=4.0,
-    error_power=4.0)
+    keyframe_weight=7.5, inter_p_weight=1.5, inter_b_weight=0.2,
+    allocation_scale=1.1, me_bailout_limit=0.33,
+    badblock_multiplier_ref=8.0, badblock_multiplier_nonref=4.0,
+    block_search_threshold=15.0, scan_distance=4.0, error_power=4.0)
 
 
 class GopEncoder:
@@ -82,17 +95,33 @@ class GopEncoder:
                  mv_precision: int = 0,
                  enable_scene_change: bool = True,
                  scene_change_threshold: float = 3.0,
+                 enable_phasecorr: bool = False,
                  quantiser_engine=None,
+                 stats=None,
                  pipeline_depth: int = 3,
                  gop_structure: str = "backref",
                  subgroup_length: int = 4,
                  base_qi_b: Optional[int] = None,
+                 perceptual_weighting: str = "ccir959",
+                 perceptual_distance: float = 4.0,
                  open_gop: bool = True,
+                 enable_psnr: bool = False,
+                 enable_ssim: bool = False,
+                 block_size: str = "automatic",
+                 block_overlap: str = "automatic",
+                 codeblock_size: str = "automatic",
+                 enable_multiquant: bool = False,
+                 enable_dc_multiquant: bool = False,
+                 filtering: str = "none",
+                 filter_value: float = 5.0,
                  rdo_cbr: bool = True,
                  buffer_size: int = 0,
                  buffer_level: int = 0,
+                 downsample_levels: int = 5,
+                 enable_noarith: bool = False,
                  max_refs: int = 3,
-                 enable_b_batch: bool = False,
+                 estimation: tuple = (),
+                 enable_b_batch: bool = True,
                  magic: Optional[dict] = None,
                  device=None):
         if gop_structure not in ("backref", "biref"):
@@ -101,15 +130,23 @@ class GopEncoder:
             # a 1-deep reference buffer cannot host the tworef engine's
             # forward references: degrade to the backref (IPPP) engine
             gop_structure = "backref"
-        unsupported = {
-            "enable_b_batch": bool(enable_b_batch),
+        estimation = tuple(estimation)
+        given = locals()
+        unsupported = {f"{k}={given[k]!r}": given[k] != v
+                       for k, v in UNPORTED_DEFAULTS.items()}
+        qmode = getattr(quantiser_engine, "mode", None)
+        unsupported.update({
             "bitrate with gop_structure='backref'":
                 bool(bitrate) and gop_structure == "backref",
             "bitrate with rdo_cbr=False": bool(bitrate) and not rdo_cbr,
-            "quantiser_engine": quantiser_engine is not None,
+            f"quantiser_engine mode {qmode!r} (lagged host picks, "
+            "ROADMAP.md Queue 1 item 7)":
+                quantiser_engine is not None and qmode != "constant_lambda",
+            "quantiser_engine with gop_structure='backref'":
+                quantiser_engine is not None and gop_structure == "backref",
             "interlaced coding": video_format.interlaced_coding,
             "bit depth > 8": video_format.bit_depth != 8,
-        }
+        })
         missing = [k for k, v in unsupported.items() if v]
         if missing:
             raise NotImplementedError(
@@ -139,6 +176,11 @@ class GopEncoder:
         self._prev_input = None
         self._prev_mad = None
         self.stats = FrameStats()
+        self.perceptual_weighting = perceptual_weighting
+        self.perceptual_distance = perceptual_distance
+        self.downsample_levels = downsample_levels
+        self.enable_b_batch = enable_b_batch
+        self.qengine = quantiser_engine
         self.pipeline_depth = pipeline_depth
         self.gop_structure = gop_structure
         self.subgroup_length = subgroup_length
@@ -148,8 +190,7 @@ class GopEncoder:
         self.max_refs = max(1, int(max_refs))
         unknown = sorted(set(magic or {}) - set(MAGIC_DEFAULTS))
         if unknown:
-            raise ValueError(f"magic constants the port does not read: "
-                             f"{unknown}")
+            raise ValueError(f"unknown magic constants: {unknown}")
         self.magic = dict(MAGIC_DEFAULTS, **(magic or {}))
         self._queue = []          # biref: display-order (num, planes, sc)
         self._pends2 = deque()    # biref: coded-order pending pictures
@@ -173,6 +214,9 @@ class GopEncoder:
                 b_lambda_scale=self.magic["B_lambda_scale"],
                 p_lambda_scale=self.magic["P_lambda_scale"],
                 i_lambda_scale=self.magic["I_lambda_scale"])
+        if (self.qengine is not None
+                and getattr(self.qengine, "band_scales", None) is None):
+            self.qengine.band_scales = self._band_scales3(False)
         # per-(component, band) x {intra, inter} arith-vs-estimate bit
         # ratio tables (schroencoder.c:2548-2590): they scale the
         # per-band bit estimates inside every RD pick
@@ -202,7 +246,7 @@ class GopEncoder:
 
     def _step_kw(self) -> dict:
         return dict(
-            me_levels=ME_LEVELS,
+            me_levels=self.downsample_levels,
             block_search_threshold=self.magic["block_search_threshold"],
             scan_distance=self.magic["scan_distance"],
             error_power=self.magic["error_power"], device=self.device)
@@ -255,17 +299,23 @@ class GopEncoder:
                 out += self._finish_pending2(self._pends2.popleft())
         return bytes(out)
 
-    def encode_stream(self, frames) -> bytes:
+    def encode_stream(self, frames, progress=None) -> bytes:
         """Encode a sequence with device/host pipelining: the inter step of
         a later picture is queued on the device before the host entropy
         coding of an earlier one runs, so device compute and C++ arith
         coding overlap.  With CBR the per-band pick runs on the device
         against each picture's own tables; only the TM5 lambda crosses
-        pictures, `pipeline_depth` pictures late."""
+        pictures, `pipeline_depth` pictures late.
+
+        progress(i, nbytes), where given, is called as the JAX encoder
+        calls it: after every input frame of the biref engine, after every
+        P picture of the backref engine, with the bytes out so far."""
         out = bytearray()
         if self.gop_structure == "biref":
-            for planes in frames:
+            for i, planes in enumerate(frames):
                 out += self.encode_frame(planes)
+                if progress is not None:
+                    progress(i, len(out))
             out += self.flush()
             out += self._chain.add([bs.make_eos_unit()], final_eos=True)
             return bytes(out)
@@ -294,6 +344,8 @@ class GopEncoder:
             pends.append((pending, meta))
             if len(pends) > self.pipeline_depth:
                 out += self._finish_pending(pends.popleft())
+            if progress is not None:
+                progress(num, len(out))
         while pends:
             out += self._finish_pending(pends.popleft())
         out += self._chain.add([bs.make_eos_unit()], final_eos=True)
@@ -306,11 +358,11 @@ class GopEncoder:
         schroquantiser.c:856-880)."""
         cpd_h, cpd_v = cycles_per_degree(
             self.vf.height, self.vf.aspect_ratio_numerator,
-            self.vf.aspect_ratio_denominator, PERCEPTUAL_DISTANCE,
+            self.vf.aspect_ratio_denominator, self.perceptual_distance,
             self.vf.interlaced_coding)
         return band_lambda_scales(
             self.intra_wavelet if intra else self.inter_wavelet,
-            self.depth, PERCEPTUAL_WEIGHTING, cpd_h, cpd_v,
+            self.depth, self.perceptual_weighting, cpd_h, cpd_v,
             inter_cpd_scale=self.magic["inter_cpd_scale"], intra=intra,
             subband0_scale=self.magic["subband0_lambda_scale"],
             diagonal_scale=self.magic["diagonal_lambda_scale"])
@@ -323,16 +375,28 @@ class GopEncoder:
         c = self.magic["chroma_lambda_scale"]
         return np.concatenate([s, s * c, s * c])
 
+    def _lambda_driven(self) -> bool:
+        """True when the inter pictures pick their quantisers on the device
+        (the TM5 controller or the constant_lambda engine), False at fixed
+        base indices."""
+        return self.rc is not None or self.qengine is not None
+
     def _quant_args(self, kind: str) -> dict:
-        """kwargs for start_inter_picture's quant selection: with the TM5
-        controller, the on-device RD pick (lam_bands), seeded by the TM5
-        lambda and fitted per frame so that the corrected bit estimate of
-        the picks matches this picture's complexity-weighted allocation
-        (the reference's entropy_to_lambda, schroquantiser.c:887-960);
-        without a controller, nothing (fixed base indices)."""
+        """kwargs for start_inter_picture's quant selection: the on-device
+        RD pick (lam_bands) whenever the engine is lambda-driven.  The
+        constant_lambda engine's one lambda holds for every picture; the
+        TM5 controller's lambda is fitted per frame so that the corrected
+        bit estimate of the picks matches this picture's complexity-
+        weighted allocation (the reference's entropy_to_lambda,
+        schroquantiser.c:887-960); without either, nothing (fixed base
+        indices)."""
+        corr = np.maximum(self.acorr.inter, 1e-3)
+        if self.qengine is not None:
+            return {"lam_bands": self.qengine.lam * self.qengine.band_scales,
+                    "corr_bands": corr,
+                    "me_lam": self._me_lam()}
         if self.rc is None:
             return {}
-        corr = np.maximum(self.acorr.inter, 1e-3)
         alloc = {"I": self.rc.I_frame_alloc,
                  "P": self.rc.P_frame_alloc,
                  "B": self.rc.B_frame_alloc}[kind]
@@ -487,8 +551,14 @@ class GopEncoder:
         else:
             out += self._start_ref_biref(planes, num, sc)
             intra_num = None
-        for (bnum, bplanes, bsc) in group[:-1]:
-            out += self._start_b_biref(bplanes, bnum, bsc)
+        bs_ = group[:-1]
+        batched = (self._start_b_batch(bs_)
+                   if len(bs_) >= 2 and self.enable_b_batch else None)
+        if batched is not None:
+            out += batched
+        else:
+            for (bnum, bplanes, bsc) in bs_:
+                out += self._start_b_biref(bplanes, bnum, bsc)
         if intra_num is not None:
             # expire_refs_before (schroengine.c:294-296): pre-AU refs
             # become retire candidates for subsequent ref pictures
@@ -522,13 +592,63 @@ class GopEncoder:
 
     def _start_b_biref(self, planes, num, sc) -> bytes:
         ref0, ref1 = self._pick_refs(num)
-        pending = ei_inter.start_inter_picture(
-            planes, self._params(2), self.ref_frames[ref0],
-            base_qi=self.base_qi_b, ref2=self.ref_frames[ref1],
-            want_recon=self.enable_md5, **self._step_kw(),
-            **self._quant_args("B"))
+        qargs = self._quant_args("B")
+        with record_function("b_picture_step"):
+            pending = ei_inter.start_inter_picture(
+                planes, self._params(2), self.ref_frames[ref0],
+                base_qi=self.base_qi_b, ref2=self.ref_frames[ref1],
+                want_recon=self.enable_md5, **self._step_kw(), **qargs)
         meta = (num, [ref0, ref1], None, False, "B", sc)
         self._pends2.append((pending, meta))
+        return self._drain_pends2()
+
+    def _start_b_batch(self, bs_):
+        """Queue a whole subgroup's B pictures as one batch
+        (inter.start_inter_batch: each ME search one launch for all of
+        them, and one copy of their coded data to the host).  Returns None
+        to fall back to the per-picture path under exactly the JAX
+        encoder's conditions, which decide the bytes: a tail or cut
+        subgroup, a reconstruction wanted (MD5), mixed references or
+        max_refs < 2, or fixed quantisers (no lam_bands); phase
+        correlation, the JAX package's other fallback, is not taken by
+        the constructor.
+
+        Two things of the JAX encoder's version are left out on purpose.
+        It takes the three pictures' quant args before its checks; the
+        port checks first (frame_lambda("B") has no side effects, so the
+        bytes are the same).  It prefilters the B frames a second time;
+        the port has no prefilters yet (`filtering` stays "none"), and the
+        PR that ports them must not copy that.  Its compile barrier (a
+        fetch of the pending pictures without their commits, for the TPU
+        runtime) changes no byte and has no counterpart here."""
+        if len(bs_) != self.subgroup_length - 1:
+            return None     # tail/cut subgroups: per picture
+        if self.enable_md5:
+            return None     # a reconstruction is wanted: per picture
+        nums = [b[0] for b in bs_]
+        refsl = [self._pick_refs(n) for n in nums]
+        ref0, ref1 = refsl[0]
+        if ref1 is None or any(r != refsl[0] for r in refsl[1:]):
+            return None
+        if self.max_refs < 2:
+            return None
+        if not self._lambda_driven():
+            return None     # fixed quantisers: per picture
+        # all the pictures' quant args before any of them commits, as the
+        # JAX encoder takes them: this is what makes the bytes of the
+        # batched path differ from the per-picture path's
+        qsels = [self._quant_args("B") for _ in bs_]
+        with record_function("b_batch_step"):
+            pendings = ei_inter.start_inter_batch(
+                [b[1] for b in bs_], self._params(2), self.ref_frames[ref0],
+                self.ref_frames[ref1], qsels, want_recon=False,
+                me_levels=self.downsample_levels,
+                block_search_threshold=self.magic["block_search_threshold"],
+                scan_distance=self.magic["scan_distance"],
+                error_power=self.magic["error_power"], device=self.device)
+        for (num, _, sc), pending in zip(bs_, pendings):
+            self._pends2.append(
+                (pending, (num, [ref0, ref1], None, False, "B", sc)))
         return self._drain_pends2()
 
     def _drain_pends2(self) -> bytes:
@@ -652,12 +772,16 @@ class GopEncoder:
                         bs.AUX_BITRATE,
                         int(self.rc.bitrate).to_bytes(4, "big")))
             p = self._params(0)
-            if self.rc is not None:
-                if self.rc.intra_cbr_lambda is None:
-                    # first intra: seed the TM5 base lambda by fitting
-                    # this frame's exact stat tables to its allocation
-                    self._seed_rc_from_intra(planes, p)
-                intra_lambda = self.rc.frame_lambda("I")
+            if self._lambda_driven():
+                if self.qengine is not None:
+                    intra_lambda = (self.qengine.lam
+                                    * self.magic["I_lambda_scale"])
+                else:
+                    if self.rc.intra_cbr_lambda is None:
+                        # first intra: seed the TM5 base lambda by fitting
+                        # this frame's exact stat tables to its allocation
+                        self._seed_rc_from_intra(planes, p)
+                    intra_lambda = self.rc.frame_lambda("I")
                 # fused intra path: transform, stats, RD pick and
                 # quantisation on the device, host entropy coding and
                 # serial DC-predict band 0, device reconstruction

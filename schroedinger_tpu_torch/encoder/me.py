@@ -8,7 +8,10 @@ zero at the coarsest level, the refine of the upsampled parent vectors at
 each finer level, and, in the final level's candidate competition
 (hierarchy vs zero vs 3x3-median 'predicted'), the SADs at the median
 field and at zero.  That is levels + 2 searches per ME pass.
-`make_subpel_body` refines the winners to 1/2^prec pel.
+`make_subpel_body` refines the winners to 1/2^prec pel.  Both take a batch
+of current planes (N, H, W) against one reference, the B pictures of a
+subgroup against their shared references: every search is then one
+launch for the whole batch.
 
 Not ported yet: injected candidates (n_extra / phase correlation), chroma
 ME, the single-level full scan and the estimation switches that turn the
@@ -33,21 +36,24 @@ def _arange32(n, device):
 
 
 def downsample2(x):
-    """2x box downsample (encoder-side pyramid; decision-only)."""
-    h, w = x.shape
+    """2x box downsample of the last two dims (encoder-side pyramid;
+    decision-only)."""
+    h, w = x.shape[-2:]
     h2, w2 = h // 2 * 2, w // 2 * 2
-    x = x[:h2, :w2].to(torch.int32)
-    return ((x[0::2, 0::2] + x[0::2, 1::2] + x[1::2, 0::2] + x[1::2, 1::2]
-             + 2) >> 2).to(torch.uint8)
+    x = x[..., :h2, :w2].to(torch.int32)
+    return ((x[..., 0::2, 0::2] + x[..., 0::2, 1::2] + x[..., 1::2, 0::2]
+             + x[..., 1::2, 1::2] + 2) >> 2).to(torch.uint8)
 
 
 def block_sads_at(cb, P, mv_y, mv_x, nby, nbx, bs_y, bs_x, margin):
     """Per-block SAD of the reference patch at each block's own MV (the
-    radius-0 case of the patch search: no candidates, no pick)."""
+    radius-0 case of the patch search: no candidates, no pick).  mv_y,
+    mv_x: (..., nby, nbx); cb: the matching (... * nb, bs_y, bs_x)
+    blocks."""
     pat = extract_ref_patches(P, mv_y, mv_x, nby, nbx, bs_y, bs_x, 0,
                               margin)
     return (cb - pat[:, :bs_y, :bs_x]).abs().sum(
-        (1, 2), dtype=torch.int32).reshape(nby, nbx)
+        (1, 2), dtype=torch.int32).reshape(mv_y.shape)
 
 
 def _block_sum(d, nby, bs_y, nbx, bs_x):
@@ -84,15 +90,16 @@ def _plane(x):
 
 
 def _median3x3_field(f):
-    """Per-block 3x3 median of an MV component field (edge-clamped)."""
-    h, w = f.shape
+    """Per-block 3x3 median of an MV component field (edge-clamped) over
+    its last two dims."""
+    h, w = f.shape[-2:]
     dev = f.device
     taps = []
     for dy in (-1, 0, 1):
         for dx in (-1, 0, 1):
             ys = (torch.arange(h, device=dev) + dy).clamp(0, h - 1)
             xs = (torch.arange(w, device=dev) + dx).clamp(0, w - 1)
-            taps.append(f[ys[:, None], xs[None, :]])
+            taps.append(f[..., ys[:, None], xs[None, :]])
     return torch.sort(torch.stack(taps), dim=0).values[4]
 
 
@@ -104,7 +111,9 @@ def _take(stacked, best):
 def make_me_body(H, W, xbsep, ybsep, x_num_blocks, y_num_blocks,
                  levels=3, coarse_radius=8):
     """Build the ME: me(cur_y u8, ref_y u8) -> (dy, dx, sad) per block
-    (pel), all (y_num_blocks, x_num_blocks) int32 tensors.
+    (pel), all (y_num_blocks, x_num_blocks) int32 tensors.  A batch cur_y
+    (N, H, W) against the one ref_y gives (N, y_num_blocks, x_num_blocks)
+    and launches each search once for the batch.
 
     The final-level candidate set mirrors the reference's list {scan /
     hierarchy, predicted, zero} (schroencoder.h:421-440): the hierarchy
@@ -122,6 +131,9 @@ def make_me_body(H, W, xbsep, ybsep, x_num_blocks, y_num_blocks,
     margin = ME_BOUND_PEL + 2 * max(coarse_radius, REFINE_RADIUS) + 16
 
     def me(cur, ref):
+        batched = cur.ndim == 3
+        if not batched:
+            cur = cur[None]
         cur = pad_edge(cur, 0, pad_h - H, 0, pad_w - W)
         ref = pad_edge(ref, 0, pad_h - H, 0, pad_w - W)
         dev = cur.device
@@ -136,10 +148,10 @@ def make_me_body(H, W, xbsep, ybsep, x_num_blocks, y_num_blocks,
         for lev in range(levels - 1, -1, -1):
             bs_y = max(4, ybsep >> lev) if lev else ybsep
             bs_x = max(4, xbsep >> lev) if lev else xbsep
-            h, w = pyr_c[lev].shape
+            h, w = pyr_r[lev].shape
             h = h // bs_y * bs_y
             w = w // bs_x * bs_x
-            c = _plane(pyr_c[lev][:h, :w])
+            c = _plane(pyr_c[lev][:, :h, :w])
             r = _plane(pyr_r[lev][:h, :w])
             if mv is None:
                 # coarsest level: exhaustive (2*coarse_radius+1)^2 scan
@@ -156,7 +168,6 @@ def make_me_body(H, W, xbsep, ybsep, x_num_blocks, y_num_blocks,
         # final-level candidate competition: hierarchy vs zero vs the
         # median-'predicted' field (schromotionest.c:520-695 analog); c, r
         # are level 0 cropped to whole blocks of ybsep x xbsep
-        nby, nbx = mv.shape[0], mv.shape[1]
         med = torch.stack([_median3x3_field(mv[..., 0]),
                            _median3x3_field(mv[..., 1])], dim=-1)
         _, sad_med = me_search(c, r, med.contiguous(), 1, ybsep, xbsep, 0,
@@ -171,11 +182,14 @@ def make_me_body(H, W, xbsep, ybsep, x_num_blocks, y_num_blocks,
         all_sads = torch.stack([sad, sad_med, sad_zero])
         all_mvs = torch.stack([mv, med, zero])
         biased = all_sads - torch.as_tensor(
-            [0, bias, bias], dtype=torch.int32, device=dev)[:, None, None]
-        best = torch.argmin(biased, dim=0)                # (nby, nbx)
+            [0, bias, bias], dtype=torch.int32,
+            device=dev)[:, None, None, None]
+        best = torch.argmin(biased, dim=0)                # (N, nby, nbx)
         mv = torch.gather(all_mvs, 0, best[None, ..., None].expand(
-            1, nby, nbx, 2))[0]
+            1, *best.shape, 2))[0]
         sad = _take(all_sads, best)
+        if not batched:
+            return mv[0, ..., 0], mv[0, ..., 1], sad[0]
         return mv[..., 0], mv[..., 1], sad
 
     return me
@@ -195,7 +209,9 @@ def make_subpel_body(H, W, xbsep, ybsep, x_num_blocks, y_num_blocks,
                      mv_precision):
     """Sub-pel refinement: full-pel MVs -> 1/2^prec-pel MVs.
 
-    refine(cur u8, up (2h,2w) u8, dy, dx) -> (mv_y, mv_x, best_sad).
+    refine(cur u8, up (2h,2w) u8, dy, dx) -> (mv_y, mv_x, best_sad);
+    a batch cur (N, H, W) with fields (N, nby, nbx) refines against the
+    one up.
     Scales to each precision level and scans the 3x3 sub-pel
     neighbourhood with the renderer's exact fetch semantics
     (schromotionest.c:133-246 analog) on per-block patches of the padded
@@ -240,8 +256,7 @@ def make_subpel_body(H, W, xbsep, ybsep, x_num_blocks, y_num_blocks,
             ox0 = ((mv_x << sh) >> 2) - 1
             by = (2 * (_arange32(nby, dev) * ybsep))[:, None] + oy0 + margin
             bx = (2 * (_arange32(nbx, dev) * xbsep))[None, :] + ox0 + margin
-            pat = extract_patches(P, by.expand(nby, nbx).reshape(-1),
-                                  bx.expand(nby, nbx).reshape(-1),
+            pat = extract_patches(P, by.reshape(-1), bx.reshape(-1),
                                   ph, pw).to(torch.int32)
 
             if level < 3:
@@ -273,9 +288,9 @@ def make_subpel_body(H, W, xbsep, ybsep, x_num_blocks, y_num_blocks,
                 (1, 2), dtype=torch.int32) for o in offs])
             best = torch.argmin(s, dim=0)
             off_t = torch.as_tensor(offs, dtype=torch.int32, device=dev)
-            mv_y = mv_y + off_t[best, 0].reshape(nby, nbx)
-            mv_x = mv_x + off_t[best, 1].reshape(nby, nbx)
-            best_sad = _take(s, best).reshape(nby, nbx)
+            mv_y = mv_y + off_t[best, 0].reshape(mv_y.shape)
+            mv_x = mv_x + off_t[best, 1].reshape(mv_x.shape)
+            best_sad = _take(s, best).reshape(mv_y.shape)
         return mv_y, mv_x, best_sad
 
     return refine

@@ -5,8 +5,9 @@ per-(component, band) (bits, error) tables and the RD pick with its lambda
 fit are torch and run on the device of their input; `CbrControllerTM5`,
 `ArithCorrection` and the host picks are numpy code copied line for line,
 so that the same bit counts give the same float64 lambdas in both
-packages.  `CbrController` and `QuantiserEngine` come with the encoder
-options that reach them (`rdo_cbr=False`, `quantiser_engine`).
+packages, and so is `QuantiserEngine` (the GOP driver takes it in
+constant_lambda mode).  `CbrController` comes with the encoder option
+that reaches it (`rdo_cbr=False`).
 
 Which table entries are exact: the magnitude bits and the nonzero counts
 are integers, summed here in int64, so they equal the JAX package's
@@ -103,27 +104,32 @@ def band_counts(allflat, bounds, ncol: int, intra: bool,
     exact), nonzero count (int64, exact) and error (float64 sum of the
     float32 terms |orig - dequant| ** error_power).
 
-    allflat: flat int32 coefficient vector; bounds: [(column, lo, hi)]
-    static slices of it."""
+    allflat: flat int32 coefficient vector, or (N, n) for N pictures,
+    which gives (N, 61, ncol) sums, each row summed as its picture alone
+    would be; bounds: [(column, lo, hi)] static slices of it.  The pass
+    over the quant indices holds about _TABLE_ELEMS elements per picture
+    and temporary."""
+    if allflat.ndim == 1:
+        return tuple(t[0] for t in band_counts(allflat[None], bounds, ncol,
+                                                 intra, error_power))
     dev = allflat.device
-    n = int(allflat.numel())
+    N, n = allflat.shape
     QF, QO = _quant_tables(dev, intra)
-    v = allflat.to(torch.int32)
+    v = allflat.to(torch.int32)[:, None, :]
     chunk = max(1, min(61, _TABLE_ELEMS // max(n, 1)))
-    mag = torch.zeros((61, ncol), dtype=torch.int64, device=dev)
-    nz = torch.zeros((61, ncol), dtype=torch.int64, device=dev)
-    err = torch.zeros((61, ncol), dtype=torch.float64, device=dev)
+    mag = torch.zeros((N, 61, ncol), dtype=torch.int64, device=dev)
+    nz = torch.zeros((N, 61, ncol), dtype=torch.int64, device=dev)
+    err = torch.zeros((N, 61, ncol), dtype=torch.float64, device=dev)
     for b0 in range(0, 61, chunk):
         b1 = min(61, b0 + chunk)
-        qq, dq = _quant_dequant(v[None, :], QF[b0:b1, None], QO[b0:b1, None])
+        qq, dq = _quant_dequant(v, QF[b0:b1, None], QO[b0:b1, None])
         nzm = qq != 0
         b = torch.where(nzm, _sint_bits(qq) - 1, torch.zeros_like(qq))
-        e = error_metric((v[None, :] - dq).abs().to(torch.float32),
-                         error_power)
+        e = error_metric((v - dq).abs().to(torch.float32), error_power)
         for col, lo, hi in bounds:
-            mag[b0:b1, col] += b[:, lo:hi].sum(1, dtype=torch.int64)
-            nz[b0:b1, col] += nzm[:, lo:hi].sum(1, dtype=torch.int64)
-            err[b0:b1, col] += e[:, lo:hi].sum(1, dtype=torch.float64)
+            mag[:, b0:b1, col] += b[..., lo:hi].sum(-1, dtype=torch.int64)
+            nz[:, b0:b1, col] += nzm[..., lo:hi].sum(-1, dtype=torch.int64)
+            err[:, b0:b1, col] += e[..., lo:hi].sum(-1, dtype=torch.float64)
     return mag, nz, err
 
 
@@ -131,7 +137,8 @@ def band_tables(allflat, bounds, ncol: int, intra: bool,
                 error_power: float = 4.0):
     """(bits, err) float32 (61, ncol) tables of one flat int32 coefficient
     vector: row q holds, per column, the estimated coded bits and the
-    error of coding that column's coefficients at quant index q.
+    error of coding that column's coefficients at quant index q; (N, 61,
+    ncol) for an (N, n) batch.
 
     The bit model is arith-aware (the analog of the reference's histogram
     arith-entropy estimate, schrohistogram.c:267-345): a nonzero
@@ -175,7 +182,7 @@ def stats_tables(band_lists, p: Params, intra: bool,
     return bits61.cpu().numpy(), err61.cpu().numpy()
 
 
-def rd_pick(rc_bits, rc_err, lam_bands, corr_bands, target_bits: float = 0.0,
+def rd_pick(rc_bits, rc_err, lam_bands, corr_bands, target_bits=0.0,
             s_hi: float = 1.0):
     """Per-column RD argmin of the tables on their device, index 60
     excluded like the reference (schro_subband_pick_quant,
@@ -190,32 +197,49 @@ def rd_pick(rc_bits, rc_err, lam_bands, corr_bands, target_bits: float = 0.0,
     scales down only.  Everything stays on the device: no value is read
     back.  Ties go to the lowest quant index, the row order of the cost
     array.  Returns (qi (ncol,) int32 at the fitted scale, the fitted
-    scale as a float32 scalar tensor; 1 without a fit)."""
+    scale as a float32 scalar tensor; 1 without a fit).
+
+    A batch takes (N, 61, ncol) tables, (N, ncol) lambdas and corrections
+    and N targets (a sequence of floats), and returns (N, ncol) picks and
+    (N,) scales: each picture is picked as it would be alone, the fit
+    running for those whose target is above 0."""
     f32 = torch.float32
     dev = rc_bits.device
-    bits_c = corr_bands[None, :] * rc_bits[:60]
-    err = rc_err[:60]
-    cols = torch.arange(bits_c.shape[1], device=dev)
+    batched = rc_bits.ndim == 3
+    if not batched:
+        rc_bits, rc_err = rc_bits[None], rc_err[None]
+        lam_bands, corr_bands = lam_bands[None], corr_bands[None]
+        target_bits = [target_bits]
+    targets = np.asarray([t or 0.0 for t in target_bits], np.float32)
+    N = rc_bits.shape[0]
+    bits_c = corr_bands[:, None, :] * rc_bits[:, :60]
+    err = rc_err[:, :60]
 
     def pick_at(s):
-        cost = bits_c + (s * lam_bands)[None, :] * err
-        qi = torch.argmin(cost, dim=0)
-        return qi, bits_c[qi, cols].sum(dtype=torch.float64).to(f32)
+        cost = bits_c + (s[:, None] * lam_bands)[:, None, :] * err
+        qi = torch.argmin(cost, dim=1)
+        return qi, torch.gather(bits_c, 1, qi[:, None, :])[:, 0].sum(
+            -1, dtype=torch.float64).to(f32)
 
-    s_fit = torch.tensor(1.0, dtype=f32, device=dev)
-    if target_bits and target_bits > 0:
-        target = torch.tensor(target_bits, dtype=f32, device=dev)
-        lo = torch.tensor(1.0 / 16384.0, dtype=f32, device=dev)
-        hi = torch.tensor(s_hi, dtype=f32, device=dev)
+    s_fit = torch.ones(N, dtype=f32, device=dev)
+    fit = targets > 0
+    if fit.any():
+        target = torch.as_tensor(targets, device=dev)
+        lo = torch.full((N,), 1.0 / 16384.0, dtype=f32, device=dev)
+        hi = torch.full((N,), s_hi, dtype=f32, device=dev)
         for _ in range(22):
             mid = torch.sqrt(lo * hi)
             _, b = pick_at(mid)
             # more lambda -> finer -> more bits
             under = b < target
             lo, hi = torch.where(under, mid, lo), torch.where(under, hi, mid)
-        s_fit = torch.sqrt(lo * hi)
+        s_fit = torch.where(torch.as_tensor(fit, device=dev),
+                            torch.sqrt(lo * hi), s_fit)
     qi, _ = pick_at(s_fit)
-    return qi.to(torch.int32), s_fit
+    qi = qi.to(torch.int32)
+    if not batched:
+        return qi[0], s_fit[0]
+    return qi, s_fit
 
 
 def pick_base_qi(band_lists, p: Params, target_bits: int,
@@ -587,3 +611,47 @@ def lambda_for_error(bits61, err61, target_error: float,
         else:
             hi = mid
     return float(np.sqrt(lo * hi))
+
+
+class QuantiserEngine:
+    """Per-frame per-subband quant-index chooser from exact stat tables.
+
+    Modes (schroencoder.c:726-760 rate-control dispatch):
+      constant_lambda: fixed lambda RDO (ENGINE_RDO_LAMBDA)
+      constant_error / constant_noise_threshold: lambda bisected each frame
+        so the frame error matches the noise target
+        (ENGINE_CONSTANT_ERROR, schroquantiser.c:1099-1129)
+
+    Stats arrive with one frame of lag (the fused P-step emits them with
+    the frame it encodes); pick() returns None until the first P frame's
+    stats exist, letting the caller fall back to base_qi - quant_matrix.
+    """
+
+    def __init__(self, mode: str, lam: float = 1.0,
+                 noise_threshold: float = 25.0, width: int = 0,
+                 height: int = 0, band_scales=None):
+        self.mode = mode
+        self.lam = lam
+        # reference-exact target (choose_quantisers_constant_error,
+        # schroquantiser.c:1101-1113): 255 * 10^(-nt/20) * W * H, used
+        # against the power-p error tables exactly as the reference does
+        self.target_error = (255.0 * (0.1 ** (noise_threshold * 0.05))
+                             * max(width * height, 1))
+        self._stats = None
+        self.band_scales = band_scales  # set by the GOP driver if None
+
+    def update(self, stats) -> None:
+        if stats is not None:
+            self._stats = stats
+
+    def pick(self):
+        if self._stats is None:
+            return None
+        bits61, err61 = self._stats
+        if self.mode == "constant_lambda":
+            lam = self.lam
+        else:
+            lam = lambda_for_error(bits61, err61, self.target_error,
+                                   band_scales=self.band_scales)
+        return qi_from_lambda(bits61, err61, lam,
+                              band_scales=self.band_scales)

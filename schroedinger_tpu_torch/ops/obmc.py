@@ -130,16 +130,16 @@ def _sample_blocks(up, dy8, dx8, yb, xb, yblen, xblen, ybsep, xbsep,
                    yoffset, xoffset, margin_y, margin_x):
     """Per-block sub-pel sample grids.
 
-    dy8/dx8: (yb, xb) eighth-pel MVs (= mv << (3 - prec), chroma-shifted).
-    Returns (nb, yblen, xblen) int32 samples — the exact value
-    schro_upsampled_frame_get_pixel_prec{0,1,3} would fetch per pixel."""
-    nb = yb * xb
+    dy8/dx8: (..., yb, xb) eighth-pel MVs (= mv << (3 - prec),
+    chroma-shifted).  Returns (... * nb, yblen, xblen) int32 samples — the
+    exact value schro_upsampled_frame_get_pixel_prec{0,1,3} would fetch per
+    pixel."""
     dev = up.device
     P = pad_halfpel(up, margin_y, margin_x)
     oy = dy8 >> 2
     ox = dx8 >> 2
-    ry = (dy8 & 3).reshape(nb, 1, 1)
-    rx = (dx8 & 3).reshape(nb, 1, 1)
+    ry = (dy8 & 3).reshape(-1, 1, 1)
+    rx = (dx8 & 3).reshape(-1, 1, 1)
     ar_y = torch.arange(yb, dtype=torch.int32, device=dev)
     ar_x = torch.arange(xb, dtype=torch.int32, device=dev)
     base_y = (2 * (ar_y * ybsep - yoffset))[:, None] + margin_y
@@ -160,33 +160,35 @@ def _sample_blocks(up, dy8, dx8, yb, xb, yblen, xblen, ybsep, xbsep,
 
 def recompose_phases(contrib, yb, xb, yblen, xblen, ybsep, xbsep,
                      yoffset, xoffset, out_h, out_w):
-    """Dense OBMC accumulate: (yb, xb, yblen, xblen) weighted block
-    contributions -> (out_h, out_w) sum.  Blocks split into 2x2 parity
-    phases; within a phase the (padded) blocks tile a canvas disjointly,
-    so placement is pad/transpose/reshape — no scatter."""
+    """Dense OBMC accumulate: (..., yb, xb, yblen, xblen) weighted block
+    contributions -> (..., out_h, out_w) sum.  Blocks split into 2x2
+    parity phases; within a phase the (padded) blocks tile a canvas
+    disjointly, so placement is pad/transpose/reshape — no scatter."""
     assert yblen <= 2 * ybsep and xblen <= 2 * xbsep
+    lead = tuple(contrib.shape[:-4])
     ybe = yb + (yb & 1)
     xbe = xb + (xb & 1)
-    c = torch.zeros((ybe, xbe, 2 * ybsep, 2 * xbsep), dtype=contrib.dtype,
-                    device=contrib.device)
-    c[:yb, :xb, :yblen, :xblen] = contrib
-    acc = torch.zeros((out_h, out_w), dtype=torch.int32,
+    c = torch.zeros(lead + (ybe, xbe, 2 * ybsep, 2 * xbsep),
+                    dtype=contrib.dtype, device=contrib.device)
+    c[..., :yb, :xb, :yblen, :xblen] = contrib
+    acc = torch.zeros(lead + (out_h, out_w), dtype=torch.int32,
                       device=contrib.device)
     for pj in range(2):
         for pi in range(2):
-            sub = c[pj::2, pi::2]
-            A, B = sub.shape[0], sub.shape[1]
-            canvas = sub.permute(0, 2, 1, 3).reshape(A * 2 * ybsep,
-                                                     B * 2 * xbsep)
+            sub = c[..., pj::2, pi::2, :, :]
+            A, B = sub.shape[-4], sub.shape[-3]
+            canvas = sub.transpose(-3, -2).reshape(
+                lead + (A * 2 * ybsep, B * 2 * xbsep))
             oy = pj * ybsep - yoffset
             ox = pi * xbsep - xoffset
             sy, cy = max(0, oy), max(0, -oy)
             sx, cx = max(0, ox), max(0, -ox)
-            hh = min(out_h - sy, canvas.shape[0] - cy)
-            ww = min(out_w - sx, canvas.shape[1] - cx)
+            hh = min(out_h - sy, canvas.shape[-2] - cy)
+            ww = min(out_w - sx, canvas.shape[-1] - cx)
             if hh <= 0 or ww <= 0:
                 continue
-            acc[sy:sy + hh, sx:sx + ww] += canvas[cy:cy + hh, cx:cx + ww]
+            acc[..., sy:sy + hh, sx:sx + ww] += canvas[..., cy:cy + hh,
+                                                       cx:cx + ww]
     return acc
 
 
@@ -199,9 +201,11 @@ def render_component_patches(mv_dx, mv_dy, mv_dx2, mv_dy2, pred_mode, dc,
 
     mv_*: (yb, xb) int32 per-block luma-scaled MVs (chroma shift applied
     here); pred_mode: (yb, xb); dc: (yb, xb) per-component dc values;
-    up1/up2: interleaved half-pel reference planes ((2h, 2w) u8) or None."""
-    yb, xb = pred_mode.shape
-    nb = yb * xb
+    up1/up2: interleaved half-pel reference planes ((2h, 2w) u8) or None.
+    Fields (N, yb, xb) render N pictures from the same references and give
+    (N, out_h, out_w)."""
+    yb, xb = pred_mode.shape[-2:]
+    lead = tuple(pred_mode.shape[:-2])
     dev = pred_mode.device
     xoffset = (xblen - xbsep) // 2
     yoffset = (yblen - ybsep) // 2
@@ -215,11 +219,11 @@ def render_component_patches(mv_dx, mv_dy, mv_dx2, mv_dy2, pred_mode, dc,
     margin_y = (MV_BOUND_PEL * 2 + 8) + 2 * yoffset + _round8(2 * yblen)
     margin_x = (MV_BOUND_PEL * 2 + 8) + 2 * xoffset + _round8(2 * xblen)
 
-    mode = pred_mode.reshape(nb, 1, 1)
+    mode = pred_mode.reshape(-1, 1, 1)
     wsum = ref1_weight + ref2_weight
     half = (1 << ref_weight_precision) >> 1
 
-    val = (dc.reshape(nb, 1, 1) + 128) * (mode == 0)
+    val = (dc.reshape(-1, 1, 1) + 128) * (mode == 0)
     if up1 is not None:
         v1 = _sample_blocks(up1, to8(mv_dy, v_shift), to8(mv_dx, h_shift),
                             yb, xb, yblen, xblen, ybsep, xbsep,
@@ -238,7 +242,7 @@ def render_component_patches(mv_dx, mv_dy, mv_dx2, mv_dy2, pred_mode, dc,
 
     wy = torch.as_tensor(_weight_rows(yb, yblen, ybsep, yoffset), device=dev)
     wx = torch.as_tensor(_weight_rows(xb, xblen, xbsep, xoffset), device=dev)
-    contrib = (val.reshape(yb, xb, yblen, xblen)
+    contrib = (val.reshape(lead + (yb, xb, yblen, xblen))
                * wy[:, None, :, None] * wx[None, :, None, :])
     acc = recompose_phases(contrib.to(torch.int32), yb, xb, yblen, xblen,
                            ybsep, xbsep, yoffset, xoffset, out_h, out_w)
@@ -248,8 +252,9 @@ def render_component_patches(mv_dx, mv_dy, mv_dx2, mv_dy2, pred_mode, dc,
 
 def make_render_body(p, num_refs: int):
     """Whole-picture render: body(mv, up1, up2) -> (pred_y, pred_u, pred_v)
-    int32 tensors.  mv: dict of (yb, xb) int32 tensors; up1/up2: tuples of
-    the three interleaved half-pel planes (up2 None for one reference)."""
+    int32 tensors.  mv: dict of (yb, xb) int32 tensors, or (N, yb, xb) for
+    N pictures that share their references; up1/up2: tuples of the three
+    interleaved half-pel planes (up2 None for one reference)."""
     if p.have_global_motion:
         raise NotImplementedError(
             "global motion needs the per-pixel gather render (not ported)")

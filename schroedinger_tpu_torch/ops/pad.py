@@ -18,10 +18,11 @@ def pad_edge(x, top: int, bottom: int, left: int, right: int):
 
 
 def pad_zero(x, out_h: int, out_w: int):
-    """Zero pad of a 2-D tensor at the bottom/right to (out_h, out_w)."""
-    h, w = x.shape
+    """Zero pad of the last two dims at the bottom/right to (out_h, out_w)."""
+    h, w = x.shape[-2:]
     if (h, w) == (out_h, out_w):
         return x
-    out = torch.zeros((out_h, out_w), dtype=x.dtype, device=x.device)
-    out[:h, :w] = x
+    out = torch.zeros(x.shape[:-2] + (out_h, out_w), dtype=x.dtype,
+                      device=x.device)
+    out[..., :h, :w] = x
     return out

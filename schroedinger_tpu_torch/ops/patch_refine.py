@@ -17,7 +17,10 @@ the (2rad+1)^2 full-pel candidates around it in `ref` as edge-padded by
 `margin` (window origins clamped into the padded plane as
 jax.lax.dynamic_slice clamps), and returns the first minimum in (dy, dx)
 order: mv (nby, nbx, 2) int32, which the next level takes as its field,
-and sad (nby, nbx) int32.  The JAX ME's four uses:
+and sad (nby, nbx) int32.  A batch of N current planes `cur` (N, h, w)
+with fields (N, hy, hx, 2) searches one shared reference in one launch
+(the B pictures of a subgroup share their references) and returns mv
+(N, nby, nbx, 2) and sad (N, nby, nbx).  The JAX ME's four uses:
 
   coarse scan    scale 0, rad = coarse radius   (me._dense_scan)
   hint refine    scale 2, rad 2, the parent's mv (upsample + _patch_refine)
@@ -119,16 +122,17 @@ def _load():
         build()
         lib = ctypes.CDLL(LIBRARY)
         vp, ci = ctypes.c_void_p, ctypes.c_int
-        lib.me_search_launch.argtypes = [ci] + [vp] * 4 + [ci] * 10 + [vp]
+        lib.me_search_launch.argtypes = [ci, ci] + [vp] * 4 + [ci] * 10 + [vp]
         lib.me_search_launch.restype = ci
         _lib = lib
     return _lib
 
 
 def to_blocks(c, nby, bs_y, nbx, bs_x):
-    """(nby*bs_y, nbx*bs_x) -> (nb, bs_y, bs_x)."""
-    return (c.reshape(nby, bs_y, nbx, bs_x).permute(0, 2, 1, 3)
-            .reshape(nby * nbx, bs_y, bs_x))
+    """(..., nby*bs_y, nbx*bs_x) -> (... * nb, bs_y, bs_x): the blocks of
+    every leading plane, one after another."""
+    return (c.reshape(*c.shape[:-2], nby, bs_y, nbx, bs_x).transpose(-3, -2)
+            .reshape(-1, bs_y, bs_x))
 
 
 def pad_ref(ref, margin):
@@ -138,8 +142,9 @@ def pad_ref(ref, margin):
 
 def extract_ref_patches(P, mv_y, mv_x, nby, nbx, bs_y, bs_x, rad, margin):
     """Per-block (bs+2rad) patches of the padded ref at the block origin
-    displaced by its MV (origins clamped into P).  Returns (nb, ph, pw)
-    int32 with ph, pw = round8(bs_y + 2rad), round8(bs_x + 2rad)."""
+    displaced by its MV (origins clamped into P).  mv_y, mv_x: (..., nby,
+    nbx).  Returns (... * nb, ph, pw) int32 with ph, pw = round8(bs_y +
+    2rad), round8(bs_x + 2rad)."""
     ph = _round8(bs_y + 2 * rad)
     pw = _round8(bs_x + 2 * rad)
     dev = P.device
@@ -155,8 +160,9 @@ def patch_refine_plain(cur_blocks, P, mv_y, mv_x, nby, nbx, bs_y, bs_x, rad,
     """(2rad+1)^2 full-pel refine around (mv_y, mv_x) via per-block patches
     of the padded reference (plain PyTorch; any device).
 
-    cur_blocks: (nb, bs_y, bs_x) int32; P: (Hp, Wp) u8/int; mv_*: (nby,
-    nbx) int32.  Returns (mv_y, mv_x, best_sad) each (nby, nbx) int32."""
+    cur_blocks: (... * nb, bs_y, bs_x) int32; P: (Hp, Wp) u8/int; mv_*:
+    (..., nby, nbx) int32.  Returns (mv_y, mv_x, best_sad), each shaped
+    as mv_y, int32."""
     pat = extract_ref_patches(P, mv_y, mv_x, nby, nbx, bs_y, bs_x, rad,
                               margin)
     K = 2 * rad + 1
@@ -167,28 +173,37 @@ def patch_refine_plain(cur_blocks, P, mv_y, mv_x, nby, nbx, bs_y, bs_x, rad,
     doy = (torch.div(best, K, rounding_mode="floor") - rad).to(torch.int32)
     dox = (best % K - rad).to(torch.int32)
     best_sad = torch.gather(s, 0, best[None])[0]
-    return (mv_y + doy.reshape(nby, nbx), mv_x + dox.reshape(nby, nbx),
-            best_sad.reshape(nby, nbx))
+    return (mv_y + doy.reshape(mv_y.shape), mv_x + dox.reshape(mv_x.shape),
+            best_sad.reshape(mv_y.shape))
 
 
 def upsample_hint(field, nby, nbx, scale, bound, device):
     """The hints of an nby x nbx grid: clamp(scale * field[i*hy//nby,
     j*hx//nbx], -bound, bound), (nby, nbx, 2) int32; zeros without a
-    field or at scale 0."""
+    field or at scale 0.  A field (N, hy, hx, 2) gives (N, nby, nbx, 2)."""
     if field is None or scale == 0:
         return torch.zeros((nby, nbx, 2), dtype=torch.int32, device=device)
-    hy, hx = field.shape[0], field.shape[1]
+    hy, hx = field.shape[-3], field.shape[-2]
     dev = field.device
     ys = torch.div(torch.arange(nby, device=dev) * hy, nby,
                    rounding_mode="floor")
     xs = torch.div(torch.arange(nbx, device=dev) * hx, nbx,
                    rounding_mode="floor")
-    return (field[ys[:, None], xs[None, :]] * scale).clamp(-bound, bound)
+    return (field[..., ys[:, None], xs[None, :], :] * scale).clamp(-bound,
+                                                                   bound)
 
 
 def me_search_plain(cur, ref, field, scale, bs_y, bs_x, rad, bound, margin):
     """me_search in plain PyTorch (any device): hint upsample, block
-    split, padded reference, patch_refine_plain.  Returns (mv, sad)."""
+    split, padded reference, patch_refine_plain; a batch (N, h, w) is
+    searched one picture after another.  Returns (mv, sad)."""
+    if cur.ndim == 3:
+        outs = [me_search_plain(cur[k], ref,
+                                None if field is None else field[k], scale,
+                                bs_y, bs_x, rad, bound, margin)
+                for k in range(cur.shape[0])]
+        return (torch.stack([o[0] for o in outs]),
+                torch.stack([o[1] for o in outs]))
     h, w = cur.shape
     nby, nbx = h // bs_y, w // bs_x
     hint = upsample_hint(field, nby, nbx, scale, bound, cur.device)
@@ -217,14 +232,18 @@ def _check(name, t, dtype, shape, device):
 def _launch(variant, cur, ref, field, scale, bs_y, bs_x, rad, bound,
             margin):
     """Check the arguments and launch the kernel's variant of that number
-    (0 = the search).  Returns (mv, sad), views of one buffer."""
+    (0 = the search) on one picture (cur (h, w)) or a batch (cur (N, h, w),
+    one launch).  Returns (mv, sad), views of one buffer."""
     dev = cur.device
     if dev.type != "cuda":
         raise ValueError(f"me_search: tensors on {dev}, expected cuda")
-    if cur.ndim != 2:
-        raise ValueError(f"me_search: cur must be 2-D, got {cur.ndim}-D")
-    h, w = cur.shape
-    if h % bs_y or w % bs_x or h == 0 or w == 0:
+    if cur.ndim not in (2, 3):
+        raise ValueError(f"me_search: cur must be (h, w) or (N, h, w), got "
+                         f"{tuple(cur.shape)}")
+    lead = tuple(cur.shape[:-2])
+    n = lead[0] if lead else 1
+    h, w = cur.shape[-2:]
+    if h % bs_y or w % bs_x or h == 0 or w == 0 or n == 0:
         raise ValueError(f"me_search: plane {h}x{w} is not a whole grid of "
                          f"{bs_y}x{bs_x} blocks")
     if scale not in (0, 1, 2) or min(bs_y, bs_x) < 1 or rad < 0 \
@@ -235,36 +254,38 @@ def _launch(variant, cur, ref, field, scale, bs_y, bs_x, rad, bound,
             or w + 2 * margin < _round8(bs_x + 2 * rad)):
         raise ValueError("me_search: padded plane smaller than one search "
                          "window")
-    _check("cur", cur, torch.uint8, (h, w), dev)
+    _check("cur", cur, torch.uint8, lead + (h, w), dev)
     _check("ref", ref, torch.uint8, (h, w), dev)
     hy = hx = 0
     if field is not None:
-        if field.ndim != 3:
-            raise ValueError(f"me_search: field must be (hy, hx, 2), got "
-                             f"{tuple(field.shape)}")
-        hy, hx = field.shape[0], field.shape[1]
-        _check("field", field, torch.int32, (hy, hx, 2), dev)
+        if field.ndim != len(lead) + 3:
+            raise ValueError(f"me_search: field must have {len(lead) + 3} "
+                             f"dims, got {tuple(field.shape)}")
+        hy, hx = field.shape[-3], field.shape[-2]
+        _check("field", field, torch.int32, lead + (hy, hx, 2), dev)
         if hy == 0 or hx == 0:
             raise ValueError("me_search: empty field")
     nby, nbx = h // bs_y, w // bs_x
-    out = torch.empty(3 * nby * nbx, dtype=torch.int32, device=dev)
+    nb = nby * nbx
+    out = torch.empty(3 * n * nb, dtype=torch.int32, device=dev)
     err = _load().me_search_launch(
-        variant, cur.data_ptr(), ref.data_ptr(),
+        variant, n, cur.data_ptr(), ref.data_ptr(),
         None if field is None else field.data_ptr(), out.data_ptr(), h, w,
         hy, hx, scale, bs_y, bs_x, rad, bound, margin,
         torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"me_search kernel launch failed: error {err}")
-    nb = nby * nbx
-    return out[:2 * nb].view(nby, nbx, 2), out[2 * nb:].view(nby, nbx)
+    return (out[:2 * n * nb].view(*lead, nby, nbx, 2),
+            out[2 * n * nb:].view(*lead, nby, nbx))
 
 
 def me_search(cur, ref, field, scale, bs_y, bs_x, rad, bound, margin):
     """Full-pel (2rad+1)^2 SAD search per block around its hint (see the
-    module's head): (mv (nby, nbx, 2), sad (nby, nbx)), int32.
+    module's head): (mv (nby, nbx, 2), sad (nby, nbx)), int32, with a
+    leading N for a batch of current planes against the one reference.
 
-    CUDA tensors launch the kernel (no plain fallback); CPU tensors run
-    me_search_plain."""
+    CUDA tensors launch the kernel, once for the whole batch (no plain
+    fallback); CPU tensors run me_search_plain."""
     global LAUNCHES
     if cur.device.type == "cuda":
         outs = _launch(0, cur, ref, field, scale, bs_y, bs_x, rad, bound,

@@ -1,7 +1,7 @@
 """Where the time of the 1080p slice goes, on one NVIDIA GPU.
 
     python -m schroedinger_tpu_torch.profile_slice
-        [--config backref|flagship|draining]
+        [--config backref|flagship|draining|bench]
         [--frames N] [--out DIR]
 
 Encodes pan + noise 1080p25 4:2:0 frames with the port's GopEncoder under
@@ -10,11 +10,15 @@ torch.profiler after a warm-up, then decodes the stream the same way.
 I P P P slice; `--config flagship` (13 frames, 6 of warm-up) the biref
 TM5 CBR encode with the on-device RD pick; `--config draining` (9 frames,
 6 of warm-up) the flagship at 1 Mbit/s with a half-empty reservoir, where
-the RD pick runs its 22-step lambda fit.  Prints, per run: wall time,
+the RD pick runs its 22-step lambda fit; `--config bench` (13 frames, 6
+of warm-up) bench.py's headline encoder, the flagship with MD5 off and
+each subgroup's B pictures batched, decoded by the pipelined decoder.
+Prints, per run: wall time,
 the device's busy time (union of kernel intervals) and idle share, the
 host time in the entropy-coding calls and in the encoder's stage spans
 (each ME pass, the RD split, the render, the stat tables, the RD pick,
-quantise + reconstruction, the fetch) with the device events each
+quantise + reconstruction, the fetch; and around them the step of a
+batch of B pictures or of one B picture) with the device events each
 launched, and the top kernels (not aten ops) by device time.  Writes a Chrome trace of the encode to DIR.
 """
 from __future__ import annotations
@@ -29,21 +33,25 @@ import torch
 from torch.profiler import ProfilerActivity, profile
 
 from schroedinger_tpu_torch.decoder.core import StreamDecoder
+from schroedinger_tpu_torch.decoder.pipeline import PipelinedStreamDecoder
 from schroedinger_tpu_torch.encoder.gop import GopEncoder
-from schroedinger_tpu_torch.slice_config import (CONFIG, CONFIG_FLAGSHIP,
+from schroedinger_tpu_torch.slice_config import (CONFIG, CONFIG_BENCH,
+                                                 CONFIG_FLAGSHIP,
                                                  CONFIG_FLAGSHIP_DRAINING,
                                                  make_frames, video_format)
 
 # name -> (encoder options, frames, warm-up frames)
 CONFIGS = {"backref": (CONFIG, 6, 2), "flagship": (CONFIG_FLAGSHIP, 13, 6),
-           "draining": (CONFIG_FLAGSHIP_DRAINING, 9, 6)}
+           "draining": (CONFIG_FLAGSHIP_DRAINING, 9, 6),
+           "bench": (CONFIG_BENCH, 13, 6)}
 # record_function spans of the port: host entropy coding, then the inter
 # and intra steps' stages (host time of a stage = its enqueue, not the
 # device's work)
 HOST_SPANS = ("encode_subband_arith", "decode_subband_arith",
               "motion_encode", "motion_decode", "frame_md5")
 STAGE_SPANS = ("me_pass", "rd_split", "render", "stat_tables", "rd_pick",
-               "quantise_recon", "p_transfer")
+               "quantise_recon", "p_transfer", "b_batch_step",
+               "b_picture_step")
 
 
 _CUDA = torch.autograd.DeviceType.CUDA
@@ -159,7 +167,8 @@ def main() -> int:
     prof.export_chrome_trace(
         os.path.join(a.out, f"encode_trace_{a.config}.json"))
 
-    dec = StreamDecoder(device="cuda")
+    dec = (PipelinedStreamDecoder if a.config == "bench"
+           else StreamDecoder)(device="cuda")
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()

@@ -12,6 +12,10 @@ its reservoir half empty at the start: at 1080p the per-picture lambda
 fit then binds (the reservoir is below 0.7 of its size and a P picture's
 allocation is less than its cost at the controller's lambda), which the
 full reservoir of a stream's first pictures never shows.
+`**CONFIG_BENCH` is `bench.py`'s headline encoder (`bench.py:136-139`):
+the biref TM5 CBR encode at 8 Mbit/s with the JAX defaults otherwise, so
+MD5 off and a full subgroup's B pictures coded as one batch;
+`make_frames(n, 1920, 1080)` is `bench.py`'s `make_frames(n)`.
 """
 from __future__ import annotations
 
@@ -26,6 +30,8 @@ CONFIG_FLAGSHIP = dict(gop_structure="biref", bitrate=8_000_000, fps=25,
                        enable_md5=True, enable_b_batch=False)
 CONFIG_FLAGSHIP_DRAINING = dict(CONFIG_FLAGSHIP, bitrate=1_000_000,
                                 buffer_level=1_500_000)
+CONFIG_BENCH = dict(gop_length=24, mv_precision=2, bitrate=8_000_000, fps=25,
+                    gop_structure="biref")
 
 
 def video_format(width, height):

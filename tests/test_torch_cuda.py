@@ -1,8 +1,10 @@
 """Card-only checks of the port (marked `cuda`; they skip without a GPU).
 
-The ME search CUDA kernel (every shape and mode the ME launches) and its
-cost probe against the plain PyTorch version, small streams of both slices encoded on the card against the CPU
-encode, and the entry points' default device.  This file
+The ME search CUDA kernel (every shape and mode the ME launches, one
+picture and a batch) and its cost probe against the plain PyTorch
+version, small streams of the slices encoded on the card against the CPU
+encode, the pipelined decoder against the per-picture one, and the entry
+points' default device.  This file
 imports no JAX, so it also runs where only PyTorch is installed:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py -q
@@ -11,11 +13,14 @@ import numpy as np
 import pytest
 import torch
 
+from schroedinger_tpu_torch import api
 from schroedinger_tpu_torch.decoder.core import StreamDecoder
+from schroedinger_tpu_torch.decoder.pipeline import PipelinedStreamDecoder
 from schroedinger_tpu_torch.encoder import me as me_mod
 from schroedinger_tpu_torch.encoder.gop import GopEncoder
 from schroedinger_tpu_torch.ops import patch_refine as pr
-from schroedinger_tpu_torch.slice_config import (CONFIG, CONFIG_FLAGSHIP,
+from schroedinger_tpu_torch.slice_config import (CONFIG, CONFIG_BENCH,
+                                                 CONFIG_FLAGSHIP,
                                                  make_frames, video_format)
 
 
@@ -27,12 +32,13 @@ def cuda_device():
 
 
 def _case(rad, bs, flat, dev, nby=5, nbx=7, bound=24, scale=1,
-          parent=None):
+          parent=None, seed=0):
     """me_search's arguments from a numpy seed: u8 planes (flat: every
     candidate ties), a field at the grid's own size (scale 1) or at a
     parent's (hy, hx) = `parent`, hints running past the contract."""
     margin = bound + 2 * rad + 16
-    rng = np.random.default_rng(7 * rad + bs + 100 * flat + scale)
+    rng = np.random.default_rng(7 * rad + bs + 100 * flat + scale
+                                + 1000 * seed)
     if flat:
         cur = np.full((nby * bs, nbx * bs), 77, np.uint8)
         ref = np.full((nby * bs, nbx * bs), 90, np.uint8)
@@ -91,6 +97,37 @@ def test_me_search_modes_kernel_matches_plain(cuda_device, mode, flat):
             "generic-12": dict(rad=3, bs=12, scale=2, parent=(3, 4)),
             "generic-6": dict(rad=1, bs=6, scale=2, parent=(3, 4))}[mode]
     _assert_kernel_equals_plain(_case(flat=flat, dev=cuda_device, **args))
+
+
+_MODES = {"coarse": dict(rad=8, bs=4, scale=0),
+          "refine-4": dict(rad=2, bs=4, scale=2, parent=(3, 4)),
+          "refine-8": dict(rad=2, bs=8, scale=2, parent=(5, 7)),
+          "refine-16": dict(rad=2, bs=16, scale=2, parent=(5, 7)),
+          "median": dict(rad=0, bs=16, scale=1),
+          "zero": dict(rad=0, bs=16, scale=0),
+          "generic-12": dict(rad=3, bs=12, scale=2, parent=(3, 4))}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", sorted(_MODES))
+def test_me_search_batch_kernel_matches_plain(cuda_device, mode):
+    """Three current planes against one reference (the B pictures of a
+    subgroup): one launch for the batch, equal to the plain version and to
+    three single-picture launches."""
+    cases = [_case(flat=False, dev=cuda_device, seed=k, **_MODES[mode])
+             for k in range(3)]
+    args = list(cases[0])
+    args[0] = torch.stack([c[0] for c in cases])
+    if args[2] is not None:
+        args[2] = torch.stack([c[2] for c in cases])
+    got = _assert_kernel_equals_plain(args)
+    assert got[0].shape[0] == 3 and got[1].shape[0] == 3
+    for k in range(3):
+        one = list(args)
+        one[0] = args[0][k].clone()      # 16-byte aligned, as me_search
+        one[2] = None if args[2] is None else args[2][k].clone()
+        for g, w in zip(got, pr.me_search(*one)):
+            assert torch.equal(g[k], w)
 
 
 @pytest.mark.cuda
@@ -201,7 +238,40 @@ def test_small_flagship_stream_on_card_within_bands_of_cpu(
 
 
 @pytest.mark.cuda
+def test_small_b_batch_stream_on_card_within_bands_of_cpu(cuda_device):
+    """bench.py's configuration (MD5 off, B pictures batched) at 128x64:
+    each batch of three B pictures launches each search once per
+    reference; the card's stream is within the bands of the CPU's and the
+    pipelined decoder gives the per-picture decoder's planes on the
+    card."""
+    frames = make_frames(9, 128, 64)
+    vf = video_format(128, 64)
+    cfg = dict(CONFIG_BENCH, bitrate=500_000)
+    before = pr.LAUNCHES
+    s_gpu = GopEncoder(vf, **cfg).encode_stream(frames)
+    # I, one-reference P, a batch of 3 B, two-reference P, a batch of 3 B;
+    # 5 searches per reference at 128x64
+    assert pr.LAUNCHES - before == 5 * (1 + 2 + 2 + 2)
+    s_cpu = GopEncoder(vf, device="cpu", **cfg).encode_stream(frames)
+    psnrs = []
+    for stream, device in ((s_gpu, None), (s_cpu, "cpu")):
+        out = StreamDecoder(device=device).decode_stream(stream)
+        dec = PipelinedStreamDecoder(device=device)
+        piped = dec.decode_stream(stream)
+        assert len(out) == 9 and dec.errors == []
+        for a, b in zip(out, piped):
+            for x, y in zip(a, b):
+                np.testing.assert_array_equal(x, y)
+        psnrs.append(np.mean([_psnr(o[0], f[0])
+                              for o, f in zip(out, frames)]))
+    assert abs(psnrs[0] - psnrs[1]) < 0.7
+    assert abs(len(s_gpu) - len(s_cpu)) < 0.15 * len(s_cpu)
+
+
+@pytest.mark.cuda
 def test_entry_points_default_to_the_card(cuda_device):
     enc = GopEncoder(video_format(128, 64), **CONFIG)
     dec = StreamDecoder()
     assert enc.device.type == "cuda" and dec.device.type == "cuda"
+    assert PipelinedStreamDecoder().device.type == "cuda"
+    assert api.Encoder(video_format(128, 64)).device.type == "cuda"

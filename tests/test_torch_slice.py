@@ -31,6 +31,7 @@ from schroedinger_tpu_torch.decoder import intra as t_dintra
 from schroedinger_tpu_torch.encoder import gop as t_gop
 from schroedinger_tpu_torch.encoder import inter as t_inter
 from schroedinger_tpu_torch.encoder import intra as t_intra
+from schroedinger_tpu_torch.encoder.ratecontrol import QuantiserEngine
 from schroedinger_tpu_torch.slice_config import (CONFIG, make_frames,
                                                  video_format)
 
@@ -113,6 +114,18 @@ def test_d_port_runs_without_jax():
         d = StreamDecoder(device="cpu")
         out = d.decode_stream(s)
         assert len(out) == 6 and d.md5_failures == [] and d.errors == []
+        # the entry points of the fourth slice: the API (B pictures
+        # batched, the pipelined decoder), the settings, y4m and the CLI
+        from schroedinger_tpu_torch import api, config, y4m
+        from schroedinger_tpu_torch.decoder import pipeline
+        from schroedinger_tpu_torch.tools import schro_tpu
+        s = api.Encoder(video_format(64, 64), config.EncoderConfig(),
+                        device="cpu").encode_stream(flag)
+        out = api.Decoder(device="cpu").decode_stream(s)
+        assert len(out) == 6
+        assert pipeline.PipelinedStreamDecoder(device="cpu").decode_stream(
+            s)[5][0].shape == (64, 64)
+        assert callable(schro_tpu.main) and callable(y4m.read_y4m)
         loaded = sorted(m for m in sys.modules
                         if m == "jax" or m.startswith("jax.")
                         or m == "schroedinger_tpu"
@@ -202,24 +215,41 @@ def test_encode_frame_path_matches_jax(frames):
 
 
 def test_unported_options_raise():
+    """The port's GopEncoder takes the JAX constructor's whole signature
+    with its defaults; a value it does not implement yet raises
+    NotImplementedError, a default value is taken."""
+    import inspect
     vf = video_format(W, H)
-    for kw in (dict(gop_structure="biref", enable_b_batch=True),
-               dict(bitrate=8_000_000),
+    jsig = inspect.signature(j_gop.GopEncoder.__init__).parameters
+    tsig = inspect.signature(t_gop.GopEncoder.__init__).parameters
+    assert list(jsig) == [k for k in tsig if k != "device"]
+    for k, v in jsig.items():
+        assert tsig[k].default == v.default, k
+    for kw in (dict(bitrate=8_000_000),
                dict(gop_structure="biref", bitrate=8_000_000,
                     rdo_cbr=False),
-               dict(quantiser_engine=object())):
+               dict(quantiser_engine=object()),
+               dict(gop_structure="biref",
+                    quantiser_engine=QuantiserEngine("constant_error")),
+               dict(quantiser_engine=QuantiserEngine("constant_lambda")),
+               dict(block_size="small"), dict(codeblock_size="full"),
+               dict(enable_multiquant=True), dict(downsample_levels=3),
+               dict(enable_phasecorr=True), dict(filtering="gaussian"),
+               dict(estimation=("fullscan",)), dict(enable_psnr=True)):
         with pytest.raises(NotImplementedError):
             t_gop.GopEncoder(vf, device="cpu", **kw)
-    # options whose non-default branches are not ported are not taken
-    for kw in (dict(block_size="small"), dict(codeblock_size="full"),
-               dict(enable_multiquant=True), dict(downsample_levels=3)):
-        with pytest.raises(TypeError):
-            t_gop.GopEncoder(vf, device="cpu", **kw)
-    # nor magic constants that only unported engines read
-    with pytest.raises(ValueError, match="keyframe_weight"):
-        t_gop.GopEncoder(vf, device="cpu", magic={"keyframe_weight": 7.5})
-    enc = t_gop.GopEncoder(vf, device="cpu", magic={"scan_distance": 2.0})
-    assert enc.magic["scan_distance"] == 2.0 and len(enc.magic) == 12
+    # the defaults are taken, a full subgroup's B pictures batched
+    enc = t_gop.GopEncoder(vf, device="cpu", gop_structure="biref",
+                           block_size="automatic", downsample_levels=5,
+                           quantiser_engine=QuantiserEngine(
+                               "constant_lambda"))
+    assert enc.enable_b_batch is True
+    # every magic constant of the JAX encoder, and no other
+    with pytest.raises(ValueError, match="keyframe_wait"):
+        t_gop.GopEncoder(vf, device="cpu", magic={"keyframe_wait": 7.5})
+    enc = t_gop.GopEncoder(vf, device="cpu", magic={"scan_distance": 2.0,
+                                                    "keyframe_weight": 9.0})
+    assert enc.magic["scan_distance"] == 2.0 and len(enc.magic) == 18
 
 
 def test_entry_points_need_the_card_unless_asked_for_the_cpu(frames):
