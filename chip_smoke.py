@@ -60,11 +60,38 @@ and no result line):
   9. smoke-1080p-api-default: api.Encoder(vf, EncoderConfig()) (constant
      quality, pipeline depth 8, full-pel MVs, DD9,7 inter) on 13 frames,
      api.Decoder, with the checks of phase 8 but the byte range
+ 10. smoke-1080p-vc2-lowdelay-cli-422p10: what `schro_tpu encode` does by
+     default (VC-2 low delay, LeGall 5,3, depth 4, 60 x 68 slices, 103.68
+     Mbit/s) on 25 frames of 10-bit 4:2:2 1080p25 pan + noise: every
+     picture unit is its headers plus its slice budgets, the "table" and
+     "direct" host halves give the same bytes, the first 2 frames equal
+     the CPU encode byte for byte, api.Decoder and StreamDecoder give
+     equal uint16 planes, luma PSNR >= 30 dB at peak 1023 on every frame;
+     encode and decode frames/s and the encode's shares of device
+     analysis, fetch and native packing; then the CLI itself (encode,
+     decode) on 3 frames of y4m, whose output equals api.Decoder's planes
+ 11. smoke-cif-vc2-lowdelay-lossless: 352x288 4:2:0 8-bit, LeGall 5,3, 10
+     frames at a slice budget where every slice picks base 0: the decode
+     equals the source (torch.equal on every plane)
+ 12. smoke-1080p-vc2-simple: api.Encoder(1080p25 4:2:0,
+     EncoderConfig(enable_noarith=True)) on 8 frames, both decoders:
+     sequence-header profile 1, PSNR >= 30 dB, card == CPU on frame 0
+ 13. smoke-1080p-vc2-main-422p10: EncoderConfig(gop_structure=
+     "intra_only") on the 10-bit 4:2:2 source, 8 frames: card == CPU on
+     frame 0, both decoders equal, PSNR >= 30 dB at peak 1023
+ 14. smoke-1080p-bench-noarith: GopEncoder(vf, **CONFIG_BENCH,
+     enable_noarith=True) on 13 frames: every I and P picture decodes to
+     the encoder's reconstruction, 7 kernel launches per reference (14 a
+     batch of B pictures), PSNR >= 30 dB, bytes within 0.1x-4x of the
+     pro-rata share
 The last two lines are the nvidia-smi line and
 {"ok": true, "device": {...}}; the kernel summary JSON comes before them.
 """
 import json
+import os
+import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -72,12 +99,18 @@ import torch
 
 from schroedinger_tpu_torch import api
 from schroedinger_tpu_torch import bitstream as bs
+from schroedinger_tpu_torch import y4m
 from schroedinger_tpu_torch.coding import native as coder
+from schroedinger_tpu_torch.coding.bitio import BitReader
 from schroedinger_tpu_torch.config import EncoderConfig
 from schroedinger_tpu_torch.decoder.core import StreamDecoder
+from schroedinger_tpu_torch.encoder import lowdelay as loe
 from schroedinger_tpu_torch.encoder import me as me_mod
 from schroedinger_tpu_torch.encoder.gop import GopEncoder
 from schroedinger_tpu_torch.ops import patch_refine as pr
+from schroedinger_tpu_torch.pipeline import planes_to_device
+from schroedinger_tpu_torch.tools.schro_tpu import encoder_config
+from schroedinger_tpu_torch.video_format import ChromaFormat
 from schroedinger_tpu_torch.slice_config import (CONFIG, CONFIG_BENCH,
                                                  CONFIG_FLAGSHIP,
                                                  CONFIG_FLAGSHIP_DRAINING,
@@ -325,13 +358,14 @@ def phase_probe(card):
             "variants_call_ms": times, "variants_ms_by_shape": by_shape}
 
 
-def psnr(a, b):
+def psnr(a, b, peak=255.0):
     mse = np.mean((a.astype(np.float64) - b.astype(np.float64)) ** 2)
-    return 99.0 if mse == 0 else 10 * np.log10(255.0 ** 2 / mse)
+    return 99.0 if mse == 0 else 10 * np.log10(peak ** 2 / mse)
 
 
-def check_decoded(out, frames, dec, what):
-    """Shapes, MD5, errors and luma PSNR >= 30 dB; returns the PSNRs."""
+def check_decoded(out, frames, dec, what, peak=255.0):
+    """Shapes, dtypes (the source's: u8, u16 when deep), MD5, errors and
+    luma PSNR >= 30 dB at `peak`; returns the PSNRs."""
     if len(out) != len(frames):
         raise AssertionError(f"{what}: decoded {len(out)} frames, "
                              f"expected {len(frames)}")
@@ -340,10 +374,10 @@ def check_decoded(out, frames, dec, what):
                              f"errors={dec.errors}")
     for planes, src in zip(out, frames):
         for got, want in zip(planes, src):
-            if got.shape != want.shape or got.dtype != np.uint8:
+            if got.shape != want.shape or got.dtype != want.dtype:
                 raise AssertionError(f"{what}: plane {got.shape} "
                                      f"{got.dtype}")
-    vals = [psnr(o[0], f[0]) for o, f in zip(out, frames)]
+    vals = [psnr(o[0], f[0], peak) for o, f in zip(out, frames)]
     if min(vals) < 30.0:
         raise AssertionError(f"{what}: luma PSNR {min(vals):.2f} dB < 30")
     return vals
@@ -666,7 +700,7 @@ def record_batches(enc):
     return seen
 
 
-def check_two_decoders(stream, frames, made, card, what):
+def check_two_decoders(stream, frames, made, card, what, peak=255.0):
     """api.Decoder (pipelined) and StreamDecoder on the card: equal planes
     for every frame, every reference picture equal to the encoder's
     reconstruction, the checks of check_decoded.  The two are timed in
@@ -682,8 +716,8 @@ def check_two_decoders(stream, frames, made, card, what):
         runs[name].append((time.perf_counter() - t0, dec, out))
     _, dec, out = runs["pipelined"][0]
     _, base, out2 = runs["per-picture"][0]
-    vals = check_decoded(out, frames, dec, what)
-    check_decoded(out2, frames, base, what)
+    vals = check_decoded(out, frames, dec, what, peak)
+    check_decoded(out2, frames, base, what, peak)
     for k, (a, b) in enumerate(zip(out, out2)):
         if not all(np.array_equal(x, y) for x, y in zip(a, b)):
             raise AssertionError(f"{what}: frame {k}: the pipelined and the "
@@ -717,7 +751,10 @@ def phase_small_card_vs_cpu(card):
             vf_s, device=dev, **dict(CONFIG_BENCH, bitrate=500_000)
         ).encode_stream(small),
         "api default": lambda dev: api.Encoder(
-            vf_s, EncoderConfig(), device=dev).encode_stream(small)}
+            vf_s, EncoderConfig(), device=dev).encode_stream(small),
+        "bench noarith": lambda dev: GopEncoder(
+            vf_s, device=dev, enable_noarith=True,
+            **dict(CONFIG_BENCH, bitrate=500_000)).encode_stream(small)}
     for name, run in runs.items():
         psnrs = []
         streams = [run(None), run("cpu")]
@@ -824,6 +861,283 @@ def phase_api_default(card):
     return launches
 
 
+# ---- the VC-2 profiles and no-arith long GOP (phases 10-14) -------------
+
+C422 = ChromaFormat.C422
+PEAK10 = 1023.0
+FULL = (1920, 1080)      # the picture size of phases 10, 12, 13 and 14
+CIF = (352, 288)
+
+
+def picture_payloads(stream):
+    """The picture units' payloads (after the 13-byte parse info)."""
+    return [pl for c, pl in bs.split_units(stream) if bs.is_picture(c)]
+
+
+def sequence_profile(stream):
+    seq = [pl for c, pl in bs.split_units(stream)
+           if c == bs.SEQUENCE_HEADER]
+    return bs.read_sequence_header(BitReader(seq[0])).profile
+
+
+def lowdelay_bases(stream, params):
+    """Per picture, the base quant index every slice picked (native
+    decode of its slices)."""
+    hdr = len(loe._picture_headers(params, 0, False)) - 13
+    y_qmo, uv_qmo, sbytes = loe._host_arrays(params)
+    ny, nx = params.n_vert_slices, params.n_horiz_slices
+    out = []
+    for pl in picture_payloads(stream):
+        out.append(coder.ld_decode(pl[hdr:], y_qmo, uv_qmo, ny, nx,
+                                   y_qmo.size, uv_qmo.size, sbytes)[3])
+    return out
+
+
+def encode_timed(make, frames):
+    """Encode on the card, timed on the host around a synchronise:
+    (encoder, stream, seconds)."""
+    enc = make()
+    t0 = time.perf_counter()
+    stream = enc.encode_stream(frames)
+    torch.cuda.synchronize()
+    return enc, stream, time.perf_counter() - t0
+
+
+def lowdelay_stage_shares(enc, frames):
+    """The encode's stages one after another on `frames` (no overlap):
+    device analysis (upload and kernels, to a synchronise; and the
+    kernels' own time from CUDA events), the fetch to the host and the
+    native packing.  Returns ms per frame of each."""
+    p = enc.params
+    analyze = loe._get_analyze_fn(p)
+    tot = {"analysis": 0.0, "analysis_device": 0.0, "fetch": 0.0,
+           "pack": 0.0}
+    for i, f in enumerate(frames):
+        t0 = time.perf_counter()
+        planes = planes_to_device(f, p.video_format.bit_depth, enc.device)
+        e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        e0.record()
+        dev = analyze(*planes)
+        e1.record()
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        host = loe.fetch_analysis(dev)
+        t2 = time.perf_counter()
+        loe.encode_picture_from_analysis(host, p, i, False)
+        t3 = time.perf_counter()
+        tot["analysis"] += (t1 - t0) * 1e3
+        tot["analysis_device"] += e0.elapsed_time(e1)
+        tot["fetch"] += (t2 - t1) * 1e3
+        tot["pack"] += (t3 - t2) * 1e3
+    return {k: v / len(frames) for k, v in tot.items()}
+
+
+def phase_lowdelay_cli(card):
+    """smoke-1080p-vc2-lowdelay-cli-422p10."""
+    (W, H), N = FULL, 25
+    vf = video_format(W, H, C422, 10)
+    frames = make_frames(N, W, H, chroma_format=C422, bit_depth=10)
+    cfg = encoder_config("lowdelay")
+    api.Encoder(vf, cfg).encode_stream(frames[:2])           # warm-up
+    torch.cuda.synchronize()
+    runs = {}
+    for path in ("table", "direct", "direct", "table"):
+        def make(path=path):
+            enc = api.Encoder(vf, cfg)
+            enc.ld_path = path
+            return enc
+        enc, stream, secs = encode_timed(make, frames)
+        runs.setdefault(path, []).append((stream, secs, enc.ld_seconds))
+    stream = runs["table"][0][0]
+    if any(r[0] != stream for v in runs.values() for r in v):
+        raise AssertionError("phase10: the table and direct paths (or two "
+                             "runs of one) gave different bytes")
+    p = enc.params
+    budget = int(loe._host_arrays(p)[2].sum())
+    head = len(loe._picture_headers(p, 0, False))
+    sizes = {len(pl) + 13 for pl in picture_payloads(stream)}
+    if sizes != {head + budget}:
+        raise AssertionError(f"phase10: picture units of {sorted(sizes)} "
+                             f"bytes, expected headers {head} + slice "
+                             f"budgets {budget}")
+    s_cpu = api.Encoder(vf, cfg, device="cpu").encode_stream(frames[:2])
+    s_gpu = api.Encoder(vf, cfg).encode_stream(frames[:2])
+    if s_cpu != s_gpu:
+        raise AssertionError("phase10: the first 2 frames on the card "
+                             "differ from the CPU encode")
+    shares = lowdelay_stage_shares(enc, frames[:5])
+    vals, fps_api, fps_sd = check_two_decoders(stream, frames, {}, card,
+                                               "phase10", PEAK10)
+    fps = {k: np.mean([N / r[1] for r in v]) for k, v in runs.items()}
+    seq = shares["analysis"] + shares["fetch"] + shares["pack"]
+    # the pipelined table runs: the worker's fetch and packing against
+    # the wall (the main thread queues the analysis meanwhile)
+    worker = {k: np.mean([r[2][k] / r[1] for r in runs["table"]])
+              for k in ("fetch", "pack")}
+    print(f"phase10 smoke-1080p-vc2-lowdelay-cli-422p10 x{N}: "
+          f"{p.n_horiz_slices} x {p.n_vert_slices} slices of "
+          f"{p.slice_bytes_num}/{p.slice_bytes_denom} bytes, units of "
+          f"{head} + {budget} bytes, table == direct == CPU (2 frames); "
+          f"luma PSNR mean {np.mean(vals):.3f} min {min(vals):.3f} dB at "
+          f"peak 1023; encode {fps['table']:.3f} frames/s (table), "
+          f"{fps['direct']:.3f} (direct); decode {fps_api:.3f} frames/s "
+          f"api.Decoder, {fps_sd:.3f} StreamDecoder [{card}]", flush=True)
+    print(f"phase10 encode stages one after another, ms per frame: device "
+          f"analysis {shares['analysis']:.3f} (kernels "
+          f"{shares['analysis_device']:.3f} by CUDA events), fetch "
+          f"{shares['fetch']:.3f}, native packing {shares['pack']:.3f}; "
+          f"shares {shares['analysis'] / seq:.3f} / "
+          f"{shares['fetch'] / seq:.3f} / {shares['pack'] / seq:.3f}; the "
+          f"pipelined encode takes {1e3 / fps['table']:.3f} ms a frame "
+          f"against {seq:.3f} in turn, its worker thread busy "
+          f"{worker['fetch']:.3f} of the wall fetching and "
+          f"{worker['pack']:.3f} packing [{card}]", flush=True)
+    phase_cli(card, vf, frames[:3])
+
+
+def phase_cli(card, vf, frames):
+    """The CLI itself, encode then decode, on a y4m of `frames`."""
+    with tempfile.TemporaryDirectory() as tmp:
+        src, drc, dst = (os.path.join(tmp, n) for n in ("in.y4m", "out.drc",
+                                                        "out.y4m"))
+        wr = y4m.Y4MWriter(src, vf, vf.bit_depth)
+        wr.write_frames(frames)
+        wr.close()
+        env = dict(os.environ, PYTHONPATH=os.path.dirname(
+            os.path.abspath(__file__)))
+        t0 = time.perf_counter()
+        for args in (["encode", src, drc], ["decode", drc, dst]):
+            subprocess.run([sys.executable, "-m",
+                            "schroedinger_tpu_torch.tools.schro_tpu", *args],
+                           check=True, env=env, timeout=300)
+        secs = time.perf_counter() - t0
+        stream = open(drc, "rb").read()
+        _, got, depth = y4m.read_y4m(dst)
+        got = list(got)
+        want = api.Decoder().decode_stream(stream)
+    if depth != vf.bit_depth or len(got) != len(frames):
+        raise AssertionError(f"phase10 CLI: {len(got)} frames at "
+                             f"{depth} bits")
+    for a3, b3 in zip(got, want):
+        if not all(np.array_equal(a, b) for a, b in zip(a3, b3)):
+            raise AssertionError("phase10 CLI: its y4m differs from "
+                                 "api.Decoder's planes")
+    print(f"phase10 CLI `schro_tpu encode` (default profile) + `decode` of "
+          f"{len(frames)} frames of 10-bit 4:2:2 y4m: {len(stream)} bytes, "
+          f"output y4m == api.Decoder's planes; {secs:.3f} s for both "
+          f"processes [{card}]", flush=True)
+
+
+def phase_lowdelay_lossless(card):
+    """smoke-cif-vc2-lowdelay-lossless (BASELINE.json config 1)."""
+    (W, H), N = CIF, 10
+    vf = video_format(W, H)
+    frames = make_frames(N, W, H)
+    # 24 bits a luma sample: room for every slice at base 0
+    cfg = encoder_config("lowdelay", bitrate=W * H * 25 * 24)
+    enc, stream, secs = encode_timed(lambda: api.Encoder(vf, cfg), frames)
+    bases = lowdelay_bases(stream, enc.params)
+    if any(b.any() for b in bases):
+        raise AssertionError("phase11: a slice picked a base above 0")
+    dec = api.Decoder()
+    out = dec.decode_stream(stream)
+    if len(out) != N or not all(
+            torch.equal(torch.from_numpy(o), torch.from_numpy(f))
+            for o3, f3 in zip(out, frames) for o, f in zip(o3, f3)):
+        raise AssertionError("phase11: the decode is not the source")
+    print(f"phase11 smoke-cif-vc2-lowdelay-lossless x{N}: every slice of "
+          f"every picture at base 0 ({bases[0].size} slices), decode == "
+          f"source (torch.equal, every plane); {len(stream)} bytes, encode "
+          f"{N / secs:.3f} frames/s [{card}]", flush=True)
+
+
+def phase_intra_profile(card, tag, what, vf, cfg, frames, peak, profile):
+    """An intra-only profile at 1080p: card == CPU on frame 0, the
+    sequence header's profile, both decoders, PSNR >= 30 dB."""
+    if api.Encoder(vf, cfg).encode_stream(frames[:1]) != api.Encoder(
+            vf, cfg, device="cpu").encode_stream(frames[:1]):
+        raise AssertionError(f"{tag}: frame 0 on the card differs from the "
+                             "CPU encode")
+    enc, stream, secs = encode_timed(lambda: api.Encoder(vf, cfg), frames)
+    if enc.profile != what or sequence_profile(stream) != profile:
+        raise AssertionError(f"{tag}: profile {enc.profile} "
+                             f"{sequence_profile(stream)}")
+    vals, fps_api, fps_sd = check_two_decoders(stream, frames, {}, card, tag,
+                                               peak)
+    print(f"{tag} smoke-1080p-{what.replace('_', '-')}"
+          f"{'-422p10' if peak > 255 else ''} x{len(frames)}: profile "
+          f"{profile}, frame 0 card == CPU, {len(stream)} bytes, luma PSNR "
+          f"mean {np.mean(vals):.3f} min {min(vals):.3f} dB at peak "
+          f"{peak:.0f}; encode {len(frames) / secs:.3f} frames/s, decode "
+          f"{fps_api:.3f} frames/s api.Decoder, {fps_sd:.3f} StreamDecoder "
+          f"[{card}]", flush=True)
+
+
+def phase_bench_noarith(card):
+    """smoke-1080p-bench-noarith; returns its launches."""
+    (W, H), N = FULL, 13
+    vf = video_format(W, H)
+    frames = make_frames(N, W, H)
+    cfg = dict(CONFIG_BENCH, enable_noarith=True)
+    GopEncoder(vf, **cfg).encode_stream(frames[:2])          # warm-up
+    torch.cuda.synchronize()
+    enc = GopEncoder(vf, **cfg)
+    seen = record_batches(enc)
+    made = record_refs(enc)
+    pr.LAUNCHES = 0
+    t0 = time.perf_counter()
+    stream = enc.encode_stream(frames)
+    torch.cuda.synchronize()
+    t_enc = time.perf_counter() - t0
+    launches = pr.LAUNCHES
+    kinds = picture_kinds(stream)
+    batched = sum(len(s[0]) for s in seen if s[1])
+    refs_p = sum(r for _, r, ref in kinds if r and ref)
+    n_b = sum(1 for _, r, ref in kinds if r and not ref)
+    expect = (LAUNCHES_PER_REF * (refs_p + 2 * (n_b - batched))
+              + 2 * LAUNCHES_PER_REF * sum(1 for s in seen if s[1]))
+    if launches != expect or any(s[2] != 2 * LAUNCHES_PER_REF
+                                 for s in seen if s[1]):
+        raise AssertionError(f"phase14: {launches} launches, expected "
+                             f"{expect} (7 per reference, 14 a batch)")
+    if any(bs.using_ac(c) for c, _ in bs.split_units(stream)
+           if bs.is_picture(c)):
+        raise AssertionError("phase14: a picture is arith coded")
+    vals, fps_pipe, fps_base = check_two_decoders(stream, frames, made, card,
+                                                  "phase14")
+    share = N * CONFIG_BENCH["bitrate"] / CONFIG_BENCH["fps"] / 8
+    if not 0.1 * share <= len(stream) <= 4 * share:
+        raise AssertionError(f"phase14: {len(stream)} bytes outside 0.1x-4x "
+                             f"of the pro-rata {share:.0f}")
+    n_i, n_p, n_b = picture_mix(stream)
+    print(f"phase14 smoke-1080p-bench-noarith x{N}: {n_i} I, {n_p} P, {n_b} "
+          f"B ({batched} in batches), every picture no-arith; me_search "
+          f"launches {launches}; {len(stream)} bytes "
+          f"({len(stream) / share:.3f} of the pro-rata {share:.0f}), luma "
+          f"PSNR mean {np.mean(vals):.3f} min {min(vals):.3f} dB, "
+          f"{len(made)} reference pictures equal to the encoder's; encode "
+          f"{N / t_enc:.3f} frames/s, decode {fps_pipe:.3f} frames/s "
+          f"pipelined, {fps_base:.3f} StreamDecoder [{card}]", flush=True)
+    return launches
+
+
+def phases_vc2(card):
+    """Phases 10-14; returns the launches of kernel #1 on the no-arith
+    long-GOP path (the VC-2 profiles launch no hand kernel)."""
+    phase_lowdelay_cli(card)
+    phase_lowdelay_lossless(card)
+    W, H = FULL
+    phase_intra_profile(card, "phase12", "vc2_simple", video_format(W, H),
+                        EncoderConfig(enable_noarith=True),
+                        make_frames(8, W, H), 255.0, 1)
+    phase_intra_profile(card, "phase13", "vc2_main",
+                        video_format(W, H, C422, 10),
+                        EncoderConfig(gop_structure="intra_only"),
+                        make_frames(8, W, H, chroma_format=C422,
+                                    bit_depth=10), PEAK10, 2)
+    return phase_bench_noarith(card)
+
+
 def main() -> int:
     card = gpu_line()
     print(f"phase0 gpu: {card}", flush=True)
@@ -850,6 +1164,9 @@ def main() -> int:
     # set to 0 just before its path and read just after
     entry.update(phase_bench_headline(card))
     entry["launches_api_default"] = phase_api_default(card)
+    # the VC-2 profiles and no-arith long GOP; the count is set to 0 just
+    # before the no-arith path and read just after
+    entry["launches_bench_noarith"] = phases_vc2(card)
 
     print(json.dumps({"kernels": [entry, probe_entry]}), flush=True)
     print(card, flush=True)

@@ -4,39 +4,52 @@ Port of `schroedinger_tpu/api.py`.  The encoder dispatches on
 force_profile / rate_control exactly like schro_encoder_start
 (schroencoder.c:670-745):
 
-  vc2_low_delay -> VC-2 low-delay slices        (not ported: raises)
-  vc2_simple    -> intra-only, VLC residuals    (not ported: raises)
-  vc2_main      -> intra-only, arithmetic coding
+  vc2_low_delay -> VC-2 low-delay slices (fixed-byte, no arith), 8-bit
+                   or deep
+  vc2_simple    -> intra-only, VLC residuals (no arith)
+  vc2_main      -> intra-only, arithmetic coding, 8-bit or deep
   main          -> long-GOP motion-compensated coding: the biref engine
                    under constant_quality (the default), constant_lambda
                    or constant_bitrate; lossless on the backref engine at
                    quant index 0 with Haar-0
 
 What is not ported raises NotImplementedError naming its ROADMAP.md
-item: the two VC-2 profiles above, interlaced coding, the constant_error
-and constant_noise_threshold engines, and the backref engine under a
+item: interlaced coding, the constant_error and
+constant_noise_threshold engines, and the backref engine under a
 quantiser engine or CBR (GopEncoder raises for the last three).  Both
-classes run on the card unless the caller passes device="cpu".
+classes run on the card unless the caller passes device="cpu"; a failed
+device program raises, nothing falls back to another path.
 """
 from __future__ import annotations
 
+import concurrent.futures as cf
 import math
+import os
+import time
 from typing import List, Optional, Tuple
 
 import numpy as np
+from torch.profiler import record_function
 
 from schroedinger_tpu_torch import bitstream as bs
 from schroedinger_tpu_torch.config import PROFILES, EncoderConfig
 from schroedinger_tpu_torch.decoder.pipeline import PipelinedStreamDecoder
 from schroedinger_tpu_torch.devices import resolve_device
 from schroedinger_tpu_torch.encoder import intra as ei_intra
+from schroedinger_tpu_torch.encoder import lowdelay as loe
 from schroedinger_tpu_torch.encoder.gop import GopEncoder
 from schroedinger_tpu_torch.encoder.ratecontrol import QuantiserEngine
 from schroedinger_tpu_torch.params import Params, subband_count
+from schroedinger_tpu_torch.pipeline import planes_to_device
 from schroedinger_tpu_torch.video_format import VideoFormat
 from schroedinger_tpu_torch.wavelets import MAX_DEPTH_S16, Wavelet
 
 _NEXT_SLICES = "ROADMAP.md Queue 1, next slices"
+
+
+def _reduce_fraction(n: int, d: int) -> Tuple[int, int]:
+    g = math.gcd(n, d)
+    return n // g, d // g
 
 
 def _quality_to_qi(quality: float) -> int:
@@ -63,14 +76,8 @@ class Encoder:
         self.profile = self._resolve_profile()
 
         if self.profile == "vc2_low_delay":
-            raise NotImplementedError(
-                f"the vc2_low_delay profile is not ported ({_NEXT_SLICES}: "
-                "low delay and no-arith)")
-        if self.profile == "vc2_simple":
-            raise NotImplementedError(
-                f"the vc2_simple profile (no-arith intra) is not ported "
-                f"({_NEXT_SLICES}: low delay and no-arith)")
-        if self.profile == "vc2_main":
+            self._init_lowdelay()
+        elif self.profile in ("vc2_simple", "vc2_main"):
             self._init_intra()
         else:
             self._init_gop()
@@ -92,12 +99,40 @@ class Encoder:
 
     # ---- profile setups -------------------------------------------------
 
+    def _init_lowdelay(self) -> None:
+        wavelet = Wavelet(self.cfg.enum_index("intra_wavelet"))
+        depth = min(self.cfg.transform_depth, MAX_DEPTH_S16[wavelet])
+        p = Params(video_format=self.vf, is_lowdelay=True, num_refs=0,
+                   wavelet_filter_index=wavelet, transform_depth=depth)
+        if self.cfg.horiz_slices and self.cfg.vert_slices:
+            p.n_horiz_slices = self.cfg.horiz_slices
+            p.n_vert_slices = self.cfg.vert_slices
+        else:
+            p.n_horiz_slices = p.iwt_chroma_width >> depth
+            p.n_vert_slices = p.iwt_chroma_height >> depth
+        p.set_default_quant_matrix()
+
+        bitrate = self.cfg.bitrate
+        if bitrate == 0:
+            bitrate = (self.vf.width * self.vf.height
+                       * self.vf.frame_rate_numerator
+                       // self.vf.frame_rate_denominator) * 2
+        num = bitrate * self.vf.frame_rate_denominator // (
+            self.vf.frame_rate_numerator * 8)
+        denom = p.n_horiz_slices * p.n_vert_slices
+        p.slice_bytes_num, p.slice_bytes_denom = _reduce_fraction(num, denom)
+        self.params = p
+
     def _init_intra(self) -> None:
         wavelet = Wavelet(self.cfg.enum_index("intra_wavelet"))
         depth = min(self.cfg.transform_depth, MAX_DEPTH_S16[wavelet])
-        p = Params(video_format=self.vf, num_refs=0, is_noarith=False,
+        p = Params(video_format=self.vf, num_refs=0,
+                   is_noarith=(self.profile == "vc2_simple"),
                    wavelet_filter_index=wavelet, transform_depth=depth)
         p.set_default_codeblocks()
+        if p.is_noarith:
+            # avoid the reference decoder's quant-offset compat ambiguity
+            p.codeblock_mode_index = 0
         p.set_default_quant_matrix()
         self.params = p
         if self.cfg.rate_control == "lossless":
@@ -220,18 +255,26 @@ class Encoder:
             self.frame_number += 1
             return
         p = self.params
-        nb = subband_count(p.transform_depth)
-        qm = p.quant_matrix[:nb]
-        qis = {}
-        for comp in range(3):
-            for i in range(nb):
-                hcb, vcb = ei_intra._codeblock_counts(p, i)
-                qi = int(np.clip(self._base_qi - qm[i], 0, 60))
-                qis[(comp, i)] = np.full((vcb, hcb), qi, np.int32)
-        units = [bs.write_sequence_header(self.vf, profile=2, level=0),
-                 ei_intra.encode_picture(planes, p, self.frame_number,
-                                         quant_indices=qis, is_ref=False,
-                                         device=self.device)]
+        if self.profile == "vc2_low_delay":
+            units = [bs.write_sequence_header(self.vf, profile=0, level=0),
+                     loe.encode_picture(planes, p, self.frame_number,
+                                        device=self.device)]
+        else:
+            nb = subband_count(p.transform_depth)
+            qm = p.quant_matrix[:nb]
+            qis = {}
+            for comp in range(3):
+                for i in range(nb):
+                    hcb, vcb = ei_intra._codeblock_counts(p, i)
+                    qi = int(np.clip(self._base_qi - qm[i], 0, 60))
+                    qis[(comp, i)] = np.full((vcb, hcb), qi, np.int32)
+            prof_num = 1 if self.profile == "vc2_simple" else 2
+            units = [bs.write_sequence_header(self.vf, profile=prof_num,
+                                              level=0),
+                     ei_intra.encode_picture(planes, p, self.frame_number,
+                                             quant_indices=qis,
+                                             is_ref=False,
+                                             device=self.device)]
         self._out.append(self._chain.add(units))
         self.frame_number += 1
 
@@ -248,6 +291,8 @@ class Encoder:
         return self._chain.add([bs.make_eos_unit()], final_eos=True)
 
     def encode_stream(self, frames) -> bytes:
+        if self.profile == "vc2_low_delay":
+            return self._encode_stream_lowdelay(frames)
         if self._gop is not None:
             out = self._gop.encode_stream(frames)   # includes flush + EOS
             self.frame_number = self._gop.frame_number
@@ -258,6 +303,68 @@ class Encoder:
             out += self.pull()
         out += self.end_of_stream()
         return bytes(out)
+
+    def _encode_stream_lowdelay(self, frames) -> bytes:
+        """Pipelined low-delay encode: while the main thread queues the
+        device analysis of frame N+1, a worker thread fetches frame N to
+        the host and packs it in the native coder (which releases the
+        GIL).  The JAX encoder packs on its main thread, where one jitted
+        call queues the analysis; in eager torch queueing it is host work
+        of its own, so the packing moves to the worker to overlap it.
+        `ld_seconds` sums the worker's fetch and packing time.
+
+        Two host halves give the same bytes: "table" fetches the device's
+        61-base bit aggregates so that the host search is lookups;
+        "direct" fetches only the coefficients and probes on the host.
+        `ld_path` (or SCHRO_TPU_LD_PATH, default "table") picks one; the
+        better one depends on the link against the host's speed."""
+        self.ld_path = (getattr(self, "ld_path", None)
+                        or os.environ.get("SCHRO_TPU_LD_PATH", "table"))
+        if self.ld_path == "table":
+            transform = loe._get_analyze_fn(self.params)
+            fetch = loe.fetch_analysis
+            pack = loe.encode_picture_from_analysis
+        elif self.ld_path == "direct":
+            transform = loe._get_transform_fn(self.params)
+            fetch = loe.fetch
+
+            def pack(host, p, fnum, is_ref):
+                return loe.encode_picture_from_slices(*host, p, fnum, is_ref)
+        else:
+            raise ValueError(f"ld_path {self.ld_path!r}: 'table' or "
+                             "'direct'")
+        self.ld_seconds = {"fetch": 0.0, "pack": 0.0}
+
+        def host_half(dev, fnum):
+            t0 = time.perf_counter()
+            host = fetch(dev)
+            t1 = time.perf_counter()
+            unit = pack(host, self.params, fnum, False)
+            self.ld_seconds["fetch"] += t1 - t0
+            self.ld_seconds["pack"] += time.perf_counter() - t1
+            return unit
+
+        out = bytearray()
+        with cf.ThreadPoolExecutor(max_workers=1) as pool:
+            pending = None
+            for f in frames:
+                with record_function("ld_analysis"):
+                    dev = transform(*planes_to_device(
+                        f, self.vf.bit_depth, self.device))
+                fut = pool.submit(host_half, dev, self.frame_number)
+                self.frame_number += 1
+                if pending is not None:
+                    self._emit_lowdelay(pending, out)
+                pending = fut
+            if pending is not None:
+                self._emit_lowdelay(pending, out)
+        out += self.end_of_stream()
+        return bytes(out)
+
+    def _emit_lowdelay(self, fut, out: bytearray) -> None:
+        units = [bs.write_sequence_header(self.vf, profile=0, level=0),
+                 fut.result()]
+        out += self._chain.add(units)
 
 
 class Decoder:

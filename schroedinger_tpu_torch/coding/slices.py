@@ -1,12 +1,21 @@
-"""Subband pyramid <-> flat layouts (torch twins of
-`schroedinger_tpu/coding/slices.py` subband_arrays / arrays_to_pyramid /
-flatten_pyramid and unflatten_host; the low-delay slice helpers there
-are not ported yet)."""
+"""Subband pyramid <-> flat and VC-2 low-delay slice layouts.
+
+Port of `schroedinger_tpu/coding/slices.py`.  A slice (sy, sx) owns the
+codeblock [h*sy/ny, h*(sy+1)/ny) x [w*sx/nx, ...) of every subband
+(schroframe.c schro_frame_data_get_codeblock).  With the standard
+constraint that subband dims divide by the slice counts
+(schrolowdelay.c:581-584 asserts), each subband reshapes cleanly into
+(ny, bh, nx, bw); slices then become dense (ny, nx, S) arrays, every
+slice a row.  The slice helpers take numpy arrays or torch tensors and
+return the same kind; the dtype passes through (int16 on the wire at 8
+bits, int32 when deep).
+"""
 from __future__ import annotations
 
+import numpy as np
 import torch
 
-from schroedinger_tpu_torch.params import subband_count, subband_info
+from schroedinger_tpu_torch.params import Params, subband_count, subband_info
 
 
 def subband_arrays(pyr, depth: int):
@@ -28,6 +37,58 @@ def arrays_to_pyramid(arrays, depth: int):
     return pyr
 
 
+def _swap(a, i: int, j: int):
+    return a.swapaxes(i, j) if isinstance(a, np.ndarray) else a.transpose(i,
+                                                                          j)
+
+
+def to_slices(arrays, ny: int, nx: int):
+    """Subband arrays -> (slices (ny, nx, S), per-position subband index
+    (S,) int32 numpy).
+
+    Requires every subband's dims to divide by ny/nx (the reference's fast
+    path constraint)."""
+    parts = []
+    band_idx = []
+    for i, a in enumerate(arrays):
+        h, w = a.shape[-2:]
+        assert h % ny == 0 and w % nx == 0, (i, h, w, ny, nx)
+        bh, bw = h // ny, w // nx
+        r = _swap(a.reshape(a.shape[:-2] + (ny, bh, nx, bw)), -3, -2)
+        parts.append(r.reshape(a.shape[:-2] + (ny, nx, bh * bw)))
+        band_idx.extend([i] * (bh * bw))
+    cat = (np.concatenate(parts, axis=-1) if isinstance(parts[0], np.ndarray)
+           else torch.cat(parts, -1))
+    return cat, np.asarray(band_idx, dtype=np.int32)
+
+
+def from_slices(sliced, shapes, ny: int, nx: int):
+    """(ny, nx, S) array -> list of subband arrays with given (h, w) shapes."""
+    out = []
+    pos = 0
+    for (h, w) in shapes:
+        bh, bw = h // ny, w // nx
+        n = bh * bw
+        part = sliced[..., pos:pos + n]
+        part = _swap(part.reshape(part.shape[:-3] + (ny, nx, bh, bw)), -3, -2)
+        out.append(part.reshape(part.shape[:-4] + (h, w)))
+        pos += n
+    assert pos == sliced.shape[-1]
+    return out
+
+
+def band_sizes(arrays, ny: int, nx: int):
+    return [(a.shape[-2] // ny) * (a.shape[-1] // nx) for a in arrays]
+
+
+def qmat_offsets(params: Params, band_idx):
+    """Per-position quant-matrix value (base_index - this = quant index)."""
+    qm = np.asarray(
+        params.quant_matrix[: subband_count(params.transform_depth)],
+        dtype=np.int32)
+    return qm[band_idx]
+
+
 def flatten_pyramid(pyr, depth: int):
     """Concatenate all subbands into one flat tensor (one per leading
     index of a batched pyramid: (..., n)).
@@ -40,8 +101,8 @@ def flatten_pyramid(pyr, depth: int):
 
 
 def unflatten(flat, shapes):
-    """Split a flat band tensor (..., n) back into (..., h, w) views
-    (device twin of `schroedinger_tpu.coding.slices.unflatten_host`)."""
+    """Split a flat band array (..., n), numpy or tensor, back into
+    (..., h, w) views."""
     out = []
     pos = 0
     for (h, w) in shapes:
@@ -49,3 +110,8 @@ def unflatten(flat, shapes):
                                                       w))
         pos += h * w
     return out
+
+
+def unflatten_host(flat_np, shapes):
+    """Host-side split of a flattened band array back into 2-D views."""
+    return unflatten(flat_np, shapes)

@@ -7,12 +7,13 @@ entropy decode (host, native C++) -> residual decode (host, native C++)
 (a reference picture enters the buffer, then retires the picture its
 header names).  Reference pictures stay on the device as u8 tensors with
 their half-pel planes; decoded frames come back to the host as numpy u8
-planes, sorted into presentation order (B pictures are coded after the
-reference that follows them).
+planes (u16 when deep), sorted into presentation order (B pictures are
+coded after the reference that follows them).
 
-Not ported yet: the VC-2 low-delay profile, no-arith residuals, and the
-per-pixel gather render (global motion, |mv| > MV_BOUND_PEL) — a stream
-that needs one of them raises NotImplementedError.
+VC-2 low-delay pictures go to `decoder/lowdelay.py`, intra pictures to
+`decoder/intra.py`, both 8-bit or deep (uint16 planes out), arith or
+no-arith.  Not ported yet: the per-pixel gather render (global motion,
+|mv| > MV_BOUND_PEL) — a stream that needs it raises NotImplementedError.
 """
 from __future__ import annotations
 
@@ -30,6 +31,7 @@ from schroedinger_tpu_torch.params import Params
 from schroedinger_tpu_torch.video_format import VideoFormat
 from schroedinger_tpu_torch.wavelets import Wavelet
 from schroedinger_tpu_torch.decoder import intra as di
+from schroedinger_tpu_torch.decoder import lowdelay as lod
 from schroedinger_tpu_torch.devices import resolve_device
 from schroedinger_tpu_torch.ops import obmc
 
@@ -143,8 +145,9 @@ def decode_residual(payload_reader: BitReader, payload: bytes, p: Params,
 
 class StreamDecoder:
     """Decodes a full Dirac stream; returns frames in presentation order
-    as (y, u, v) numpy u8 planes.  All tensor work runs on `device`: the
-    card when None (an error where there is none), the CPU on request.
+    as (y, u, v) numpy u8 planes (u16 when deep).  All tensor work runs
+    on `device`: the card when None (an error where there is none), the
+    CPU on request.
     The telemetry overlay (`decoder/overlay.py`) is not ported: asking
     for it raises NotImplementedError."""
 
@@ -201,8 +204,6 @@ class StreamDecoder:
         p = Params(video_format=self.vf, num_refs=num_refs,
                    is_lowdelay=bs.is_lowdelay(code),
                    is_noarith=not bs.using_ac(code))
-        if p.is_lowdelay:
-            raise NotImplementedError("VC-2 low-delay decode is not ported")
 
         mv = None
         if num_refs > 0:
@@ -223,7 +224,20 @@ class StreamDecoder:
         if not zero_residual:
             p.wavelet_filter_index = Wavelet(r.read_uint())
             p.transform_depth = r.read_uint()
-            if r.read_bit():
+            if p.is_lowdelay:
+                p.n_horiz_slices = r.read_uint()
+                p.n_vert_slices = r.read_uint()
+                p.slice_bytes_num = r.read_uint()
+                p.slice_bytes_denom = r.read_uint()
+                if r.read_bit():
+                    p.quant_matrix[0] = r.read_uint()
+                    for i in range(p.transform_depth):
+                        p.quant_matrix[1 + 3 * i] = r.read_uint()
+                        p.quant_matrix[2 + 3 * i] = r.read_uint()
+                        p.quant_matrix[3 + 3 * i] = r.read_uint()
+                else:
+                    p.set_default_quant_matrix()
+            elif r.read_bit():
                 for i in range(p.transform_depth + 1):
                     p.horiz_codeblocks[i] = r.read_uint()
                     p.vert_codeblocks[i] = r.read_uint()
@@ -238,12 +252,16 @@ class StreamDecoder:
                 zero_residual, mv)
 
     def decode_picture_unit(self, code: int, payload: bytes):
-        """Decode one picture unit -> (picture_number, u8 plane tensors)."""
+        """Decode one picture unit -> (picture_number, plane tensors: u8,
+        u16 when deep)."""
         (r, p, picture_number, ref_nums, retired, is_ref,
          zero_residual, mv) = self._parse_picture(code, payload)
 
         num_refs = p.num_refs
-        if num_refs == 0:
+        if p.is_lowdelay:
+            planes = lod.decode_picture(payload[r.bits_read // 8:], p,
+                                        device=self.device)
+        elif num_refs == 0:
             planes = di.decode_picture(payload[r.bits_read // 8:], p,
                                        device=self.device)
         else:

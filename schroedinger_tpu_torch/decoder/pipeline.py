@@ -16,8 +16,7 @@ Pictures outside the packed path's envelope go to `StreamDecoder`'s
 per-picture path, still on the device: per-codeblock quantisers, global
 motion, MVs beyond MV_BOUND_PEL, low delay, no-arith, deep video and the
 telemetry overlay, as in the JAX package.  Where that path is not ported
-either (the gather render, low delay, no-arith) it raises
-NotImplementedError.
+either (the gather render, the overlay) it raises NotImplementedError.
 """
 from __future__ import annotations
 

@@ -33,7 +33,6 @@ from collections import deque
 from typing import Optional
 
 import numpy as np
-import torch
 from torch.profiler import record_function
 
 from schroedinger_tpu_torch import bitstream as bs
@@ -48,10 +47,12 @@ from schroedinger_tpu_torch.encoder.lowdelay import _forward, _prep_plane
 from schroedinger_tpu_torch.encoder.ratecontrol import (ArithCorrection,
                                                         CbrControllerTM5,
                                                         lambda_for_bits,
+                                                        qi_from_lambda,
                                                         stats_tables)
 from schroedinger_tpu_torch.encoder.weights import (band_lambda_scales,
                                                     cycles_per_degree)
 from schroedinger_tpu_torch.params import Params, subband_count
+from schroedinger_tpu_torch.pipeline import planes_to_device
 from schroedinger_tpu_torch.utils.telemetry import FrameStats
 from schroedinger_tpu_torch.video_format import VideoFormat
 from schroedinger_tpu_torch.wavelets import MAX_DEPTH_S16, Wavelet
@@ -65,7 +66,7 @@ UNPORTED_DEFAULTS = dict(
     block_size="automatic", block_overlap="automatic",
     codeblock_size="automatic", enable_multiquant=False,
     enable_dc_multiquant=False, filtering="none", downsample_levels=5,
-    enable_noarith=False, estimation=())
+    estimation=())
 
 # magic_* tuning constants (schroencoder.c:4513-4535 defaults), the JAX
 # encoder's whole set.  keyframe_weight, inter_p_weight, inter_b_weight,
@@ -180,6 +181,11 @@ class GopEncoder:
         self.perceptual_distance = perceptual_distance
         self.downsample_levels = downsample_levels
         self.enable_b_batch = enable_b_batch
+        # no-arith (VLC) residuals and MVs on the long-GOP path: the
+        # reference's unit writers have the is_noarith branches
+        # (schroencoder.c:4073+) although its settings dispatch selects
+        # no-arith only for intra-only streams
+        self.enable_noarith = enable_noarith
         self.qengine = quantiser_engine
         self.pipeline_depth = pipeline_depth
         self.gop_structure = gop_structure
@@ -242,6 +248,10 @@ class GopEncoder:
         p.horiz_codeblocks[0] = 1
         p.vert_codeblocks[0] = 1
         p.codeblock_mode_index = 0
+        # no-arith keeps codeblock mode 0: the quant-offset mode is
+        # ambiguous in no-arith streams (the vc2_simple intra path's
+        # compat choice)
+        p.is_noarith = self.enable_noarith
         return p
 
     def _step_kw(self) -> dict:
@@ -719,19 +729,7 @@ class GopEncoder:
         the I-frame allocation (lambda_for_bits: the reference's
         entropy_to_lambda bisection, schroquantiser.c:887-960, applied
         once at stream start)."""
-        dims = [(p.iwt_luma_height, p.iwt_luma_width),
-                (p.iwt_chroma_height, p.iwt_chroma_width),
-                (p.iwt_chroma_height, p.iwt_chroma_width)]
-        band_lists = []
-        for plane, (oh, ow) in zip(planes, dims):
-            prepped = _prep_plane(
-                torch.tensor(np.asarray(plane, np.uint8),
-                             device=self.device), oh, ow)
-            pyr = _forward(prepped, p.transform_depth,
-                           p.wavelet_filter_index)
-            band_lists.append(sl.subband_arrays(pyr, p.transform_depth))
-        stats = stats_tables(band_lists, p, intra=True,
-                             error_power=self.magic["error_power"])
+        stats = self._intra_stats(planes, p)
         corr_i = np.maximum(self.acorr.intra, 1e-3)
         bits_c = np.asarray(stats[0], np.float64) * corr_i
         # only seed when the allocation is binding: if even the finest
@@ -751,6 +749,51 @@ class GopEncoder:
             # base_lambda is the I-level lambda; P/B derive via the magic
             # scales; never seed finer than the default quality level
             self.rc.base_lambda = float(min(lam, self.rc.base_lambda))
+
+    def _intra_stats(self, planes, p):
+        """The exact (61, 3nb) intra stat tables of a frame: forward
+        transform on the device, `ratecontrol.stats_tables`."""
+        band_lists = []
+        for plane, (oh, ow) in zip(
+                planes_to_device(planes, 8, self.device),
+                ((p.iwt_luma_height, p.iwt_luma_width),
+                 (p.iwt_chroma_height, p.iwt_chroma_width),
+                 (p.iwt_chroma_height, p.iwt_chroma_width))):
+            pyr = _forward(_prep_plane(plane, oh, ow), p.transform_depth,
+                           p.wavelet_filter_index)
+            band_lists.append(sl.subband_arrays(pyr, p.transform_depth))
+        with record_function("stat_tables"):
+            return stats_tables(band_lists, p, intra=True,
+                                error_power=self.magic["error_power"])
+
+    def _encode_intra_rd(self, planes, p, num, retired, intra_lambda):
+        """The unfused rate-controlled intra picture (the path of the
+        pictures the fused step does not code: no-arith): transform and
+        exact stat tables on the device, the per-band RD pick at
+        `intra_lambda` on the host with the intra arith-correction ratios
+        scaling the bit estimates (schroquantiser.c:704-725), the picture
+        coded at the picks, and the correction tables updated from its
+        coded band bits.  Returns (unit, recon, qi_bands)."""
+        nb = subband_count(p.transform_depth)
+        stats = self._intra_stats(planes, p)
+        bits_c = (np.asarray(stats[0], np.float64)
+                  * np.maximum(self.acorr.intra, 1e-3))
+        qi_bands = qi_from_lambda(bits_c, stats[1], intra_lambda,
+                                  band_scales=self._band_scales3(True))
+        est = np.asarray(stats[0], np.float64)[
+            np.clip(qi_bands, 0, 60), np.arange(3 * nb)]
+        qis = {}
+        for comp in range(3):
+            for i in range(nb):
+                hcb, vcb = ei_intra._codeblock_counts(p, i)
+                qis[(comp, i)] = np.full(
+                    (vcb, hcb), int(qi_bands[comp * nb + i]), np.int32)
+        bb_out = []
+        unit, recon = ei_intra.encode_picture(
+            planes, p, num, quant_indices=qis, is_ref=True, retired=retired,
+            return_recon=True, band_bits_out=bb_out, device=self.device)
+        self.acorr.update(True, bb_out[0], est)
+        return unit, recon, qi_bands
 
     def _encode_ref(self, planes, num, is_intra, sc_score,
                     retired="auto", manage_refs=True) -> bytes:
@@ -782,20 +825,25 @@ class GopEncoder:
                         # this frame's exact stat tables to its allocation
                         self._seed_rc_from_intra(planes, p)
                     intra_lambda = self.rc.frame_lambda("I")
-                # fused intra path: transform, stats, RD pick and
-                # quantisation on the device, host entropy coding and
-                # serial DC-predict band 0, device reconstruction
-                (unit, recon, qi_bands, _stats, bb_act,
-                 bb_est) = ei_intra.encode_picture_fused(
-                    planes, p, num,
-                    intra_lambda * self._band_scales3(True),
-                    is_ref=True, retired=retired, corr=self.acorr.intra,
-                    error_power=self.magic["error_power"],
-                    device=self.device)
-                self.acorr.update(True, bb_act, bb_est)
-                oh = max(len(unit) * 8 - float(np.sum(bb_act)), 0.0)
-                self._oh_intra = (oh if self._oh_intra is None
-                                  else 0.8 * self._oh_intra + 0.2 * oh)
+                if self.enable_noarith:
+                    # the fused step codes 8-bit arith pictures only
+                    unit, recon, qi_bands = self._encode_intra_rd(
+                        planes, p, num, retired, intra_lambda)
+                else:
+                    # fused intra path: transform, stats, RD pick and
+                    # quantisation on the device, host entropy coding and
+                    # serial DC-predict band 0, device reconstruction
+                    (unit, recon, qi_bands, _stats, bb_act,
+                     bb_est) = ei_intra.encode_picture_fused(
+                        planes, p, num,
+                        intra_lambda * self._band_scales3(True),
+                        is_ref=True, retired=retired, corr=self.acorr.intra,
+                        error_power=self.magic["error_power"],
+                        device=self.device)
+                    self.acorr.update(True, bb_act, bb_est)
+                    oh = max(len(unit) * 8 - float(np.sum(bb_act)), 0.0)
+                    self._oh_intra = (oh if self._oh_intra is None
+                                      else 0.8 * self._oh_intra + 0.2 * oh)
                 pad_unit = self._rc_update("I", len(unit) * 8, num)
             else:
                 nb = subband_count(p.transform_depth)

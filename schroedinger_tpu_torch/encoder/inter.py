@@ -6,7 +6,8 @@ Port of `schroedinger_tpu/encoder/inter.py`.  Per picture:
           -> subpel refine -> DC stats -> RD split + mode -> OBMC render
           -> residual -> forward IWT -> [61-way stat tables -> per-band
           RD pick with the lambda fit] -> quantise -> reconstruction
-  host:   MV entropy coding, subband arith coding (native C++)
+  host:   MV entropy coding, subband arith or no-arith (VLC) coding
+          (native C++)
 
 `start_inter_picture` queues the device work and returns a pending dict
 whose `recon` tensors can serve as the next picture's reference at once;
@@ -905,12 +906,11 @@ def _write_p_unit(p: Params, frame_number: int, refs, is_ref: bool,
     (unit_bytes, band_bits): band_bits is the (3*nb,) per-(component,
     band) coded payload bits (actual_subband_bits analog,
     schroencoder.c:2532-2546) that feed the arith-correction EMA."""
-    if p.is_noarith:
-        raise NotImplementedError("no-arith inter coding is not ported")
     nb = subband_count(p.transform_depth)
     num_refs = len(refs)
     w = BitWriter()
-    write_parse_info(w, parse_code_picture(is_ref, num_refs, False, False))
+    write_parse_info(w, parse_code_picture(is_ref, num_refs, False,
+                                           p.is_noarith))
     retired_delta = None
     if is_ref:
         retired_delta = (retired - frame_number) if retired is not None else 0
@@ -922,7 +922,7 @@ def _write_p_unit(p: Params, frame_number: int, refs, is_ref: bool,
     w.sync()
     with record_function("motion_encode"):
         bufs = _native.motion_encode(mv, p.x_num_blocks, p.y_num_blocks,
-                                     num_refs, is_noarith=False)
+                                     num_refs, is_noarith=p.is_noarith)
     for s in range(9):
         if bufs[s] is None:
             continue
@@ -960,14 +960,21 @@ def _write_p_unit(p: Params, frame_number: int, refs, is_ref: bool,
             if not np.any(qdata):
                 w.write_uint(0)
                 continue
-            # parent context is a zero-test, so quantised data is
-            # equivalent to the dequantised values the spec describes
-            parent_q = bands[index - 3] if position >= 4 else None
-            with record_function("encode_subband_arith"):
-                payload, first_qi = sb.encode_subband_arith(
-                    qdata, parent_q, position, hcb, vcb,
-                    p.codeblock_mode_index == 1,
-                    np.full((vcb, hcb), qi, np.int32))
+            if p.is_noarith:
+                with record_function("encode_subband_noarith"):
+                    payload = _native.encode_subband_noarith(
+                        qdata, position, hcb, vcb,
+                        p.codeblock_mode_index == 1)
+                first_qi = qi
+            else:
+                # parent context is a zero-test, so quantised data is
+                # equivalent to the dequantised values the spec describes
+                parent_q = bands[index - 3] if position >= 4 else None
+                with record_function("encode_subband_arith"):
+                    payload, first_qi = sb.encode_subband_arith(
+                        qdata, parent_q, position, hcb, vcb,
+                        p.codeblock_mode_index == 1,
+                        np.full((vcb, hcb), qi, np.int32))
             band_bits[comp * nb + index] = 8 * len(payload)
             w.write_uint(len(payload))
             if first_qi == -1:

@@ -1,12 +1,14 @@
 """Dirac intra picture encoder.
 
 Port of `schroedinger_tpu/encoder/intra.py`.  `encode_picture` codes at
-given quant indices: the forward wavelet runs on the device, subband
+given quant indices, 8-bit or deep (s32), with arithmetic or no-arith
+(VLC) residuals: the forward wavelet runs on the device, subband
 quantisation with per-codeblock quant indices and the entropy coding on
 the host (native C++).  `encode_picture_fused` is the rate-controlled
-path: transform, 61-way stat tables, per-band RD pick and quantisation on
-the device, entropy coding on the host, reconstruction on the device.
-Both run on the card unless the caller passes device="cpu".
+8-bit arith path: transform, 61-way stat tables, per-band RD pick and
+quantisation on the device, entropy coding on the host, reconstruction
+on the device.  Both run on the card unless the caller passes
+device="cpu".
 """
 from __future__ import annotations
 
@@ -19,15 +21,28 @@ from schroedinger_tpu_torch.bitstream import (BitWriter,
                                               write_parse_info,
                                               write_picture_header,
                                               write_transform_parameters)
+from schroedinger_tpu_torch.coding import native as _native
 from schroedinger_tpu_torch.coding import subband as sb
 from schroedinger_tpu_torch.devices import resolve_device
 from schroedinger_tpu_torch.params import (Params, subband_count,
                                            subband_position)
 from schroedinger_tpu_torch.coding import slices as sl
-from schroedinger_tpu_torch.decoder.lowdelay import _inverse, _to_u8
+from schroedinger_tpu_torch.decoder.lowdelay import _inverse, _to_u8, _to_u16
 from schroedinger_tpu_torch.encoder.lowdelay import _forward, _prep_plane
 from schroedinger_tpu_torch.encoder.ratecontrol import band_tables, rd_pick
 from schroedinger_tpu_torch.ops import quant as q
+from schroedinger_tpu_torch.ops.pad import pad_edge
+from schroedinger_tpu_torch.pipeline import planes_to_device
+
+
+def _prep_plane_deep(plane, out_h: int, out_w: int):
+    """Deep (10/16-bit) input prep: the reference widens S16 input to its
+    S32 internal frames with a PLAIN convert — no recentring; only the
+    8-bit path subtracts 128 (orc_convert_s32_s16 schroorc.orc:479-487 vs
+    orc_offsetconvert_s16_u8 :524-530)."""
+    x = plane.to(torch.int32)
+    h, w = x.shape
+    return pad_edge(x, 0, out_h - h, 0, out_w - w)
 
 
 def _codeblock_counts(p: Params, index: int):
@@ -41,18 +56,19 @@ def _codeblock_counts(p: Params, index: int):
 def encode_picture(planes_u8, p: Params, frame_number: int,
                    quant_indices=None, is_ref: bool = False,
                    retired: int | None = None,
-                   return_recon: bool = False, device=None):
+                   return_recon: bool = False,
+                   band_bits_out: list | None = None, device=None):
     """Encode one intra picture; quant_indices: None (all zero:
     lossless), an int, or a map (component, subband) -> (vcb, hcb) array.
 
-    planes_u8: three u8 planes (numpy arrays or tensors).  With
-    return_recon the decoder-exact reconstruction comes back as three u8
-    tensors on `device` (None: the card)."""
+    planes_u8: three u8 planes (u16 when deep; numpy arrays or tensors).
+    With return_recon the decoder-exact reconstruction comes back as
+    three u8 (u16) tensors on `device` (None: the card).  band_bits_out:
+    optional list; when given, a (3*nb,) per-(component, band)
+    coded-payload-bits array is appended (actual_subband_bits analog,
+    schroencoder.c:2548-2568, for the arith-correction EMA)."""
     device = resolve_device(device)
-    if p.video_format.bit_depth != 8:
-        raise NotImplementedError("deep (>8-bit) intra coding is not ported")
-    if p.is_noarith:
-        raise NotImplementedError("no-arith intra coding is not ported")
+    bit_depth = p.video_format.bit_depth
     depth = p.transform_depth
     nb = subband_count(depth)
     iwt_dims = [(p.iwt_luma_height, p.iwt_luma_width),
@@ -63,7 +79,7 @@ def encode_picture(planes_u8, p: Params, frame_number: int,
                  p.video_format.picture_chroma_size()]
 
     w = BitWriter()
-    write_parse_info(w, parse_code_picture(is_ref, 0, False, False))
+    write_parse_info(w, parse_code_picture(is_ref, 0, False, p.is_noarith))
     retired_delta = None
     if is_ref:
         retired_delta = 0 if retired is None else retired - frame_number
@@ -72,12 +88,13 @@ def encode_picture(planes_u8, p: Params, frame_number: int,
     write_transform_parameters(w, p)
     w.sync()
 
+    band_bits = np.zeros(3 * nb, np.float64)
     recon_planes = []
-    for comp, (plane, (oh, ow)) in enumerate(zip(planes_u8, iwt_dims)):
-        plane = (plane.to(device) if torch.is_tensor(plane) else
-                 torch.tensor(np.asarray(plane, np.uint8), device=device))
-        pyr = _forward(_prep_plane(plane, oh, ow), depth,
-                       p.wavelet_filter_index)
+    for comp, (plane, (oh, ow)) in enumerate(zip(
+            planes_to_device(planes_u8, bit_depth, device), iwt_dims)):
+        prepped = (_prep_plane_deep(plane, oh, ow) if bit_depth > 8
+                   else _prep_plane(plane, oh, ow))
+        pyr = _forward(prepped, depth, p.wavelet_filter_index)
         bands = [b.cpu().numpy().astype(np.int64)
                  for b in sl.subband_arrays(pyr, depth)]
 
@@ -94,18 +111,26 @@ def encode_picture(planes_u8, p: Params, frame_number: int,
 
             qdata, deq = sb.quantise_subband(
                 bands[index], qi_arr, position, hcb, vcb,
-                is_intra=(p.num_refs == 0))
+                is_intra=(p.num_refs == 0), deep=bit_depth > 8)
             deq_bands[index] = deq
 
             w.sync()
             if not np.any(qdata):
                 w.write_uint(0)
                 continue
-            parent_deq = deq_bands[index - 3] if position >= 4 else None
-            with record_function("encode_subband_arith"):
-                payload, first_qi = sb.encode_subband_arith(
-                    qdata, parent_deq, position, hcb, vcb,
-                    p.codeblock_mode_index == 1, qi_arr)
+            have_qo = p.codeblock_mode_index == 1
+            if p.is_noarith:
+                with record_function("encode_subband_noarith"):
+                    payload = _native.encode_subband_noarith(
+                        qdata, position, hcb, vcb, have_qo)
+                first_qi = int(qi_arr[0, 0])
+            else:
+                parent_deq = deq_bands[index - 3] if position >= 4 else None
+                with record_function("encode_subband_arith"):
+                    payload, first_qi = sb.encode_subband_arith(
+                        qdata, parent_deq, position, hcb, vcb, have_qo,
+                        qi_arr)
+            band_bits[comp * nb + index] = 8 * len(payload)
             w.write_uint(len(payload))
             if first_qi == -1:
                 first_qi = int(qi_arr[0, 0])
@@ -114,13 +139,18 @@ def encode_picture(planes_u8, p: Params, frame_number: int,
                 w.sync()
                 w.write_bytes(bytes(payload))
         if return_recon:
+            dt = np.int32 if bit_depth > 8 else np.int16
             rpyr = sl.arrays_to_pyramid(
-                [torch.as_tensor(np.asarray(b, dtype=np.int16), device=device)
+                [torch.as_tensor(np.asarray(b, dtype=dt), device=device)
                  for b in deq_bands], depth)
             rplane = _inverse(rpyr, p.wavelet_filter_index)
             (w_pic, h_pic) = pic_sizes[comp]
-            recon_planes.append(_to_u8(rplane, h_pic, w_pic))
+            recon_planes.append(
+                _to_u16(rplane, h_pic, w_pic, bit_depth) if bit_depth > 8
+                else _to_u8(rplane, h_pic, w_pic))
     w.sync()
+    if band_bits_out is not None:
+        band_bits_out.append(band_bits)
     if return_recon:
         return w.get_bytes(), tuple(recon_planes)
     return w.get_bytes()

@@ -22,12 +22,19 @@ from schroedinger_tpu_torch.wavelets import HAS_SHIFT, Wavelet
 
 
 def _shift_edge(x, off: int, axis: int):
-    """x[clamp(i+off)] along `axis` — tap with edge clamping."""
+    """x[clamp(i+off)] along `axis` — tap with edge clamping: the body
+    shifted by `off` and the edge sample repeated, one concatenation."""
     if off == 0:
         return x
-    n = x.shape[axis]
-    idx = (torch.arange(n, device=x.device) + off).clamp(0, n - 1)
-    return x.index_select(axis % x.ndim, idx)
+    ax = axis % x.ndim
+    n = x.shape[ax]
+    k = min(abs(off), n)
+    reps = [k if d == ax else -1 for d in range(x.ndim)]
+    if off > 0:
+        return torch.cat([x.narrow(ax, k, n - k),
+                          x.narrow(ax, n - 1, 1).expand(reps)], ax)
+    return torch.cat([x.narrow(ax, 0, 1).expand(reps),
+                      x.narrow(ax, 0, n - k)], ax)
 
 
 def _avg_ceil(a, b):

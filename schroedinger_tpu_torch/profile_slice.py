@@ -1,7 +1,7 @@
 """Where the time of the 1080p slice goes, on one NVIDIA GPU.
 
     python -m schroedinger_tpu_torch.profile_slice
-        [--config backref|flagship|draining|bench]
+        [--config backref|flagship|draining|bench|lowdelay]
         [--frames N] [--out DIR]
 
 Encodes pan + noise 1080p25 4:2:0 frames with the port's GopEncoder under
@@ -13,6 +13,11 @@ TM5 CBR encode with the on-device RD pick; `--config draining` (9 frames,
 the RD pick runs its 22-step lambda fit; `--config bench` (13 frames, 6
 of warm-up) bench.py's headline encoder, the flagship with MD5 off and
 each subgroup's B pictures batched, decoded by the pipelined decoder.
+`--config lowdelay` (13 frames, 2 of warm-up) is what `schro_tpu encode`
+does by default, VC-2 low delay through api.Encoder, on 10-bit 4:2:2
+frames, decoded as `schro_tpu decode` does; its spans are the device
+analysis, the native slice decode and the inverse wavelet, and the
+encoder's worker thread reports its fetch and native packing time.
 Prints, per run: wall time,
 the device's busy time (union of kernel intervals) and idle share, the
 host time in the entropy-coding calls and in the encoder's stage spans
@@ -32,6 +37,7 @@ import time
 import torch
 from torch.profiler import ProfilerActivity, profile
 
+from schroedinger_tpu_torch import api
 from schroedinger_tpu_torch.decoder.core import StreamDecoder
 from schroedinger_tpu_torch.decoder.pipeline import PipelinedStreamDecoder
 from schroedinger_tpu_torch.encoder.gop import GopEncoder
@@ -39,19 +45,24 @@ from schroedinger_tpu_torch.slice_config import (CONFIG, CONFIG_BENCH,
                                                  CONFIG_FLAGSHIP,
                                                  CONFIG_FLAGSHIP_DRAINING,
                                                  make_frames, video_format)
+from schroedinger_tpu_torch.tools.schro_tpu import encoder_config
+from schroedinger_tpu_torch.video_format import ChromaFormat
 
-# name -> (encoder options, frames, warm-up frames)
+# name -> (encoder options, frames, warm-up frames); "lowdelay" runs
+# api.Encoder with the CLI's default configuration instead of GopEncoder
 CONFIGS = {"backref": (CONFIG, 6, 2), "flagship": (CONFIG_FLAGSHIP, 13, 6),
            "draining": (CONFIG_FLAGSHIP_DRAINING, 9, 6),
-           "bench": (CONFIG_BENCH, 13, 6)}
+           "bench": (CONFIG_BENCH, 13, 6), "lowdelay": (None, 13, 2)}
 # record_function spans of the port: host entropy coding, then the inter
 # and intra steps' stages (host time of a stage = its enqueue, not the
 # device's work)
 HOST_SPANS = ("encode_subband_arith", "decode_subband_arith",
-              "motion_encode", "motion_decode", "frame_md5")
+              "encode_subband_noarith", "decode_subband_noarith",
+              "motion_encode", "motion_decode", "frame_md5", "ld_pack",
+              "ld_decode")
 STAGE_SPANS = ("me_pass", "rd_split", "render", "stat_tables", "rd_pick",
                "quantise_recon", "p_transfer", "b_batch_step",
-               "b_picture_step")
+               "b_picture_step", "ld_analysis", "ld_inverse")
 
 
 _CUDA = torch.autograd.DeviceType.CUDA
@@ -146,12 +157,24 @@ def main() -> int:
                           text=True, check=True).stdout.strip()
     print(f"card: {card}", flush=True)
     config, n_frames, n_warm = CONFIGS[a.config]
-    vf = video_format(1920, 1080)
-    frames = make_frames(a.frames or n_frames, 1920, 1080)
-    GopEncoder(vf, device="cuda", **config).encode_stream(frames[:n_warm])
+    if config is None:
+        vf = video_format(1920, 1080, ChromaFormat.C422, 10)
+        frames = make_frames(a.frames or n_frames, 1920, 1080,
+                             chroma_format=ChromaFormat.C422, bit_depth=10)
+
+        def new_encoder():
+            return api.Encoder(vf, encoder_config("lowdelay"),
+                               device="cuda")
+    else:
+        vf = video_format(1920, 1080)
+        frames = make_frames(a.frames or n_frames, 1920, 1080)
+
+        def new_encoder():
+            return GopEncoder(vf, device="cuda", **config)
+    new_encoder().encode_stream(frames[:n_warm])
     torch.cuda.synchronize()
 
-    enc = GopEncoder(vf, device="cuda", **config)
+    enc = new_encoder()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -159,15 +182,24 @@ def main() -> int:
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     _report("encode", prof, wall, len(frames))
-    fitted = [f for f in enc.stats.frames if (f.get("target_bits") or 0) > 0]
-    print(f"encode: the lambda fit ran on {len(fitted)} pictures and bound "
-          f"(scale < 0.99) on "
-          f"{sum(1 for f in fitted if f['lam_scale'] < 0.99)}", flush=True)
+    if config is None:
+        # the fetch and the packing run on the encoder's worker thread,
+        # whose spans the profiler does not record
+        print(f"encode: worker thread: fetch "
+              f"{enc.ld_seconds['fetch'] * 1e3:.1f} ms, native packing "
+              f"{enc.ld_seconds['pack'] * 1e3:.1f} ms", flush=True)
+    else:
+        fitted = [f for f in enc.stats.frames
+                  if (f.get("target_bits") or 0) > 0]
+        print(f"encode: the lambda fit ran on {len(fitted)} pictures and "
+              f"bound (scale < 0.99) on "
+              f"{sum(1 for f in fitted if f['lam_scale'] < 0.99)}",
+              flush=True)
     os.makedirs(a.out, exist_ok=True)
     prof.export_chrome_trace(
         os.path.join(a.out, f"encode_trace_{a.config}.json"))
 
-    dec = (PipelinedStreamDecoder if a.config == "bench"
+    dec = (PipelinedStreamDecoder if a.config in ("bench", "lowdelay")
            else StreamDecoder)(device="cuda")
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:

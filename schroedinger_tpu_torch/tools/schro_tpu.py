@@ -15,11 +15,11 @@ on the CPU):
 Every encoder setting in the registry (config.SETTINGS — same 71 names
 and defaults as the reference, schroencoder.c:4461-4535) is reachable
 with a repeatable `--set name=value`.  Input/output video is YUV4MPEG2
-(.y4m), "-" for stdin/stdout pipes, or raw planar I420 (.yuv) with an
-explicit --size WxH.  What the port does not implement yet (the
-lowdelay profile, which is --profile's default as in the JAX CLI, and
-the other profiles and settings of api.Encoder's list) ends the run with
-NotImplementedError.
+(.y4m; 8-bit, or 10-bit as C420p10/C422p10/C444p10, which the JAX CLI
+refuses), "-" for stdin/stdout pipes, or raw planar I420 (.yuv) with an
+explicit --size WxH.  The default profile is VC-2 low delay, as in the
+JAX CLI.  What the port does not implement yet (the settings on
+api.Encoder's list) ends the run with NotImplementedError.
 """
 import argparse
 import os
@@ -81,6 +81,21 @@ def _parse_set_value(v: str):
     return v
 
 
+def encoder_config(profile: str = "lowdelay", bitrate: int = 0,
+                   gop: int = 24, qi: int = 16):
+    """The EncoderConfig `encode` starts from, before any --set: VC-2 low
+    delay (LeGall 5,3, depth 4, default slices and bitrate) or long GOP."""
+    from schroedinger_tpu_torch.config import EncoderConfig
+    if profile == "lowdelay":
+        return EncoderConfig(rate_control="low_delay", bitrate=bitrate,
+                             transform_depth=4, intra_wavelet=1)
+    cfg = EncoderConfig(au_distance=gop, quality=max(0.0, 10.0 - qi / 5.0))
+    if bitrate:
+        cfg.set("rate_control", "constant_bitrate")
+        cfg.set("bitrate", bitrate)
+    return cfg
+
+
 def list_settings() -> None:
     """Introspection (schro_encoder_get_n_settings / setting_info analog,
     schroencoder.c:4537-4550): one line per registry setting."""
@@ -138,10 +153,7 @@ def main(argv=None) -> None:
         if _is_y4m(args.infile, True):
             from schroedinger_tpu_torch import y4m
             src = sys.stdin.buffer if args.infile == "-" else args.infile
-            vf, frames, depth = y4m.read_y4m(src)
-            if depth != 8:
-                print("deep y4m input: use the main-intra API", file=sys.stderr)
-                sys.exit(2)
+            vf, frames, _depth = y4m.read_y4m(src)
             frames = _limit(frames, args.frames)
             if args.fps != 25:
                 vf.frame_rate_numerator = args.fps
@@ -156,17 +168,7 @@ def main(argv=None) -> None:
                              frame_rate_denominator=1)
             frames = read_yuv(args.infile, w, h, args.frames)
         from schroedinger_tpu_torch.api import Encoder
-        from schroedinger_tpu_torch.config import EncoderConfig
-        if args.profile == "lowdelay":
-            cfg = EncoderConfig(rate_control="low_delay",
-                                bitrate=args.bitrate,
-                                transform_depth=4, intra_wavelet=1)
-        else:
-            cfg = EncoderConfig(au_distance=args.gop,
-                                quality=max(0.0, 10.0 - args.qi / 5.0))
-            if args.bitrate:
-                cfg.set("rate_control", "constant_bitrate")
-                cfg.set("bitrate", args.bitrate)
+        cfg = encoder_config(args.profile, args.bitrate, args.gop, args.qi)
         for pair in args.settings:
             if "=" not in pair:
                 ap.error(f"--set needs name=value, got {pair!r}")
@@ -196,7 +198,7 @@ def main(argv=None) -> None:
         if _is_y4m(args.outfile, False):
             from schroedinger_tpu_torch import y4m
             dst = sys.stdout.buffer if args.outfile == "-" else args.outfile
-            wr = y4m.Y4MWriter(dst, dec.vf)
+            wr = y4m.Y4MWriter(dst, dec.vf, dec.vf.bit_depth)
             wr.write_frames(frames)
             wr.close()
         else:

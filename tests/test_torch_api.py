@@ -1,6 +1,6 @@
 """The port's entry points against the JAX package's on the CPU, at 96x80:
 the settings registry, `api.Encoder` / `api.Decoder` for each in-scope
-profile and rate mode, push/pull, the profiles the port does not take
+profile and rate mode, push/pull, the options the port does not take
 yet (NotImplementedError), `y4m` and the CLI.
 
 The long-GOP modes run the biref engine with its B pictures batched (MD5
@@ -123,8 +123,9 @@ def test_push_pull_equals_encode_stream(frames):
 
 
 @pytest.mark.parametrize("kw", [
-    dict(rate_control="low_delay"),
-    dict(enable_noarith=True),
+    # the VC-2 profiles are ported: what stays out of them is field coding
+    dict(rate_control="low_delay", interlaced_coding=True),
+    dict(enable_noarith=True, interlaced_coding=True),
     dict(interlaced_coding=True),
     dict(rate_control="constant_error"),
     dict(rate_control="constant_noise_threshold"),

@@ -209,3 +209,29 @@ def test_fixed_quantiser_biref_matches_jax(frames, open_gop, max_refs):
     dec = t_core.StreamDecoder(device="cpu")
     out = dec.decode_stream(got)
     assert len(out) == len(seq) and dec.md5_failures == []
+
+
+def test_noarith_cbr_stream_matches_jax(frames):
+    """The flagship under TM5 CBR with enable_noarith=True: its intra
+    pictures take the unfused RD branch (the fused step codes arith only:
+    stat tables, a host RD pick at the intra lambda, the arith-correction
+    update from the coded band bits), the inter pictures VLC residuals
+    and MVs.  Byte for byte the JAX encoder's stream, and the port's
+    decoders read it to the JAX decoder's planes, every MD5 matching."""
+    cfg = dict(CFG, enable_noarith=True)
+    vf = video_format(W, H)
+    tenc = t_gop.GopEncoder(vf, device="cpu", **cfg)
+    got = tenc.encode_stream(frames[:9])
+    jenc = j_gop.GopEncoder(vf, **cfg)
+    assert got == jenc.encode_stream(frames[:9])
+    # the ratios rest on the float32 stat tables (held to 2e-6)
+    np.testing.assert_allclose(tenc.acorr.intra, jenc.acorr.intra,
+                               rtol=2e-6)
+    assert [k[1] for k in _kinds(got)] == [0, 1, 2, 2, 2, 2, 2, 2, 2]
+    want = j_core.StreamDecoder().decode_stream(got)
+    dec = t_core.StreamDecoder(device="cpu")
+    out = dec.decode_stream(got)
+    assert dec.md5_failures == [] and dec.errors == []
+    for g3, w3 in zip(out, want):
+        for g, w in zip(g3, w3):
+            np.testing.assert_array_equal(g, w)

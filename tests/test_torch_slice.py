@@ -69,6 +69,25 @@ def test_a_port_stream_is_byte_identical(port_stream, jax_stream):
     assert port_stream == jax_stream
 
 
+def test_a_noarith_stream_is_byte_identical(frames):
+    """GopEncoder(enable_noarith=True) at fixed quantisers: VLC residuals
+    and MVs (the JAX unit writers' no-arith branches), byte for byte, and
+    the port's decoders read the stream back to the JAX decoder's planes."""
+    cfg = dict(CONFIG, enable_noarith=True)
+    got = t_gop.GopEncoder(video_format(W, H), device="cpu",
+                           **cfg).encode_stream(frames)
+    assert got == j_gop.GopEncoder(video_format(W, H),
+                                   **cfg).encode_stream(frames)
+    assert _picture_kinds(got) == ["I", "P", "P", "P"]
+    want = j_core.StreamDecoder().decode_stream(got)
+    dec = t_core.StreamDecoder(device="cpu")
+    out = dec.decode_stream(got)
+    assert dec.md5_failures == [] and dec.errors == []
+    for g3, w3 in zip(out, want):
+        for g, w in zip(g3, w3):
+            np.testing.assert_array_equal(g, w)
+
+
 def test_b_jax_decoder_accepts_port_stream(port_stream, frames):
     dec = j_core.StreamDecoder()
     out = dec.decode_stream(port_stream)
@@ -126,6 +145,28 @@ def test_d_port_runs_without_jax():
         assert pipeline.PipelinedStreamDecoder(device="cpu").decode_stream(
             s)[5][0].shape == (64, 64)
         assert callable(schro_tpu.main) and callable(y4m.read_y4m)
+        # the fifth slice's profiles: low delay (8-bit and 10-bit 4:2:2),
+        # vc2_simple, deep vc2_main and no-arith long GOP
+        from schroedinger_tpu_torch.video_format import ChromaFormat
+        c422 = ChromaFormat.C422
+        for kw, cf, bd in ((dict(rate_control="low_delay",
+                                 transform_depth=3), None, 8),
+                           (dict(rate_control="low_delay",
+                                 transform_depth=3), c422, 10),
+                           (dict(enable_noarith=True), None, 8),
+                           (dict(gop_structure="intra_only"), c422, 10)):
+            cf = cf or ChromaFormat.C420
+            src = make_frames(2, 64, 64, chroma_format=cf, bit_depth=bd)
+            s = api.Encoder(video_format(64, 64, cf, bd),
+                            config.EncoderConfig(**kw),
+                            device="cpu").encode_stream(src)
+            out = api.Decoder(device="cpu").decode_stream(s)
+            assert len(out) == 2 and out[0][0].dtype == src[0][0].dtype
+        s = GopEncoder(video_format(64, 64), device="cpu",
+                       enable_noarith=True, **CONFIG).encode_stream(
+                           frames[:2])
+        d = StreamDecoder(device="cpu")
+        assert len(d.decode_stream(s)) == 2 and d.md5_failures == []
         loaded = sorted(m for m in sys.modules
                         if m == "jax" or m.startswith("jax.")
                         or m == "schroedinger_tpu"
