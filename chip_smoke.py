@@ -84,6 +84,30 @@ and no result line):
      the encoder's reconstruction, 7 kernel launches per reference (14 a
      batch of B pictures), PSNR >= 30 dB, bytes within 0.1x-4x of the
      pro-rata share
+Phases 15-18, the long-GOP rate controls on 1080p25 4:2:0 pan + noise;
+each checks that every frame comes out in order, no picture error, luma
+PSNR >= 30 dB on every frame, api.Decoder (pipelined) == StreamDecoder,
+every I and P picture decodes to the encoder's reconstruction
+(torch.equal), and the kernel's launches the path implies; each prints
+its encode and decode frames/s and bytes:
+ 15. smoke-1080p-backref-quality: api.Encoder(vf, EncoderConfig(
+     gop_structure="backref")) (constant quality on the backref engine,
+     RD pick on the device), 13 frames through encode_stream and 4 through
+     push_frame, 7 launches per P picture; a 128x64 card encode within the
+     bands of the CPU encode (0.7 dB, 15 %; byte equality printed)
+ 16. smoke-1080p-backref-cbr: GopEncoder(vf, **CONFIG_BENCH, gop_structure=
+     "backref") (TM5 at 8 Mbit/s) on 13 frames, then the same with
+     rdo_cbr=False (the allocation controller): bytes within 0.1x-4x of
+     the pro-rata 13 * 8e6 / 25 / 8
+ 17. smoke-1080p-constant-error: EncoderConfig(rate_control=
+     "constant_error") on the biref engine, 13 frames, then
+     constant_noise_threshold on 9: from the second inter picture on the
+     engine picks (an inter picture's indices differ from the base index
+     less the quant matrix), every B picture goes on its own (14 launches
+     each)
+ 18. smoke-1080p-multiquant: EncoderConfig(enable_multiquant=True), 13
+     frames, B pictures batched: a band's codeblocks take different quant
+     indices on at least one picture
 The last two lines are the nvidia-smi line and
 {"ok": true, "device": {...}}; the kernel summary JSON comes before them.
 """
@@ -105,6 +129,7 @@ from schroedinger_tpu_torch.coding.bitio import BitReader
 from schroedinger_tpu_torch.config import EncoderConfig
 from schroedinger_tpu_torch.decoder.core import StreamDecoder
 from schroedinger_tpu_torch.encoder import lowdelay as loe
+from schroedinger_tpu_torch.encoder import gop as gop_mod
 from schroedinger_tpu_torch.encoder import me as me_mod
 from schroedinger_tpu_torch.encoder.gop import GopEncoder
 from schroedinger_tpu_torch.ops import patch_refine as pr
@@ -1121,6 +1146,220 @@ def phase_bench_noarith(card):
     return launches
 
 
+# ---- the long-GOP rate controls (phases 15-18) ---------------------------
+
+SMALL = (128, 64)        # the card-vs-CPU size of phase 15
+
+
+def record_picks():
+    """Keep, per inter picture an encoder finishes, its band and
+    multiquant codeblock picks (wraps the inter module's finish, which
+    the encoders call); returns (picks, a function that unwraps it)."""
+    seen = {}
+    inter = gop_mod.ei_inter
+    orig = inter.finish_inter_picture
+
+    def recording(pending, num, *a, **k):
+        out = orig(pending, num, *a, **k)
+        seen[num] = (pending["qi_bands"].copy(), dict(pending["qi_cb"]))
+        return out
+    inter.finish_inter_picture = recording
+    return seen, lambda: setattr(inter, "finish_inter_picture", orig)
+
+
+def expected_launches(stream, seen):
+    """Kernel launches a long-GOP stream implies: one ME per reference of
+    every inter picture (7 launches each), but one per reference for a
+    whole batch of B pictures (`seen`: record_batches' entries)."""
+    kinds = picture_kinds(stream)
+    batched = {n for nums, took, _ in seen if took for n in nums}
+    refs = sum(r for n, r, _ in kinds if n not in batched)
+    return LAUNCHES_PER_REF * (refs + 2 * sum(1 for s in seen if s[1]))
+
+
+def run_rate_phase(card, tag, name, make, frames, encode=None):
+    """Encode `frames` with the encoder `make()` gives (after a warm-up of
+    the first 6), counting the kernel's launches, and hold the stream to
+    the phase checks.  Returns (stream, launches, encoder, batches)."""
+    encode = encode or (lambda e: e.encode_stream(frames))
+    make().encode_stream(frames[:6])                         # warm-up
+    torch.cuda.synchronize()
+    enc = make()
+    gop = getattr(enc, "_gop", enc)
+    seen = record_batches(gop)
+    made = record_refs(gop)
+    pr.LAUNCHES = 0
+    t0 = time.perf_counter()
+    stream = encode(enc)
+    torch.cuda.synchronize()
+    t_enc = time.perf_counter() - t0
+    launches = pr.LAUNCHES
+    expect = expected_launches(stream, seen)
+    if launches != expect:
+        raise AssertionError(f"{tag}: {launches} launches, expected {expect}"
+                             " (7 per reference, 14 a batch of B)")
+    vals, fps_pipe, fps_base = check_two_decoders(stream, frames, made, card,
+                                                  tag)
+    n_i, n_p, n_b = picture_mix(stream)
+    print(f"{tag} {name} x{len(frames)}: {n_i} I, {n_p} P, {n_b} B "
+          f"({sum(len(s[0]) for s in seen if s[1])} in batches); me_search "
+          f"launches {launches}; {len(stream)} bytes, luma PSNR mean "
+          f"{np.mean(vals):.3f} min {min(vals):.3f} dB, {len(made)} "
+          f"reference pictures equal to the encoder's; encode "
+          f"{len(frames) / t_enc:.3f} frames/s, decode {fps_pipe:.3f} "
+          f"frames/s pipelined, {fps_base:.3f} StreamDecoder [{card}]",
+          flush=True)
+    return stream, launches, gop, seen
+
+
+def push_all(enc, frames):
+    """push_frame / pull / end_of_stream over `frames`: the stream."""
+    out = bytearray()
+    for f in frames:
+        enc.push_frame(f)
+        out += enc.pull() or b""
+    return bytes(out + enc.end_of_stream())
+
+
+def phase_backref_quality(card):
+    """smoke-1080p-backref-quality; returns its launches."""
+    cfg = EncoderConfig(gop_structure="backref")
+    small = make_frames(9, *SMALL)
+    vf_s = video_format(*SMALL)
+    streams, psnrs = [], []
+    for dev in (None, "cpu"):
+        stream = api.Encoder(vf_s, cfg, device=dev).encode_stream(small)
+        dec = api.Decoder(device=dev)
+        psnrs.append(np.mean(check_decoded(dec.decode_stream(stream), small,
+                                           dec, f"phase15 {SMALL} {dev}")))
+        streams.append(stream)
+    print(f"phase15 {SMALL[0]}x{SMALL[1]} x9 backref constant quality: cuda "
+          f"{len(streams[0])} bytes {psnrs[0]:.3f} dB, cpu {len(streams[1])}"
+          f" bytes {psnrs[1]:.3f} dB; streams "
+          f"{'equal' if streams[0] == streams[1] else 'differ'} [{card}]",
+          flush=True)
+    if abs(psnrs[0] - psnrs[1]) >= 0.7 or \
+            abs(len(streams[0]) - len(streams[1])) >= 0.15 * len(streams[1]):
+        raise AssertionError("phase15: card and CPU streams outside the "
+                             "bands")
+    (W, H), N = FULL, 13
+    vf = video_format(W, H)
+    frames = make_frames(N + 4, W, H)
+    stream, launches, gop, _ = run_rate_phase(
+        card, "phase15", "smoke-1080p-backref-quality (encode_stream)",
+        lambda: api.Encoder(vf, cfg), frames[:N])
+    if gop.gop_structure != "backref" or gop.qengine is None:
+        raise AssertionError("phase15: not the backref engine under the "
+                             "constant-quality engine")
+    _, pushed, _, _ = run_rate_phase(
+        card, "phase15", "smoke-1080p-backref-quality (push_frame)",
+        lambda: api.Encoder(vf, cfg), frames[N:],
+        encode=lambda e: push_all(e, frames[N:]))
+    return {"launches_backref_quality": launches,
+            "launches_backref_push": pushed}
+
+
+def phase_backref_cbr(card):
+    """smoke-1080p-backref-cbr; returns its launches."""
+    (W, H), N = FULL, 13
+    vf = video_format(W, H)
+    frames = make_frames(N, W, H)
+    share = N * CONFIG_BENCH["bitrate"] / CONFIG_BENCH["fps"] / 8
+    out = {}
+    for key, name, kw in (("launches_backref_cbr", "TM5", {}),
+                          ("launches_backref_alloc", "allocation",
+                           {"rdo_cbr": False})):
+        cfg = dict(CONFIG_BENCH, gop_structure="backref", **kw)
+        stream, launches, gop, _ = run_rate_phase(
+            card, "phase16", f"smoke-1080p-backref-cbr ({name})",
+            lambda cfg=cfg: GopEncoder(vf, **cfg), frames)
+        if type(gop.rc).__name__ != ("CbrControllerTM5" if name == "TM5"
+                                     else "CbrController"):
+            raise AssertionError(f"phase16 {name}: controller "
+                                 f"{type(gop.rc).__name__}")
+        if not 0.1 * share <= len(stream) <= 4 * share:
+            raise AssertionError(f"phase16 {name}: {len(stream)} bytes "
+                                 f"outside 0.1x-4x of the pro-rata "
+                                 f"{share:.0f}")
+        print(f"phase16 {name}: {len(stream)} bytes = "
+              f"{len(stream) / share:.3f} of the pro-rata {share:.0f}",
+              flush=True)
+        out[key] = launches
+    return out
+
+
+def phase_constant_error(card):
+    """smoke-1080p-constant-error; returns its launches."""
+    W, H = FULL
+    vf = video_format(W, H)
+    out = {}
+    for key, mode, n in (("launches_constant_error", "constant_error", 13),
+                         ("launches_noise_threshold",
+                          "constant_noise_threshold", 9)):
+        frames = make_frames(n, W, H)
+        picks, restore = record_picks()
+        try:
+            stream, launches, gop, seen = run_rate_phase(
+                card, "phase17", f"smoke-1080p-{mode.replace('_', '-')}",
+                lambda mode=mode: api.Encoder(
+                    vf, EncoderConfig(rate_control=mode)), frames)
+        finally:
+            restore()
+        if any(took for _, took, _ in seen) or not seen:
+            raise AssertionError(f"phase17 {mode}: a batch of B pictures "
+                                 f"({seen})")
+        qm = np.asarray(gop._params(1).quant_matrix, np.int32)
+        moved = []
+        inter = [(n, ref) for n, r, ref in picture_kinds(stream) if r]
+        for num, is_ref in inter[1:]:
+            qi, _ = picks[num]
+            base_qi = gop.base_qi_inter if is_ref else gop.base_qi_b
+            base = np.tile(np.clip(base_qi - qm[:len(qi) // 3], 0, 60), 3)
+            moved.append(bool((qi != base).any()))
+        print(f"phase17 {mode}: the engine's picks differ from the base "
+              f"indices on {sum(moved)} of {len(moved)} inter pictures after "
+              f"the first; every B picture on its own", flush=True)
+        if not any(moved):
+            raise AssertionError(f"phase17 {mode}: the engine never picked")
+        out[key] = launches
+    return out
+
+
+def phase_multiquant(card):
+    """smoke-1080p-multiquant; returns its launches."""
+    (W, H), N = FULL, 13
+    vf = video_format(W, H)
+    frames = make_frames(N, W, H)
+    picks, restore = record_picks()
+    try:
+        stream, launches, gop, seen = run_rate_phase(
+            card, "phase18", "smoke-1080p-multiquant",
+            lambda: api.Encoder(vf, EncoderConfig(enable_multiquant=True)),
+            frames)
+    finally:
+        restore()
+    if not any(took for _, took, _ in seen):
+        raise AssertionError("phase18: no batch of B pictures")
+    varied = sum(len(np.unique(cb)) > 1 for _, cbs in picks.values()
+                 for cb in cbs.values())
+    bands = sum(len(cbs) for _, cbs in picks.values())
+    print(f"phase18 multiquant: {varied} of {bands} multiquant bands of "
+          f"{len(picks)} inter pictures take more than one codeblock index",
+          flush=True)
+    if not varied:
+        raise AssertionError("phase18: every codeblock at its band's index")
+    return {"launches_multiquant": launches}
+
+
+def phases_rate(card):
+    """Phases 15-18; returns their launch counts."""
+    out = phase_backref_quality(card)
+    out.update(phase_backref_cbr(card))
+    out.update(phase_constant_error(card))
+    out.update(phase_multiquant(card))
+    return out
+
+
 def phases_vc2(card):
     """Phases 10-14; returns the launches of kernel #1 on the no-arith
     long-GOP path (the VC-2 profiles launch no hand kernel)."""
@@ -1167,6 +1406,9 @@ def main() -> int:
     # the VC-2 profiles and no-arith long GOP; the count is set to 0 just
     # before the no-arith path and read just after
     entry["launches_bench_noarith"] = phases_vc2(card)
+    # the long-GOP rate controls; each count is set to 0 just before its
+    # path and read just after
+    entry.update(phases_rate(card))
 
     print(json.dumps({"kernels": [entry, probe_entry]}), flush=True)
     print(card, flush=True)

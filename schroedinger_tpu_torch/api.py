@@ -8,17 +8,20 @@ force_profile / rate_control exactly like schro_encoder_start
                    or deep
   vc2_simple    -> intra-only, VLC residuals (no arith)
   vc2_main      -> intra-only, arithmetic coding, 8-bit or deep
-  main          -> long-GOP motion-compensated coding: the biref engine
-                   under constant_quality (the default), constant_lambda
-                   or constant_bitrate; lossless on the backref engine at
-                   quant index 0 with Haar-0
+  main          -> long-GOP motion-compensated coding on the biref engine
+                   (gop_structure adaptive, biref, chained_biref) or the
+                   backref engine (backref, chained_backref), under every
+                   rate control: constant_quality (the default),
+                   constant_lambda, constant_bitrate (TM5 with
+                   enable_rdo_cbr, else the allocation controller),
+                   constant_error and constant_noise_threshold; lossless
+                   on the backref engine at quant index 0 with Haar-0;
+                   enable_multiquant / enable_dc_multiquant on any of them
 
 What is not ported raises NotImplementedError naming its ROADMAP.md
-item: interlaced coding, the constant_error and
-constant_noise_threshold engines, and the backref engine under a
-quantiser engine or CBR (GopEncoder raises for the last three).  Both
-classes run on the card unless the caller passes device="cpu"; a failed
-device program raises, nothing falls back to another path.
+item: interlaced coding (and deep long GOP, which GopEncoder refuses).
+Both classes run on the card unless the caller passes device="cpu"; a
+failed device program raises, nothing falls back to another path.
 """
 from __future__ import annotations
 
@@ -165,6 +168,9 @@ class Encoder:
             qengine = QuantiserEngine("constant_lambda", lam=lam)
         elif cfg.rate_control in ("constant_error",
                                   "constant_noise_threshold"):
+            # lambda bisected per picture on the host so that the error of
+            # the picks meets the noise threshold (schroquantiser.c:
+            # 1099-1129), from the stat tables of an earlier picture
             qengine = QuantiserEngine(
                 cfg.rate_control,
                 noise_threshold=float(cfg.get("noise_threshold")),

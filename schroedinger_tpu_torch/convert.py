@@ -43,17 +43,19 @@ def ref_frame_to_numpy(ref: RefFrame):
 # attributes of a GopEncoder that cross a picture boundary besides the
 # reference planes (plain Python and numpy values)
 _ENCODER_STATE = ("frame_number", "last_ref", "prev_ref", "_prev_mad",
-                  "_refbuf", "_enc_last_ref", "_au_frame", "_last_max_qi", "_sent_stream_aux", "_oh_inter",
-                  "_oh_intra")
+                  "_refbuf", "_enc_last_ref", "_au_frame", "_last_max_qi",
+                  "_last_badblock", "_last_stats", "_stats_by_kind",
+                  "_sent_stream_aux", "_oh_inter", "_oh_intra")
 
 
 def load_encoder_state(enc, other, device=None) -> None:
     """Put the port's GopEncoder `enc` into the state of `other`, an
     encoder with the same attributes whose pending pictures are finished:
-    the controller's fields (`rc`), `acorr.intra/inter`, the overhead
-    EMAs, `_last_max_qi`, the reference-buffer model and the reference
-    planes (as tensors on `device`; None: the card).  Both encoders must
-    have been built with the same options."""
+    the controller's fields (`rc`), the quantiser engine's stat tables,
+    `acorr.intra/inter`, the overhead EMAs, `_last_max_qi`, the lagged
+    picks' tables and badblock ratio, the reference-buffer model and the
+    reference planes (as tensors on `device`; None: the card).  Both
+    encoders must have been built with the same options."""
     device = resolve_device(device)
     if (enc.rc is None) != (other.rc is None):
         raise ValueError("one encoder has a rate controller, the other none")
@@ -62,6 +64,8 @@ def load_encoder_state(enc, other, device=None) -> None:
     if enc.rc is not None:
         for name, value in vars(other.rc).items():
             setattr(enc.rc, name, copy.deepcopy(value))
+    if enc.qengine is not None and other.qengine is not None:
+        enc.qengine._stats = copy.deepcopy(other.qengine._stats)
     enc.acorr.intra[:] = np.asarray(other.acorr.intra, np.float64)
     enc.acorr.inter[:] = np.asarray(other.acorr.inter, np.float64)
     enc._prev_input = (None if other._prev_input is None

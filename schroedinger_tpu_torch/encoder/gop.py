@@ -2,30 +2,36 @@
 
 Port of `schroedinger_tpu/encoder/gop.py` `GopEncoder` for two engines:
 
-- "backref": I P P P at fixed quantisers.  In `encode_stream` the device
-  work of picture N+1 is queued before the host entropy coding of picture
-  N runs, `pipeline_depth` pictures deep.
+- "backref": I P P P.  In `encode_stream` the device work of picture N+1
+  is queued before the host entropy coding of picture N runs,
+  `pipeline_depth` pictures deep; `encode_frame` (the push API) codes
+  each picture to its end before the next, which changes the lag of the
+  rate decisions and so the stream.
 - "biref": the tworef / BBBP engine.  Display-order frames buffer into
   subgroups of `subgroup_length`; the last picture of each subgroup is
   coded first as a P (two references once a long-term intra exists), then
   the earlier ones as non-reference two-reference B pictures, all of a
   full subgroup's B pictures as one batch (`enable_b_batch`, the JAX
-  default) where the JAX encoder batches them.  With `bitrate` the TM5
-  controller (`ratecontrol.CbrControllerTM5`) sets one lambda per picture
-  kind, and with a `QuantiserEngine` in constant_lambda mode one lambda
-  holds for the stream; every picture then picks its quantisers on the
-  device against its own exact stat tables.  Without either the pictures
-  are coded at the fixed base indices.
+  default) where the JAX encoder batches them.
+
+Rate control, on both engines: with `bitrate` the TM5 controller
+(`ratecontrol.CbrControllerTM5`) sets one lambda per picture kind, and a
+`QuantiserEngine` in constant_lambda mode holds one lambda for the
+stream; every picture then picks its quantisers on the device against
+its own exact stat tables.  The constant_error and
+constant_noise_threshold engines, and the allocation controller of
+`rdo_cbr=False` (`ratecontrol.CbrController`), pick on the host from the
+stat tables of an earlier picture (the lag is part of the stream).
+Without either the pictures are coded at the fixed base indices.
+`enable_multiquant` writes the per-codeblock quant syntax and, with the
+RD pick, refines each band's index codeblock by codeblock.
 
 The constructor takes the JAX encoder's whole signature with its
 defaults.  An option the port does not implement yet raises
 NotImplementedError when its value differs from the JAX default (see
 UNPORTED_DEFAULTS), so that `GopEncoder(vf, **kw)` gives the JAX
 encoder's stream for every `kw` it accepts.  Not ported yet besides:
-CBR on the backref engine, CBR without the TM5 controller
-(`rdo_cbr=False`), the quantiser engines other than constant_lambda and
-any engine on the backref engine, interlaced (field) coding and deep
-(>8-bit) video.
+interlaced (field) coding and deep (>8-bit) video.
 """
 from __future__ import annotations
 
@@ -45,8 +51,11 @@ from schroedinger_tpu_torch.encoder import inter as ei_inter
 from schroedinger_tpu_torch.encoder import intra as ei_intra
 from schroedinger_tpu_torch.encoder.lowdelay import _forward, _prep_plane
 from schroedinger_tpu_torch.encoder.ratecontrol import (ArithCorrection,
+                                                        CbrController,
                                                         CbrControllerTM5,
+                                                        estimate_bits_at,
                                                         lambda_for_bits,
+                                                        pick_bands_rdo,
                                                         qi_from_lambda,
                                                         stats_tables)
 from schroedinger_tpu_torch.encoder.weights import (band_lambda_scales,
@@ -64,14 +73,13 @@ UNPORTED_DEFAULTS = dict(
     enable_phasecorr=False, stats=None, perceptual_weighting="ccir959",
     perceptual_distance=4.0, enable_psnr=False, enable_ssim=False,
     block_size="automatic", block_overlap="automatic",
-    codeblock_size="automatic", enable_multiquant=False,
-    enable_dc_multiquant=False, filtering="none", downsample_levels=5,
+    codeblock_size="automatic", filtering="none", downsample_levels=5,
     estimation=())
 
 # magic_* tuning constants (schroencoder.c:4513-4535 defaults), the JAX
 # encoder's whole set.  keyframe_weight, inter_p_weight, inter_b_weight,
 # allocation_scale and the badblock multipliers are read only by the
-# allocation engine (rdo_cbr=False), which the port does not take yet
+# allocation controller (rdo_cbr=False)
 MAGIC_DEFAULTS = dict(
     subband0_lambda_scale=10.0, diagonal_lambda_scale=1.0,
     chroma_lambda_scale=0.1, me_lambda_scale=1.0, I_lambda_scale=1.0,
@@ -135,16 +143,7 @@ class GopEncoder:
         given = locals()
         unsupported = {f"{k}={given[k]!r}": given[k] != v
                        for k, v in UNPORTED_DEFAULTS.items()}
-        qmode = getattr(quantiser_engine, "mode", None)
         unsupported.update({
-            "bitrate with gop_structure='backref'":
-                bool(bitrate) and gop_structure == "backref",
-            "bitrate with rdo_cbr=False": bool(bitrate) and not rdo_cbr,
-            f"quantiser_engine mode {qmode!r} (lagged host picks, "
-            "ROADMAP.md Queue 1 item 7)":
-                quantiser_engine is not None and qmode != "constant_lambda",
-            "quantiser_engine with gop_structure='backref'":
-                quantiser_engine is not None and gop_structure == "backref",
             "interlaced coding": video_format.interlaced_coding,
             "bit depth > 8": video_format.bit_depth != 8,
         })
@@ -181,6 +180,8 @@ class GopEncoder:
         self.perceptual_distance = perceptual_distance
         self.downsample_levels = downsample_levels
         self.enable_b_batch = enable_b_batch
+        self.enable_multiquant = enable_multiquant
+        self.enable_dc_multiquant = enable_dc_multiquant
         # no-arith (VLC) residuals and MVs on the long-GOP path: the
         # reference's unit writers have the is_noarith branches
         # (schroencoder.c:4073+) although its settings dispatch selects
@@ -204,6 +205,9 @@ class GopEncoder:
         self._enc_last_ref = None  # mirrors encoder->last_ref
         self._au_frame = None     # picture number of the last AU intra
         self._last_max_qi = None  # newest finished ref's coarsest luma qi
+        self._last_badblock = 0.0  # newest finished picture's badblock ratio
+        self._last_stats = None   # backref: newest (bits61, err61) tables
+        self._stats_by_kind = {}  # biref: newest stat tables per P / B
         self._sent_stream_aux = False
         # EMA of non-residual bits per picture (headers + MV data),
         # subtracted from the TM5 allocation to get the residual target
@@ -212,14 +216,30 @@ class GopEncoder:
         self._oh_inter = None
         self._oh_intra = None
         self.rc = None
-        if bitrate:
+        if bitrate and rdo_cbr:
             self.rc = CbrControllerTM5(
-                bitrate, fps, gop_length, subgroup_length=subgroup_length,
+                bitrate, fps, gop_length,
+                subgroup_length=(subgroup_length
+                                 if gop_structure == "biref" else 4),
                 buffer_size=buffer_size, buffer_level=buffer_level,
                 interlaced=False,
                 b_lambda_scale=self.magic["B_lambda_scale"],
                 p_lambda_scale=self.magic["P_lambda_scale"],
                 i_lambda_scale=self.magic["I_lambda_scale"])
+        elif bitrate:
+            # enable_rdo_cbr=FALSE: the reference's other CBR path
+            # (rdo_bit_allocation + the get_alloc reservoir curve,
+            # schroengine.c:552-637): per-picture bit targets from weighted
+            # allocations, the lambda bisected on the host to fit each
+            self.rc = CbrController(
+                bitrate, fps, gop_length,
+                buffer_size=buffer_size, buffer_level=buffer_level,
+                interlaced=False,
+                keyframe_weight=self.magic["keyframe_weight"],
+                inter_p_weight=self.magic["inter_p_weight"],
+                inter_b_weight=self.magic["inter_b_weight"],
+                allocation_scale=self.magic["allocation_scale"])
+        self._tm5 = isinstance(self.rc, CbrControllerTM5)
         if (self.qengine is not None
                 and getattr(self.qengine, "band_scales", None) is None):
             self.qengine.band_scales = self._band_scales3(False)
@@ -243,15 +263,19 @@ class GopEncoder:
         bsep = 16 if area >= 1920 * 1080 else 12 if area >= 960 * 540 else 8
         p.xbsep_luma = p.ybsep_luma = bsep
         p.xblen_luma = p.yblen_luma = (bsep * 3 // 2) & ~3
-        # automatic codeblocks, one DC codeblock (reference decoder-compat
-        # workaround, schroengine.c:508-511), no multiquant
-        p.horiz_codeblocks[0] = 1
-        p.vert_codeblocks[0] = 1
-        p.codeblock_mode_index = 0
-        # no-arith keeps codeblock mode 0: the quant-offset mode is
-        # ambiguous in no-arith streams (the vc2_simple intra path's
-        # compat choice)
+        # automatic codeblocks; one DC codeblock unless DC multiquant is
+        # on (reference decoder-compat workaround, schroengine.c:508-511)
+        if not self.enable_dc_multiquant:
+            p.horiz_codeblocks[0] = 1
+            p.vert_codeblocks[0] = 1
+        # multiquant takes the per-codeblock quant-delta codeblock mode
+        # (schroengine.c:517-521); no-arith keeps mode 0: the quant-offset
+        # mode is ambiguous in no-arith streams (the vc2_simple intra
+        # path's compat choice)
+        p.codeblock_mode_index = 1 if self.enable_multiquant else 0
         p.is_noarith = self.enable_noarith
+        if self.enable_noarith:
+            p.codeblock_mode_index = 0
         return p
 
     def _step_kw(self) -> dict:
@@ -313,9 +337,13 @@ class GopEncoder:
         """Encode a sequence with device/host pipelining: the inter step of
         a later picture is queued on the device before the host entropy
         coding of an earlier one runs, so device compute and C++ arith
-        coding overlap.  With CBR the per-band pick runs on the device
-        against each picture's own tables; only the TM5 lambda crosses
-        pictures, `pipeline_depth` pictures late.
+        coding overlap.  With TM5 CBR or constant_lambda the per-band pick
+        runs on the device against each picture's own tables; only the
+        lambda crosses pictures, `pipeline_depth` pictures late.  The host
+        picks (constant_error, constant_noise_threshold, the allocation
+        controller) read the stat tables of the newest finished picture;
+        at stream start, with no tables yet, the oldest picture in flight
+        is finished first so that the engine engages from the second P.
 
         progress(i, nbytes), where given, is called as the JAX encoder
         calls it: after every input frame of the biref engine, after every
@@ -339,10 +367,18 @@ class GopEncoder:
                 out += self._encode_ref(planes, num, True, sc)
                 continue
 
+            qargs = self._quant_args("P")
+            if (qargs.get("want_stats")
+                    and qargs.get("qi_bands_override") is None and pends):
+                # a host-pick engine with no stat tables yet (stream
+                # start): finish the oldest picture in flight, whose
+                # tables the engine then picks from
+                out += self._finish_pending(pends.popleft())
+                qargs = self._quant_args("P")
             meta = (num, self.last_ref, self.prev_ref, sc)
             pending = ei_inter.start_inter_picture(
                 planes, self._params(1), self.ref_frames[self.last_ref],
-                base_qi=self.base_qi_inter, **self._step_kw())
+                base_qi=self.base_qi_inter, **self._step_kw(), **qargs)
             # the new recon tensors become the reference at once; the
             # device stream orders the dependency
             if self.prev_ref is not None:
@@ -385,56 +421,93 @@ class GopEncoder:
         c = self.magic["chroma_lambda_scale"]
         return np.concatenate([s, s * c, s * c])
 
-    def _lambda_driven(self) -> bool:
+    def _device_pick(self) -> bool:
         """True when the inter pictures pick their quantisers on the device
-        (the TM5 controller or the constant_lambda engine), False at fixed
-        base indices."""
-        return self.rc is not None or self.qengine is not None
+        (the TM5 controller or the constant_lambda engine); False for the
+        host picks and the fixed base indices."""
+        return self._tm5 or (self.qengine is not None
+                             and self.qengine.mode == "constant_lambda")
 
     def _quant_args(self, kind: str) -> dict:
-        """kwargs for start_inter_picture's quant selection: the on-device
-        RD pick (lam_bands) whenever the engine is lambda-driven.  The
+        """kwargs for start_inter_picture's quant selection.  The on-device
+        RD pick (lam_bands) for the lambda-driven engines: the
         constant_lambda engine's one lambda holds for every picture; the
         TM5 controller's lambda is fitted per frame so that the corrected
         bit estimate of the picks matches this picture's complexity-
         weighted allocation (the reference's entropy_to_lambda,
-        schroquantiser.c:887-960); without either, nothing (fixed base
-        indices)."""
+        schroquantiser.c:887-960).  A host pick (qi_bands_override, with
+        want_stats so that the picture's own tables come back) for the
+        constant_error / constant_noise_threshold engines and the
+        allocation controller, against the newest tables the host has.
+        Without either, nothing (fixed base indices)."""
+        # the on-device RD argmin computes bits + lam*err; scaling the bit
+        # estimates by the arith-correction ratio c gives the reference's
+        # corrected cost c*bits + lam*err (schroquantiser.c:706-725)
         corr = np.maximum(self.acorr.inter, 1e-3)
         if self.qengine is not None:
-            return {"lam_bands": self.qengine.lam * self.qengine.band_scales,
-                    "corr_bands": corr,
-                    "me_lam": self._me_lam()}
+            if self.qengine.mode == "constant_lambda":
+                return {"lam_bands": (self.qengine.lam
+                                      * self.qengine.band_scales),
+                        "corr_bands": corr,
+                        "me_lam": self._me_lam()}
+            return {"qi_bands_override": self.qengine.pick(),
+                    "want_stats": True}
         if self.rc is None:
             return {}
-        alloc = {"I": self.rc.I_frame_alloc,
-                 "P": self.rc.P_frame_alloc,
-                 "B": self.rc.B_frame_alloc}[kind]
-        oh = self._oh_inter or 0.0
-        # buffer-aware cap, not a hard per-frame budget: a full reservoir
-        # lets pictures spend up to ~3x their complexity allocation
-        # (quality rides the buffer, like the reference's get_alloc curve,
-        # schroengine.c:552-637), a draining one tightens toward 1x
-        occ = max(self.rc.buffer_level / self.rc.buffer_size, 0.0)
-        if occ > 0.7:
-            # reservoir healthy: the buffer is the CBR contract, so the
-            # TM5 stable-quality spend rides it
-            target = 0.0
-        else:
-            cap = alloc * (1.0 + 2.0 * occ)
-            target = max(cap - oh, 0.25 * alloc)
-        return {"lam_bands": (self.rc.frame_lambda(kind)
-                              * self._band_scales3(False)),
-                "corr_bands": corr,
-                "target_bits": target,
-                "me_lam": self._me_lam()}
+        if self._tm5:
+            alloc = {"I": self.rc.I_frame_alloc,
+                     "P": self.rc.P_frame_alloc,
+                     "B": self.rc.B_frame_alloc}[kind]
+            oh = self._oh_inter or 0.0
+            # buffer-aware cap, not a hard per-frame budget: a full
+            # reservoir lets pictures spend up to ~3x their complexity
+            # allocation (quality rides the buffer, like the reference's
+            # get_alloc curve, schroengine.c:552-637), a draining one
+            # tightens toward 1x
+            occ = max(self.rc.buffer_level / self.rc.buffer_size, 0.0)
+            if occ > 0.7:
+                # reservoir healthy: the buffer is the CBR contract, so
+                # the TM5 stable-quality spend rides it
+                target = 0.0
+            else:
+                cap = alloc * (1.0 + 2.0 * occ)
+                target = max(cap - oh, 0.25 * alloc)
+            return {"lam_bands": (self.rc.frame_lambda(kind)
+                                  * self._band_scales3(False)),
+                    "corr_bands": corr,
+                    "target_bits": target,
+                    "me_lam": self._me_lam()}
+        # the allocation controller: a host pick against the newest stat
+        # tables, in the JAX encoder's order of preference
+        stats = (self._last_stats or self._stats_by_kind.get(kind)
+                 or self._stats_by_kind.get("P")
+                 or self._stats_by_kind.get("B"))
+        qi = None
+        if stats is not None:
+            # badblock-weighted allocation (schroengine.c:610-617; the
+            # ratio is the newest finished picture's)
+            mult = self.magic["badblock_multiplier_nonref" if kind == "B"
+                              else "badblock_multiplier_ref"]
+            extra = self._last_badblock * mult
+            qi = pick_bands_rdo(stats,
+                                self.rc.frame_target(kind=kind,
+                                                     extra_weight=extra),
+                                band_scales=self._band_scales3(False),
+                                correction=corr)
+        return {"qi_bands_override": qi, "want_stats": True}
 
-    def _rc_update(self, kind: str, bits: int, num: int) -> bytes:
-        """Updates the CBR model; returns a PADDING parse unit when the
-        reservoir overran (schroencoder.c:2601-2611), else b''."""
+    def _rc_update(self, kind: str, bits: int, num: int,
+                   est: Optional[float] = None) -> bytes:
+        """Updates the CBR model (the TM5 controller by picture kind, the
+        allocation controller with the bit estimate of the picks, where
+        there is one); returns a PADDING parse unit when the reservoir
+        overran (schroencoder.c:2601-2611), else b''."""
         if self.rc is None:
             return b""
-        pad = self.rc.update(kind, bits, num, 1)
+        if self._tm5:
+            pad = self.rc.update(kind, bits, num, 1)
+        else:
+            pad = self.rc.update(bits, est)
         return bs.make_padding_unit(pad) if pad else b""
 
     def _acorr_update(self, pending, unit_bits: int = 0) -> None:
@@ -619,18 +692,23 @@ class GopEncoder:
         to fall back to the per-picture path under exactly the JAX
         encoder's conditions, which decide the bytes: a tail or cut
         subgroup, a reconstruction wanted (MD5), mixed references or
-        max_refs < 2, or fixed quantisers (no lam_bands); phase
-        correlation, the JAX package's other fallback, is not taken by
-        the constructor.
+        max_refs < 2, or no on-device pick (fixed quantisers, or a host
+        pick: the constant_error and constant_noise_threshold engines and
+        the allocation controller code each B picture on its own, at 14
+        kernel launches a picture on the card instead of 14 a batch);
+        phase correlation, the JAX package's other fallback, is not taken
+        by the constructor.
 
         Two things of the JAX encoder's version are left out on purpose.
-        It takes the three pictures' quant args before its checks; the
-        port checks first (frame_lambda("B") has no side effects, so the
-        bytes are the same).  It prefilters the B frames a second time;
-        the port has no prefilters yet (`filtering` stays "none"), and the
-        PR that ports them must not copy that.  Its compile barrier (a
-        fetch of the pending pictures without their commits, for the TPU
-        runtime) changes no byte and has no counterpart here."""
+        It takes the three pictures' quant args before its last check,
+        that they hold lam_bands; the port makes that check first
+        (`_device_pick`; the quant args have no side effects for a B
+        picture, so the bytes are the same).  It prefilters the B frames a
+        second time; the port has no prefilters yet (`filtering` stays
+        "none"), and the PR that ports them must not copy that.  Its
+        compile barrier (a fetch of the pending pictures without their
+        commits, for the TPU runtime) changes no byte and has no
+        counterpart here."""
         if len(bs_) != self.subgroup_length - 1:
             return None     # tail/cut subgroups: per picture
         if self.enable_md5:
@@ -642,8 +720,8 @@ class GopEncoder:
             return None
         if self.max_refs < 2:
             return None
-        if not self._lambda_driven():
-            return None     # fixed quantisers: per picture
+        if not self._device_pick():
+            return None     # fixed quantisers or a host pick: per picture
         # all the pictures' quant args before any of them commits, as the
         # JAX encoder takes them: this is what makes the bytes of the
         # batched path differ from the per-picture path's
@@ -666,22 +744,34 @@ class GopEncoder:
         picture's rate-control, arith-correction and overhead updates are
         committed here, so the lambda of picture n rests on the pictures
         up to n - pipeline_depth - 1: the lag is part of the rate
-        decision and of the stream."""
+        decision and of the stream.  A host-pick engine with no stat
+        tables yet (stream start) first finishes the oldest picture, so
+        that it engages as early as the JAX encoder's."""
         out = bytearray()
+        if (self.qengine is not None
+                and self.qengine.mode != "constant_lambda"
+                and not self._stats_by_kind and self._pends2):
+            out += self._finish_pending2(self._pends2.popleft())
         while len(self._pends2) > self.pipeline_depth:
             out += self._finish_pending2(self._pends2.popleft())
         return bytes(out)
 
     def _finish_pending2(self, pend) -> bytes:
         pending, (num, refs, retired, is_ref, kind, sc) = pend
-        unit = ei_inter.finish_inter_picture(
+        unit, stats = ei_inter.finish_inter_picture(
             pending, num, refs[0], is_ref=is_ref, retired=retired,
             ref2_num=refs[1] if len(refs) > 1 else None)
+        if self.qengine is not None:
+            self.qengine.update(stats)
+        if stats is not None:
+            self._stats_by_kind[kind] = stats
         self._acorr_update(pending, len(unit) * 8)
+        self._last_badblock = pending["badblock_ratio"]
         if kind != "B":
             self._last_max_qi = int(np.max(
                 pending["qi_bands"][:pending["nb"]]))
-        pad_unit = self._rc_update(kind, len(unit) * 8, num)
+        pad_unit = self._rc_update(kind, len(unit) * 8, num,
+                                   self._estimate(stats, pending))
         units = []
         if self.enable_md5 and pending["recon"] is not None:
             units.append(self._md5_unit(pending["recon"]))
@@ -695,11 +785,18 @@ class GopEncoder:
                           lam_scale=pending["lam_scale"],
                           buffer_level=(self.rc.buffer_level if self.rc
                                         else None),
-                          base_lambda=(self.rc.base_lambda if self.rc
-                                       else None))
+                          base_lambda=getattr(self.rc, "base_lambda", None))
         if pad_unit:
             units.append(pad_unit)
         return self._chain.add(units)
+
+    @staticmethod
+    def _estimate(stats, pending) -> Optional[float]:
+        """The bit estimate of a finished picture's picks from its own
+        tables, for the allocation controller (None without tables)."""
+        if stats is None:
+            return None
+        return estimate_bits_at(stats[0], pending["qi_bands"])
 
     # ---- reference pictures ---------------------------------------------
 
@@ -710,16 +807,34 @@ class GopEncoder:
         return bs.make_aux_unit(bs.AUX_MD5_CHECKSUM, md5)
 
     def _finish_pending(self, pend) -> bytes:
+        """Finish a pipelined backref P picture: its unit, and the engine,
+        stat-table, arith-correction, badblock, ME-lambda and rate-model
+        updates the JAX encoder commits here."""
         pending, (num, ref_num, retired, sc) = pend
-        unit = ei_inter.finish_inter_picture(pending, num, ref_num,
-                                             is_ref=True, retired=retired)
+        unit, stats = ei_inter.finish_inter_picture(
+            pending, num, ref_num, is_ref=True, retired=retired)
+        if self.qengine is not None:
+            self.qengine.update(stats)
+        if stats is not None:
+            self._last_stats = stats
+        self._acorr_update(pending, len(unit) * 8)
+        self._last_badblock = pending["badblock_ratio"]
+        self._last_max_qi = int(np.max(pending["qi_bands"][:pending["nb"]]))
+        pad_unit = self._rc_update("P", len(unit) * 8, num,
+                                   self._estimate(stats, pending))
         units = []
         if self.enable_md5:
             units.append(self._md5_unit(pending["recon"]))
         units.append(unit)
         self.stats.record(frame=num, intra=False, bits=len(unit) * 8,
                           sc_score=round(sc, 3),
-                          dc_ratio=round(pending["dc_ratio"], 3))
+                          dc_ratio=round(pending["dc_ratio"], 3),
+                          badblock=round(pending["badblock_ratio"], 3),
+                          qi_bands=pending["qi_bands"].tolist(),
+                          buffer_level=(self.rc.buffer_level if self.rc
+                                        else None))
+        if pad_unit:
+            units.append(pad_unit)
         return self._chain.add(units)
 
     def _seed_rc_from_intra(self, planes, p) -> None:
@@ -768,18 +883,26 @@ class GopEncoder:
 
     def _encode_intra_rd(self, planes, p, num, retired, intra_lambda):
         """The unfused rate-controlled intra picture (the path of the
-        pictures the fused step does not code: no-arith): transform and
-        exact stat tables on the device, the per-band RD pick at
-        `intra_lambda` on the host with the intra arith-correction ratios
-        scaling the bit estimates (schroquantiser.c:704-725), the picture
+        pictures the fused step does not code: no-arith, the per-codeblock
+        quant syntax of multiquant, the allocation controller): transform
+        and exact stat tables on the device, the per-band pick on the host
+        with the intra arith-correction ratios scaling the bit estimates
+        (schroquantiser.c:704-725) -- the RD pick at `intra_lambda`, or
+        with intra_lambda None the allocation controller's pick that fits
+        the intra allocation (choose_quantisers_rdo_cbr) -- the picture
         coded at the picks, and the correction tables updated from its
         coded band bits.  Returns (unit, recon, qi_bands)."""
         nb = subband_count(p.transform_depth)
         stats = self._intra_stats(planes, p)
-        bits_c = (np.asarray(stats[0], np.float64)
-                  * np.maximum(self.acorr.intra, 1e-3))
-        qi_bands = qi_from_lambda(bits_c, stats[1], intra_lambda,
-                                  band_scales=self._band_scales3(True))
+        corr_i = np.maximum(self.acorr.intra, 1e-3)
+        if intra_lambda is not None:
+            qi_bands = qi_from_lambda(np.asarray(stats[0], np.float64)
+                                      * corr_i, stats[1], intra_lambda,
+                                      band_scales=self._band_scales3(True))
+        else:
+            qi_bands = pick_bands_rdo(stats, self.rc.frame_target(True),
+                                      band_scales=self._band_scales3(True),
+                                      correction=corr_i)
         est = np.asarray(stats[0], np.float64)[
             np.clip(qi_bands, 0, 60), np.arange(3 * nb)]
         qis = {}
@@ -815,18 +938,23 @@ class GopEncoder:
                         bs.AUX_BITRATE,
                         int(self.rc.bitrate).to_bytes(4, "big")))
             p = self._params(0)
-            if self._lambda_driven():
-                if self.qengine is not None:
-                    intra_lambda = (self.qengine.lam
-                                    * self.magic["I_lambda_scale"])
-                else:
-                    if self.rc.intra_cbr_lambda is None:
-                        # first intra: seed the TM5 base lambda by fitting
-                        # this frame's exact stat tables to its allocation
-                        self._seed_rc_from_intra(planes, p)
-                    intra_lambda = self.rc.frame_lambda("I")
-                if self.enable_noarith:
-                    # the fused step codes 8-bit arith pictures only
+            intra_lambda = None
+            if (self.qengine is not None
+                    and self.qengine.mode == "constant_lambda"):
+                intra_lambda = self.qengine.lam * self.magic["I_lambda_scale"]
+            elif self._tm5:
+                if self.rc.intra_cbr_lambda is None:
+                    # first intra: seed the TM5 base lambda by fitting
+                    # this frame's exact stat tables to its allocation
+                    self._seed_rc_from_intra(planes, p)
+                intra_lambda = self.rc.frame_lambda("I")
+            # the host-pick engines code the intra pictures at the base
+            # index; the allocation controller picks them on the host
+            if intra_lambda is not None or self.rc is not None:
+                if (intra_lambda is None or self.enable_noarith
+                        or p.codeblock_mode_index != 0):
+                    # the fused step codes arith pictures of codeblock
+                    # mode 0 at a lambda only
                     unit, recon, qi_bands = self._encode_intra_rd(
                         planes, p, num, retired, intra_lambda)
                 else:
@@ -861,11 +989,12 @@ class GopEncoder:
                     planes, p, num, quant_indices=qis, is_ref=True,
                     retired=retired, return_recon=True, device=self.device)
         else:
-            unit, recon, dc_ratio = ei_inter.encode_inter_picture(
+            (unit, recon, _, stats, _, dc_ratio,
+             ipend) = ei_inter.encode_inter_picture(
                 planes, self._params(1), num, self.last_ref,
                 self.ref_frames[self.last_ref],
                 base_qi=self.base_qi_inter, is_ref=True, retired=retired,
-                **self._step_kw())
+                **self._step_kw(), **self._quant_args("P"))
             if dc_ratio > self.magic["me_bailout_limit"]:
                 # intra bailout (schroencoder.c:2373-2384): motion
                 # compensation failed for most blocks -> code this
@@ -873,6 +1002,17 @@ class GopEncoder:
                 return self._encode_ref(planes, num, True, sc_score,
                                         retired=retired,
                                         manage_refs=manage_refs)
+            # each picture finishes before the next starts: the engines
+            # pick from the previous picture's tables, and the rate model
+            # takes no bit estimate (the JAX encoder's _encode_ref; the
+            # badblock ratio and the ME lambda stay where encode_stream
+            # left them)
+            if self.qengine is not None:
+                self.qengine.update(stats)
+            if stats is not None:
+                self._last_stats = stats
+            self._acorr_update(ipend, len(unit) * 8)
+            pad_unit = self._rc_update("P", len(unit) * 8, num)
         if self.enable_md5:
             units.append(self._md5_unit(recon))
         units.append(unit)
@@ -893,6 +1033,5 @@ class GopEncoder:
                                     if is_intra else None),
                           buffer_level=(self.rc.buffer_level if self.rc
                                         else None),
-                          base_lambda=(self.rc.base_lambda if self.rc
-                                       else None))
+                          base_lambda=getattr(self.rc, "base_lambda", None))
         return self._chain.add(units)

@@ -16,8 +16,11 @@ whose `recon` tensors can serve as the next picture's reference at once;
 step's every stage takes a leading batch dimension (a single picture is a
 batch of one), so each ME search is one kernel launch for the batch.
 
-Not ported yet: multiquant refinement, lagged host picks (`want_stats`,
-`qi_bands_override`), phase-correlation candidates and the estimation
+The quant indices come from the on-device RD pick (`lam_bands`, with the
+multiquant refinement per codeblock under codeblock mode 1), from a host
+engine's pick (`qi_bands_override`) or from the fixed base index;
+`want_stats` brings the stat tables back to the host for the lagged host
+picks.  Not ported yet: phase-correlation candidates and the estimation
 switches.
 """
 from __future__ import annotations
@@ -44,7 +47,11 @@ from schroedinger_tpu_torch.encoder import me as me_mod
 from schroedinger_tpu_torch.encoder.intra import _codeblock_counts
 from schroedinger_tpu_torch.encoder.lowdelay import _forward
 from schroedinger_tpu_torch.encoder.me import _take
-from schroedinger_tpu_torch.encoder.ratecontrol import band_tables, rd_pick
+from schroedinger_tpu_torch.encoder.ratecontrol import (_quant_dequant,
+                                                        _sint_bits,
+                                                        band_tables,
+                                                        error_metric,
+                                                        rd_pick)
 from schroedinger_tpu_torch.ops.pad import pad_edge, pad_zero
 from schroedinger_tpu_torch.decoder.lowdelay import _inverse
 from schroedinger_tpu_torch.ops import obmc
@@ -405,29 +412,34 @@ _STEP_CACHE = {}
 
 def _step_key(p: Params, rdo_pick: bool, want_recon: bool, me_levels: int,
               block_search_threshold: float, scan_distance: float,
-              error_power: float):
+              error_power: float, want_stats: bool = False):
     vf = p.video_format
     return vf.picture_luma_size() + (
         p.transform_depth, int(p.wavelet_filter_index), vf.chroma_format,
         p.mv_precision, p.xbsep_luma, p.ybsep_luma, p.xblen_luma,
-        p.yblen_luma, p.num_refs, want_recon, rdo_pick, me_levels,
-        round(block_search_threshold * 16), round(scan_distance * 4),
-        round(error_power * 16))
+        p.yblen_luma, p.num_refs, want_recon, rdo_pick, want_stats,
+        me_levels, round(block_search_threshold * 16),
+        round(scan_distance * 4), round(error_power * 16),
+        tuple(p.horiz_codeblocks), tuple(p.vert_codeblocks),
+        p.codeblock_mode_index)
 
 
 def get_p_step(p: Params, rdo_pick: bool = False, want_recon: bool = True,
                me_levels: int = 5, block_search_threshold: float = 15.0,
-               scan_distance: float = 4.0, error_power: float = 4.0):
+               scan_distance: float = 4.0, error_power: float = 4.0,
+               want_stats: bool = False):
     """make_p_step, built once per picture variant (one step serves every
     batch size)."""
     key = _step_key(p, rdo_pick, want_recon, me_levels,
-                    block_search_threshold, scan_distance, error_power)
+                    block_search_threshold, scan_distance, error_power,
+                    want_stats)
     hit = _STEP_CACHE.get(key)
     if hit is None:
         hit = _STEP_CACHE[key] = make_p_step(
             p, rdo_pick=rdo_pick, want_recon=want_recon, me_levels=me_levels,
             block_search_threshold=block_search_threshold,
-            scan_distance=scan_distance, error_power=error_power)
+            scan_distance=scan_distance, error_power=error_power,
+            want_stats=want_stats)
     return hit
 
 
@@ -443,9 +455,84 @@ def b_batch_is_cached(p: Params, n: int, want_recon: bool = False,
                      scan_distance, error_power) in _STEP_CACHE
 
 
+# per-codeblock quant deltas tried by the multiquant refinement
+MQ_DELTAS = (-2, -1, 0, 1, 2)
+# the block length of the JAX package's float32 cumsum on the CPU
+# (XLA rewrites a cumulative reduce-window into a scan of blocks of 16)
+_SCAN_BLOCK = 16
+
+
+def _seq_cumsum0(a):
+    """Sequential float32 running sum along dim 0: each element the sum
+    of the one before it and its own value, in order."""
+    out = a.clone()
+    for k in range(1, a.shape[0]):
+        out[k] = out[k - 1] + a[k]
+    return out
+
+
+def _block_cumsum0(a):
+    """float32 cumsum along dim 0 in the order of the JAX package's: a
+    sequential sum within blocks of _SCAN_BLOCK, the blocks' totals
+    scanned the same way, and each block's exclusive carry added to its
+    sums.  Every step is a float32 add, so the sums are those bits on
+    every device."""
+    n = a.shape[0]
+    if n <= _SCAN_BLOCK:
+        return _seq_cumsum0(a)
+    m = -(-n // _SCAN_BLOCK)
+    pad = a.new_zeros((m * _SCAN_BLOCK - n,) + a.shape[1:])
+    r = torch.cat([a, pad]).reshape((m, _SCAN_BLOCK) + a.shape[1:])
+    local = _seq_cumsum0(r.movedim(1, 0)).movedim(0, 1)
+    carry = _block_cumsum0(local[:, -1])
+    excl = torch.cat([torch.zeros_like(carry[:1]), carry[:-1]])
+    return (local + excl[:, None]).reshape((m * _SCAN_BLOCK,)
+                                          + a.shape[1:])[:n]
+
+
+def _cb_sums(a, ys, xs):
+    """Per-codeblock sums of (..., bh, bw) float32 arrays at the Dirac
+    codeblock boundaries ys/xs through one integral image, as the JAX
+    package forms them (float32 cumsum over rows, then columns, then the
+    four-corner difference): the same float32 bits, so that a near-tie
+    among the multiquant costs breaks the same way."""
+    cs = _block_cumsum0(a.movedim(-2, 0)).movedim(0, -2)
+    cs = _block_cumsum0(cs.movedim(-1, 0)).movedim(0, -1)
+    cs = torch.nn.functional.pad(cs, (1, 0, 1, 0))
+    y0, y1 = ys[:-1, None], ys[1:, None]
+    x0, x1 = xs[None, :-1], xs[None, 1:]
+    return (cs[..., y1, x1] - cs[..., y0, x1] - cs[..., y1, x0]
+            + cs[..., y0, x0])
+
+
+def _mq_layout(p: Params, shapes3, rdo_pick: bool):
+    """The bands the multiquant refinement picks per codeblock: with the
+    per-codeblock quant syntax on (codeblock mode 1) and the RD pick, every
+    band of more than one codeblock.  Returns [(ci, bi, vcb, hcb, off, bh,
+    bw, ys, xs, rmap, cmap)]: off is the band's offset in its component's
+    flat, ys/xs the Dirac codeblock boundaries (size * i // n), rmap/cmap
+    the codeblock row of each coefficient row and column."""
+    out = []
+    if p.codeblock_mode_index != 1 or not rdo_pick:
+        return out
+    for ci in range(3):
+        off = 0
+        for bi, (bh, bw) in enumerate(shapes3[ci]):
+            hcb, vcb = _codeblock_counts(p, bi)
+            if vcb * hcb > 1:
+                ys = np.asarray([bh * yy // vcb for yy in range(vcb + 1)])
+                xs = np.asarray([bw * xx // hcb for xx in range(hcb + 1)])
+                out.append((ci, bi, vcb, hcb, off, bh, bw, ys, xs,
+                            np.repeat(np.arange(vcb), np.diff(ys)),
+                            np.repeat(np.arange(hcb), np.diff(xs))))
+            off += bh * bw
+    return out
+
+
 def make_p_step(p: Params, rdo_pick: bool = False, want_recon: bool = True,
                 me_levels: int = 5, block_search_threshold: float = 15.0,
-                scan_distance: float = 4.0, error_power: float = 4.0):
+                scan_distance: float = 4.0, error_power: float = 4.0,
+                want_stats: bool = False):
     """(front, back, shapes3) of a batch of N inter pictures with
     p.num_refs references, all N predicted from the same references (the
     B pictures of a subgroup, or one picture with N = 1).  Each picture
@@ -464,9 +551,18 @@ def make_p_step(p: Params, rdo_pick: bool = False, want_recon: bool = True,
         corr_bands (N, 3*nb)): the quant indices are then chosen on the
         device against each picture's own exact stat tables.  The dict
         holds qflats (3 (N, n_c) int16 tensors), recon (3 (N, h_c, w_c) u8
-        tensors, None without want_recon), qi_bands ((N, 3*nb) int32) and,
-        with rdo_pick, rc_bits and rc_err (N, 61, 3*nb) and lam_scale
-        (N,)."""
+        tensors, None without want_recon), qi_bands ((N, 3*nb) int32),
+        with rdo_pick or want_stats rc_bits and rc_err (N, 61, 3*nb), with
+        rdo_pick lam_scale (N,), and mq: per band of the multiquant layout
+        its (N, vcb*hcb) int64 per-codeblock quant indices.
+
+    Multiquant (codeblock mode 1 with the RD pick, schroencoder.c:3866-
+    3906): each band of more than one codeblock is refined codeblock by
+    codeblock over MQ_DELTAS around its band pick, on per-codeblock sums
+    of the sint bits and of the error metric, at the band's lambda; the
+    band is then quantised with a per-coefficient quant map.  The sums
+    are formed as the JAX package forms them (`_cb_sums`), so the picks
+    are its picks even at a near-tie."""
     vf = p.video_format
     depth = p.transform_depth
     wavelet = p.wavelet_filter_index
@@ -506,17 +602,43 @@ def make_p_step(p: Params, rdo_pick: bool = False, want_recon: bool = True,
     pad_h, pad_w = p.ybsep_luma * ynb, p.xbsep_luma * xnb
     rd_margin = me_mod.ME_BOUND_PEL + 16
     bb_thr = int(block_search_threshold * p.xbsep_luma * p.ybsep_luma)
-    consts = {}     # device -> (QF, QO, per-component band-size tensors)
+    mq_bands = _mq_layout(p, shapes3, rdo_pick)
+    # the multiquant bands by (bh, bw, vcb, hcb): each group is refined
+    # as one batch
+    mq_groups = {}
+    for k, (_, _, vcb, hcb, _, bh, bw, *_) in enumerate(mq_bands):
+        mq_groups.setdefault((bh, bw, vcb, hcb), []).append(k)
+    mq_groups = list(mq_groups.values())
+    # per component, the column of each coefficient in the table of its
+    # quant indices [band picks (nb), then each multiquant band's
+    # codeblock picks]: a constant gather, as the JAX step's band ids
+    mq_index = []
+    for ci, sizes in enumerate(sizes3):
+        ix = np.repeat(np.arange(nb), sizes)
+        col = nb
+        for (cj, bi, vcb, hcb, off, bh, bw, _, _, rmap, cmap) in mq_bands:
+            if cj == ci:
+                ix[off:off + bh * bw] = (
+                    col + rmap[:, None] * hcb + cmap[None, :]).reshape(-1)
+                col += vcb * hcb
+        mq_index.append(ix)
+    consts = {}     # device -> constants of the step on that device
 
     def device_consts(dev):
         hit = consts.get(dev)
         if hit is None:
-            hit = consts[dev] = (
-                torch.as_tensor(tables.QUANT_FACTOR, dtype=torch.int32,
-                                device=dev),
-                torch.as_tensor(tables.QUANT_OFFSET_3_8, dtype=torch.int32,
-                                device=dev),
-                [torch.as_tensor(sizes, device=dev) for sizes in sizes3])
+            hit = consts[dev] = {
+                "QF": torch.as_tensor(tables.QUANT_FACTOR, dtype=torch.int32,
+                                      device=dev),
+                "QO": torch.as_tensor(tables.QUANT_OFFSET_3_8,
+                                      dtype=torch.int32, device=dev),
+                "deltas": torch.as_tensor(MQ_DELTAS, dtype=torch.int64,
+                                          device=dev),
+                "mq_yx": [(torch.as_tensor(mq_bands[g[0]][7], device=dev),
+                           torch.as_tensor(mq_bands[g[0]][8], device=dev))
+                          for g in mq_groups],
+                "mq_index": [torch.as_tensor(ix, device=dev)
+                             for ix in mq_index]}
         return hit
 
     def me_pass(y, ref: RefFrame):
@@ -572,48 +694,93 @@ def make_p_step(p: Params, rdo_pick: bool = False, want_recon: bool = True,
                            for k in _P_FIELD_ORDER], dim=1)
         return tuple(flats), tuple(preds), f16, badblock
 
+    def multiquant(flats, qi_t, lam_mq, c):
+        """The per-codeblock picks of every band of mq_bands: (N, vcb, hcb)
+        int64 each, the first minimum of bits + lambda * error over
+        MQ_DELTAS around the band pick, clipped to 0..59.  The bands of
+        one shape and codeblock grid go through together (every operation
+        is per element or along the band's own rows and columns, so each
+        band's sums are those it would have alone)."""
+        QF, QO = c["QF"], c["QO"]
+        picks = [None] * len(mq_bands)
+        for members, (ys, xs) in zip(mq_groups, c["mq_yx"]):
+            _, _, _, _, _, bh, bw, *_ = mq_bands[members[0]]
+            band = torch.stack([
+                flats[ci][:, off:off + bh * bw]
+                for (ci, _, _, _, off, *_) in (mq_bands[k] for k in members)
+            ]).to(torch.int32).reshape(len(members), -1, bh, bw)
+            cols = [ci * nb + bi for (ci, bi, *_) in
+                    (mq_bands[k] for k in members)]
+            qi0 = qi_t[:, cols].T.long()
+            lamb = lam_mq[:, cols].T[..., None, None]
+            bits, errs = [], []
+            for d in MQ_DELTAS:
+                qid = (qi0 + d).clamp(0, 59)[..., None, None]
+                qq, dq = _quant_dequant(band, QF[qid], QO[qid])
+                bits.append(_sint_bits(qq).to(torch.float32))
+                errs.append(error_metric(
+                    (band - dq).abs().to(torch.float32), error_power))
+            # the five deltas' bits and errors through one integral image
+            sums = _cb_sums(torch.stack(bits + errs), ys, xs)
+            nd = len(MQ_DELTAS)
+            costs = sums[:nd] + lamb * sums[nd:]
+            pick = torch.argmin(costs, dim=0)
+            got = (qi0[..., None, None] + c["deltas"][pick]).clamp(0, 59)
+            for k, g in zip(members, got):
+                picks[k] = g
+        return picks
+
     def back(flats, preds, qsel):
         dev = flats[0].device
-        QF, QO, sizes_t = device_consts(dev)
-        out = {"rc_bits": None, "rc_err": None, "lam_scale": None}
-        if rdo_pick:
-            lam_bands, target_bits, corr_bands = qsel
+        c = device_consts(dev)
+        QF, QO = c["QF"], c["QO"]
+        out = {"rc_bits": None, "rc_err": None, "lam_scale": None, "mq": []}
+        if rdo_pick or want_stats:
             with record_function("stat_tables"):
                 rc_bits, rc_err = band_tables(
                     torch.cat(flats, 1), bounds, 3 * nb, False, error_power)
+            out.update(rc_bits=rc_bits, rc_err=rc_err)
+        if rdo_pick:
+            lam_bands, target_bits, corr_bands = qsel
             with record_function("rd_pick"):
                 qi_t, s_fit = rd_pick(rc_bits, rc_err, lam_bands,
                                       corr_bands, target_bits, s_hi=1.0)
                 fitted = [t > 0 for t in target_bits]
+                lam_fit = s_fit[:, None] * lam_bands
                 if any(fitted):
                     # the JAX step scales its lambdas by the fitted s
                     # and then picks at s once more, so its final pick
                     # runs at s squared (its intra step picks at s).
                     # The port does the same: it is held to that
                     # encoder's streams
-                    lam_fit = s_fit[:, None] * lam_bands
                     qi2, _ = rd_pick(rc_bits, rc_err,
                                      s_fit[:, None] * lam_fit, corr_bands,
                                      [0.0] * len(target_bits))
                     qi_t = torch.where(
                         torch.as_tensor(fitted, device=dev)[:, None], qi2,
                         qi_t)
-            out.update(rc_bits=rc_bits, rc_err=rc_err, lam_scale=s_fit)
+            out["lam_scale"] = s_fit
         else:
             qi_t = qsel
         out["qi_bands"] = qi_t
         qi_t = qi_t.long()
+        if mq_bands:
+            with record_function("multiquant"):
+                # the refinement runs at the once-scaled lambdas
+                picks = multiquant(flats, qi_t, lam_fit, c)
+            out["mq"] = [m.reshape(m.shape[0], -1) for m in picks]
         outq = []
         outr = []
         with record_function("quantise_recon"):
             for ci, (flat, pred, shapes, (wpic, hpic)) in enumerate(
                     zip(flats, preds, shapes3, pic_sizes)):
                 qi_c = qi_t[:, ci * nb:(ci + 1) * nb]
-                n = int(flat.shape[-1])
-                qf = torch.repeat_interleave(QF[qi_c], sizes_t[ci], dim=1,
-                                             output_size=n)
-                qo = torch.repeat_interleave(QO[qi_c], sizes_t[ci], dim=1,
-                                             output_size=n)
+                # per-coefficient quant indices: the band picks, and the
+                # codeblock picks of this component's multiquant bands
+                own = [m for (cj, *_), m in zip(mq_bands, out["mq"])
+                       if cj == ci]
+                qi_coeff = torch.cat([qi_c] + own, 1)[:, c["mq_index"][ci]]
+                qf, qo = QF[qi_coeff], QO[qi_coeff]
                 qq = q.quantise(flat, qf, qo)
                 outq.append(qq.to(torch.int16))
                 if not want_recon:
@@ -676,17 +843,20 @@ def _check_refs(p: Params, ref1, ref2, dev):
 
 def _run_step(planes_list, p: Params, ref1: RefFrame, ref2, want_recon,
               qsels, me_lams, qi_bands, me_levels, block_search_threshold,
-              scan_distance, error_power, dev):
+              scan_distance, error_power, dev, want_stats=False):
     """The device work of N pictures against (ref1, ref2) as one batch:
     the planes stacked, then front and back.  qsels: per picture
     (lam_bands (3nb,) float64, target_bits, corr_bands (3nb,)) with the
-    RD pick, or None with the fixed qi_bands (3nb,); me_lams: per picture.
-    Returns the pending dicts of the batch's pictures, in order."""
+    RD pick, or None with the fixed qi_bands (3nb,); me_lams: per picture;
+    want_stats: build the stat tables and bring them back with the picture
+    even without the RD pick.  Returns the pending dicts of the batch's
+    pictures, in order."""
     rdo_pick = qsels is not None
     front, back, shapes3 = get_p_step(
         p, rdo_pick=rdo_pick, want_recon=want_recon, me_levels=me_levels,
         block_search_threshold=block_search_threshold,
-        scan_distance=scan_distance, error_power=error_power)
+        scan_distance=scan_distance, error_power=error_power,
+        want_stats=want_stats)
     n = len(planes_list)
     nb = subband_count(p.transform_depth)
     y, u, v = (torch.stack(c) for c in zip(
@@ -704,15 +874,19 @@ def _run_step(planes_list, p: Params, ref1: RefFrame, ref2, want_recon,
         qsel = torch.as_tensor(np.tile(qi_bands, (n, 1)), device=dev)
     flats, preds, f16, badblock = front(y, u, v, ref1, ref2, lam)
     outs = back(flats, preds, qsel)
+    mq = [(ci, bi, vcb, hcb) for (ci, bi, vcb, hcb, *_) in
+          _mq_layout(p, shapes3, rdo_pick)]
     shared = {"fields": f16, "badblock": badblock, "qflats": outs["qflats"],
               "qi_dev": outs["qi_bands"], "rc_bits": outs["rc_bits"],
-              "lam_scale": outs["lam_scale"], "rdo": rdo_pick}
+              "rc_err": outs["rc_err"], "lam_scale": outs["lam_scale"],
+              "mq": outs["mq"], "rdo": rdo_pick, "want_stats": want_stats}
 
     def row(t, i):
         return None if t is None else t[i]
 
     return [{"p": p, "qi_bands": qi_bands, "shapes3": shapes3, "nb": nb,
-             "rdo": rdo_pick, "batch": (shared, i),
+             "rdo": rdo_pick, "want_stats": want_stats, "mq": mq,
+             "batch": (shared, i),
              "fields": f16[i], "badblock": badblock[i],
              "qflats": tuple(t[i] for t in outs["qflats"]),
              "recon": (tuple(t[i] for t in outs["recon"]) if want_recon
@@ -734,7 +908,9 @@ def _rd_qsel(nb, lam_bands, target_bits, corr_bands):
 
 
 def start_inter_picture(planes_u8, p: Params, ref1: RefFrame,
-                        base_qi: int = 20, ref2: Optional[RefFrame] = None,
+                        base_qi: int = 20, qi_bands_override=None,
+                        want_stats: bool = False,
+                        ref2: Optional[RefFrame] = None,
                         want_recon: bool = True, lam_bands=None,
                         me_lam: Optional[float] = None, me_levels: int = 5,
                         block_search_threshold: float = 15.0,
@@ -753,8 +929,12 @@ def start_inter_picture(planes_u8, p: Params, ref1: RefFrame,
     (the reference's current-frame estimate tables,
     schroquantiser.c:772-780), with corr_bands scaling the bit estimates
     and target_bits > 0 engaging the lambda fit; only the lambda crosses
-    pictures.  Without lam_bands the picture is coded at base_qi less the
-    quant matrix.  The step is the batched one at N = 1."""
+    pictures.  Without lam_bands the picture is coded at
+    qi_bands_override ((nb,) shared by the components or (3*nb,)), the
+    pick of a host engine, or else at base_qi less the quant matrix.
+    want_stats brings the picture's (bits, error) stat tables back with
+    it, for the lagged host picks.  The step is the batched one at N =
+    1."""
     dev = resolve_device(device)
     _check_refs(p, ref1, ref2, dev)
     nb = subband_count(p.transform_depth)
@@ -766,26 +946,33 @@ def start_inter_picture(planes_u8, p: Params, ref1: RefFrame,
         qi_bands = None
     else:
         qsels = None
-        qi_bands = np.tile(np.clip(base_qi - qm, 0, 60), 3).astype(np.int32)
+        if qi_bands_override is not None:
+            qi_bands = np.asarray(qi_bands_override, np.int32)
+            if qi_bands.size == nb:          # shared across components
+                qi_bands = np.tile(qi_bands, 3)
+        else:
+            qi_bands = np.tile(np.clip(base_qi - qm, 0, 60),
+                               3).astype(np.int32)
         # RD lambda scales with the quant step (QF/4), ~step/2 SAD per bit
         lam = (np.float32(tables.QUANT_FACTOR[int(np.max(qi_bands[:nb]))])
                / np.float32(8.0))
     return _run_step([planes_u8], p, ref1, ref2, want_recon, qsels, [lam],
                      qi_bands, me_levels, block_search_threshold,
-                     scan_distance, error_power, dev)[0]
+                     scan_distance, error_power, dev, want_stats)[0]
 
 
 def start_inter_batch(planes_list, p: Params, ref1: RefFrame,
                       ref2: RefFrame, qsels, want_recon: bool = False,
-                      me_levels: int = 5,
+                      want_stats: bool = False, me_levels: int = 5,
                       block_search_threshold: float = 15.0,
                       scan_distance: float = 4.0, error_power: float = 4.0,
                       device=None):
     """Queue the device work of the N independent B pictures of a biref
     subgroup as one batch (the port of the JAX package's vmapped
     start_inter_batch: the vmap is a leading batch dimension through the
-    ME, the RD split, the render, the transform, the stat tables and the
-    RD pick, so each ME search is one kernel launch for the batch).
+    ME, the RD split, the render, the transform, the stat tables, the RD
+    pick and the multiquant refinement, so each ME search is one kernel
+    launch for the batch).
 
     All pictures share (ref1, ref2); qsels holds each picture's dict of
     lam_bands, me_lam, target_bits and corr_bands.  Returns the pictures'
@@ -803,26 +990,30 @@ def start_inter_batch(planes_list, p: Params, ref1: RefFrame,
     return _run_step(list(planes_list), p, ref1, ref2, want_recon, rq,
                      [qs["me_lam"] for qs in qsels], None, me_levels,
                      block_search_threshold, scan_distance, error_power,
-                     dev)
+                     dev, want_stats)
 
 
 def _fetch_batch(shared) -> None:
     """One device-to-host copy of the whole batch's int16 wire (fields,
-    quant indices, quantised bands per picture row) and one of its float32
-    wire (bits tables, badblock ratios, fitted scales)."""
+    quant indices, multiquant codeblock picks, quantised bands per
+    picture row) and one of its float32 wire (bits tables, error tables
+    where the stats are wanted, badblock ratios, fitted scales)."""
     with record_function("p_transfer"):
         f16 = shared["fields"]
         n = f16.shape[0]
         shared["wire"] = torch.cat(
             [f16.reshape(n, -1), shared["qi_dev"].to(torch.int16),
+             *(m.to(torch.int16) for m in shared["mq"]),
              *shared["qflats"]], 1).cpu().numpy()
+        parts = []
+        if shared["rc_bits"] is not None:
+            parts.append(shared["rc_bits"].reshape(n, -1))
+        if shared["want_stats"]:
+            parts.append(shared["rc_err"].reshape(n, -1))
+        parts.append(shared["badblock"][:, None])
         if shared["rdo"]:
-            shared["fwire"] = torch.cat(
-                [shared["rc_bits"].reshape(n, -1),
-                 shared["badblock"][:, None],
-                 shared["lam_scale"][:, None]], 1).cpu().numpy()
-        else:
-            shared["fwire"] = shared["badblock"][:, None].cpu().numpy()
+            parts.append(shared["lam_scale"][:, None])
+        shared["fwire"] = torch.cat(parts, 1).cpu().numpy()
 
 
 def finish_inter_picture(pending: dict, frame_number: int, ref1_num: int,
@@ -832,29 +1023,43 @@ def finish_inter_picture(pending: dict, frame_number: int, ref1_num: int,
     """Fetch the picture's fields, quant indices and quantised bands and
     entropy-code the parse unit.  The first picture of a batch to finish
     fetches the whole batch (one int16 copy to the host, and one float32
-    copy of the bits tables); the others slice their rows of it.  Returns
-    the unit's bytes and sets pending["dc_ratio"], ["badblock_ratio"],
-    ["qi_bands"], ["band_bits_actual"], ["band_bits_est"] and
-    ["lam_scale"] (the scale the lambda fit settled on; 1 where
-    target_bits was 0, None without the RD pick)."""
+    copy of the tables); the others slice their rows of it.  Returns
+    (unit bytes, stats): stats is the picture's (bits61, err61) float32
+    (61, 3*nb) tables where they were wanted (want_stats), else None.
+    Sets pending["dc_ratio"], ["badblock_ratio"], ["qi_bands"],
+    ["qi_cb"] (the multiquant codeblock picks by (component, band)),
+    ["band_bits_actual"], ["band_bits_est"] and ["lam_scale"] (the scale
+    the lambda fit settled on; 1 where target_bits was 0, None without the
+    RD pick)."""
     shared, row = pending["batch"]
     if "wire" not in shared:
         _fetch_batch(shared)
     wire = shared["wire"][row]
     fw = shared["fwire"][row]
     nb = pending["nb"]
+    nt = 61 * 3 * nb
     nf, yb, xb = pending["fields"].shape
-    rc0 = None
-    pending["lam_scale"] = None
-    pending["badblock_ratio"] = float(fw[-2] if pending["rdo"] else fw[0])
-    if pending["rdo"]:
-        rc0 = fw[:-2].reshape(61, 3 * nb)
-        pending["lam_scale"] = float(fw[-1])
+    rc0 = err = None
+    foff = 0
+    if pending["rdo"] or pending["want_stats"]:
+        rc0 = fw[:nt].reshape(61, 3 * nb)
+        foff = nt
+    if pending["want_stats"]:
+        err = fw[foff:foff + nt].reshape(61, 3 * nb)
+        foff += nt
+    pending["badblock_ratio"] = float(fw[foff])
+    pending["lam_scale"] = float(fw[foff + 1]) if pending["rdo"] else None
     off = nf * yb * xb
     fields = wire[:off].reshape(nf, yb, xb)
     qi_bands = wire[off:off + 3 * nb].astype(np.int32)
     off += 3 * nb
     pending["qi_bands"] = qi_bands
+    qi_cb = {}
+    for (ci, bi, vcb, hcb) in pending["mq"]:
+        qi_cb[(ci, bi)] = wire[off:off + vcb * hcb].astype(
+            np.int32).reshape(vcb, hcb)
+        off += vcb * hcb
+    pending["qi_cb"] = qi_cb
     host_q = []
     for qf in pending["qflats"]:
         host_q.append(wire[off:off + qf.numel()])
@@ -867,7 +1072,7 @@ def finish_inter_picture(pending: dict, frame_number: int, ref1_num: int,
     refs = [ref1_num] if ref2_num is None else [ref1_num, ref2_num]
     unit, band_bits = _write_p_unit(pending["p"], frame_number, refs, is_ref,
                                     retired, mv, host_q, pending["shapes3"],
-                                    qi_bands)
+                                    qi_bands, qi_cb)
     # per-(component, band) actual and estimated coded bits at the picked
     # quant indices, for the arith-correction EMA tables
     # (schroencoder.c:2548-2590 analog): row qi of the bits table, column
@@ -876,7 +1081,8 @@ def finish_inter_picture(pending: dict, frame_number: int, ref1_num: int,
     pending["band_bits_est"] = (
         rc0[np.clip(qi_bands, 0, 60), np.arange(3 * nb)]
         if rc0 is not None and rc0.any() else None)
-    return unit
+    stats = (rc0.copy(), err.copy()) if pending["want_stats"] else None
+    return unit, stats
 
 
 def encode_inter_picture(planes_u8, p: Params, frame_number: int,
@@ -885,24 +1091,31 @@ def encode_inter_picture(planes_u8, p: Params, frame_number: int,
                          retired: Optional[int] = None, me_levels: int = 5,
                          scan_distance: float = 4.0, device=None, **quant):
     """Encode one P picture (start + finish).  `quant` passes on to
-    start_inter_picture (lam_bands, corr_bands, target_bits, me_lam,
-    block_search_threshold, error_power).  Returns (parse_unit_bytes,
-    recon_planes, dc_ratio)."""
+    start_inter_picture (qi_bands_override, want_stats, lam_bands,
+    corr_bands, target_bits, me_lam, block_search_threshold,
+    error_power).  Returns the JAX function's tuple (parse_unit_bytes,
+    recon_planes, base_qi, stats, None, dc_ratio, pending): stats as
+    finish_inter_picture gives them; the JAX package's upsampled planes
+    have no counterpart (a RefFrame upsamples its planes itself)."""
     pend = start_inter_picture(planes_u8, p, ref1, base_qi=base_qi,
                                me_levels=me_levels,
                                scan_distance=scan_distance, device=device,
                                **quant)
-    unit = finish_inter_picture(pend, frame_number, ref1_num,
-                                is_ref=is_ref, retired=retired)
-    return unit, pend["recon"], pend["dc_ratio"]
+    unit, stats = finish_inter_picture(pend, frame_number, ref1_num,
+                                       is_ref=is_ref, retired=retired)
+    return unit, pend["recon"], base_qi, stats, None, pend["dc_ratio"], pend
 
 
 def _write_p_unit(p: Params, frame_number: int, refs, is_ref: bool,
-                  retired: Optional[int], mv, host_q, shapes3, qi_bands):
+                  retired: Optional[int], mv, host_q, shapes3, qi_bands,
+                  qi_cb=None):
     """Host entropy coding + parse-unit assembly for an inter picture
     with len(refs) references.
 
-    qi_bands: (3*nb,) quant indices, component-major.  Returns
+    qi_bands: (3*nb,) quant indices, component-major; qi_cb: per
+    (component, band) the (vcb, hcb) codeblock quant indices of the
+    multiquant bands (the others code every codeblock at the band's
+    index).  Returns
     (unit_bytes, band_bits): band_bits is the (3*nb,) per-(component,
     band) coded payload bits (actual_subband_bits analog,
     schroencoder.c:2532-2546) that feed the arith-correction EMA."""
@@ -970,11 +1183,13 @@ def _write_p_unit(p: Params, frame_number: int, refs, is_ref: bool,
                 # parent context is a zero-test, so quantised data is
                 # equivalent to the dequantised values the spec describes
                 parent_q = bands[index - 3] if position >= 4 else None
+                cbqi = (qi_cb or {}).get((comp, index))
+                if cbqi is None:
+                    cbqi = np.full((vcb, hcb), qi, np.int32)
                 with record_function("encode_subband_arith"):
                     payload, first_qi = sb.encode_subband_arith(
                         qdata, parent_q, position, hcb, vcb,
-                        p.codeblock_mode_index == 1,
-                        np.full((vcb, hcb), qi, np.int32))
+                        p.codeblock_mode_index == 1, cbqi)
             band_bits[comp * nb + index] = 8 * len(payload)
             w.write_uint(len(payload))
             if first_qi == -1:

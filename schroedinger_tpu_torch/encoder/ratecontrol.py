@@ -3,11 +3,10 @@
 Port of `schroedinger_tpu/encoder/ratecontrol.py`.  The 61-way
 per-(component, band) (bits, error) tables and the RD pick with its lambda
 fit are torch and run on the device of their input; `CbrControllerTM5`,
-`ArithCorrection` and the host picks are numpy code copied line for line,
-so that the same bit counts give the same float64 lambdas in both
-packages, and so is `QuantiserEngine` (the GOP driver takes it in
-constant_lambda mode).  `CbrController` comes with the encoder option
-that reaches it (`rdo_cbr=False`).
+`CbrController` (the allocation controller of `rdo_cbr=False`),
+`ArithCorrection`, the host picks and `QuantiserEngine` are numpy code
+copied line for line, so that the same bit counts give the same float64
+lambdas, targets and picks in both packages.
 
 Which table entries are exact: the magnitude bits and the nonzero counts
 are integers, summed here in int64, so they equal the JAX package's
@@ -313,6 +312,78 @@ class ArithCorrection:
         e = np.asarray(est_bits, np.float64)
         ok = e > 200.0
         tab[ok] = np.clip(0.9 * tab[ok] + 0.1 * (a[ok] / e[ok]), 0.5, 2.0)
+
+
+class CbrController:
+    """Reference-grade CBR bit reservoir (schroencoder.c:183-545), the
+    controller of enable_rdo_cbr=FALSE.
+
+    Allocation follows schro_encoder_calculate_allocation / get_alloc
+    (schroengine.c:552-637): per-picture requested bits = bits_per_picture
+    * picture_weight * allocation_scale, passed through the buffer-aware
+    exponential curve so the allocation never exceeds what the reservoir
+    holds and must-spend bits (level about to overflow) are always spent.
+    Level update mirrors schroencoder.c:2592-2615 (underrun clamps to 0;
+    overrun pads the stream back to buffer_size).  Picture weights default
+    to the reference's magic_keyframe_weight 7.5 / magic_inter_p_weight
+    1.5 / magic_inter_b_weight 0.2 with magic_allocation_scale 1.1
+    (schroencoder.c:4520-4525); buffer_size/buffer_level follow
+    schro_encoder_init_rc_buffer (buffer_size 0 -> 3 s of bitrate, level
+    0 -> start full).  The arith-vs-estimate correction is the
+    reference's online EMA 0.9/0.1 (schroencoder.c:2548-2590)."""
+
+    def __init__(self, bitrate: int, fps: float, gop_length: int,
+                 buffer_size: int = 0, buffer_level: int = 0,
+                 interlaced: bool = False,
+                 keyframe_weight: float = 7.5,
+                 inter_p_weight: float = 1.5,
+                 inter_b_weight: float = 0.2,
+                 allocation_scale: float = 1.1):
+        self.bitrate = bitrate
+        self.gop_length = gop_length
+        self.buffer_size = buffer_size if buffer_size else 3 * bitrate
+        self.buffer_level = buffer_level if buffer_level \
+            else self.buffer_size
+        self.bits_per_picture = bitrate / fps / (2 if interlaced else 1)
+        self.weights = {"I": keyframe_weight, "P": inter_p_weight,
+                        "B": inter_b_weight}
+        self.allocation_scale = allocation_scale
+        self.correction = 1.0
+
+    def frame_target(self, is_intra: bool = False, kind: str | None = None,
+                     extra_weight: float = 0.0) -> int:
+        """Allocated bits for the next picture (get_alloc analog).
+
+        kind: "I"/"P"/"B" (overrides is_intra); extra_weight: additive
+        weight term (the reference's badblock_ratio * magic multipliers)."""
+        if kind is None:
+            kind = "I" if is_intra else "P"
+        w = self.weights[kind] + extra_weight
+        requested = self.bits_per_picture * w * self.allocation_scale
+        must_use = max(
+            0.0, self.buffer_level + self.bits_per_picture - self.buffer_size)
+        denom = max(1.0, self.buffer_size - self.bits_per_picture)
+        x = max(0.0, requested - must_use) / denom
+        y = 1.0 - np.exp(-x)
+        alloc = must_use + (self.buffer_level - must_use) * y
+        return max(1000, int(alloc))
+
+    def update(self, actual_bits: int,
+               estimated_bits: float | None = None) -> int:
+        """Returns the PADDING bytes the stream must insert to hold the
+        reservoir at capacity (buffer overrun, schroencoder.c:2601-2611;
+        0 when the level fits)."""
+        self.buffer_level += self.bits_per_picture - actual_bits
+        if self.buffer_level < 0:
+            self.buffer_level = 0.0      # underrun (schroencoder.c:2599)
+        pad = 0
+        if self.buffer_level > self.buffer_size:
+            pad = int(self.buffer_level - self.buffer_size + 7) // 8
+            self.buffer_level -= pad * 8
+        if estimated_bits and estimated_bits > 200:
+            ratio = actual_bits / estimated_bits
+            self.correction = 0.9 * self.correction + 0.1 * ratio
+        return pad
 
 
 class CbrControllerTM5:

@@ -1,7 +1,8 @@
 """Where the time of the 1080p slice goes, on one NVIDIA GPU.
 
     python -m schroedinger_tpu_torch.profile_slice
-        [--config backref|flagship|draining|bench|lowdelay]
+        [--config backref|flagship|draining|bench|lowdelay|
+                  backref-quality|constant-error|multiquant]
         [--frames N] [--out DIR]
 
 Encodes pan + noise 1080p25 4:2:0 frames with the port's GopEncoder under
@@ -18,6 +19,10 @@ does by default, VC-2 low delay through api.Encoder, on 10-bit 4:2:2
 frames, decoded as `schro_tpu decode` does; its spans are the device
 analysis, the native slice decode and the inverse wavelet, and the
 encoder's worker thread reports its fetch and native packing time.
+`--config backref-quality`, `constant-error` and `multiquant` (13
+frames, 6 of warm-up) run api.Encoder under EncoderConfig(
+gop_structure="backref"), (rate_control="constant_error") and
+(enable_multiquant=True): chip_smoke's phases 15, 17 and 18.
 Prints, per run: wall time,
 the device's busy time (union of kernel intervals) and idle share, the
 host time in the entropy-coding calls and in the encoder's stage spans
@@ -38,6 +43,7 @@ import torch
 from torch.profiler import ProfilerActivity, profile
 
 from schroedinger_tpu_torch import api
+from schroedinger_tpu_torch.config import EncoderConfig
 from schroedinger_tpu_torch.decoder.core import StreamDecoder
 from schroedinger_tpu_torch.decoder.pipeline import PipelinedStreamDecoder
 from schroedinger_tpu_torch.encoder.gop import GopEncoder
@@ -53,6 +59,11 @@ from schroedinger_tpu_torch.video_format import ChromaFormat
 CONFIGS = {"backref": (CONFIG, 6, 2), "flagship": (CONFIG_FLAGSHIP, 13, 6),
            "draining": (CONFIG_FLAGSHIP_DRAINING, 9, 6),
            "bench": (CONFIG_BENCH, 13, 6), "lowdelay": (None, 13, 2)}
+# name -> EncoderConfig keywords of an api.Encoder run (13 frames, 6 of
+# warm-up): the long-GOP rate controls
+API_CONFIGS = {"backref-quality": dict(gop_structure="backref"),
+               "constant-error": dict(rate_control="constant_error"),
+               "multiquant": dict(enable_multiquant=True)}
 # record_function spans of the port: host entropy coding, then the inter
 # and intra steps' stages (host time of a stage = its enqueue, not the
 # device's work)
@@ -61,7 +72,7 @@ HOST_SPANS = ("encode_subband_arith", "decode_subband_arith",
               "motion_encode", "motion_decode", "frame_md5", "ld_pack",
               "ld_decode")
 STAGE_SPANS = ("me_pass", "rd_split", "render", "stat_tables", "rd_pick",
-               "quantise_recon", "p_transfer", "b_batch_step",
+               "multiquant", "quantise_recon", "p_transfer", "b_batch_step",
                "b_picture_step", "ld_analysis", "ld_inverse")
 
 
@@ -146,7 +157,8 @@ def _report(tag, prof, wall_s, n_frames):
 
 def main() -> int:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--config", choices=sorted(CONFIGS), default="backref")
+    ap.add_argument("--config", choices=sorted(CONFIGS) + sorted(API_CONFIGS),
+                    default="backref")
     ap.add_argument("--frames", type=int, default=None)
     ap.add_argument("--out", default=os.path.join("build", "traces"))
     a = ap.parse_args()
@@ -156,8 +168,15 @@ def main() -> int:
                            "--format=csv,noheader"], capture_output=True,
                           text=True, check=True).stdout.strip()
     print(f"card: {card}", flush=True)
-    config, n_frames, n_warm = CONFIGS[a.config]
-    if config is None:
+    config, n_frames, n_warm = CONFIGS.get(a.config, (None, 13, 6))
+    if a.config in API_CONFIGS:
+        vf = video_format(1920, 1080)
+        frames = make_frames(a.frames or n_frames, 1920, 1080)
+
+        def new_encoder():
+            return api.Encoder(vf, EncoderConfig(**API_CONFIGS[a.config]),
+                               device="cuda")
+    elif config is None:
         vf = video_format(1920, 1080, ChromaFormat.C422, 10)
         frames = make_frames(a.frames or n_frames, 1920, 1080,
                              chroma_format=ChromaFormat.C422, bit_depth=10)
@@ -182,14 +201,14 @@ def main() -> int:
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     _report("encode", prof, wall, len(frames))
-    if config is None:
+    if a.config == "lowdelay":
         # the fetch and the packing run on the encoder's worker thread,
         # whose spans the profiler does not record
         print(f"encode: worker thread: fetch "
               f"{enc.ld_seconds['fetch'] * 1e3:.1f} ms, native packing "
               f"{enc.ld_seconds['pack'] * 1e3:.1f} ms", flush=True)
     else:
-        fitted = [f for f in enc.stats.frames
+        fitted = [f for f in getattr(enc, "_gop", enc).stats.frames
                   if (f.get("target_bits") or 0) > 0]
         print(f"encode: the lambda fit ran on {len(fitted)} pictures and "
               f"bound (scale < 0.99) on "
@@ -199,7 +218,8 @@ def main() -> int:
     prof.export_chrome_trace(
         os.path.join(a.out, f"encode_trace_{a.config}.json"))
 
-    dec = (PipelinedStreamDecoder if a.config in ("bench", "lowdelay")
+    dec = (PipelinedStreamDecoder
+           if a.config in ("bench", "lowdelay") or a.config in API_CONFIGS
            else StreamDecoder)(device="cuda")
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:

@@ -1,7 +1,10 @@
 """The port's entry points against the JAX package's on the CPU, at 96x80:
 the settings registry, `api.Encoder` / `api.Decoder` for each in-scope
-profile and rate mode, push/pull, the options the port does not take
-yet (NotImplementedError), `y4m` and the CLI.
+profile and rate mode, push/pull, the option the port does not take yet
+(interlaced coding: NotImplementedError), `y4m` and the CLI.  The other
+long-GOP rate controls (the backref engine, the constant-error engines,
+the allocation controller, multiquant) are held to the JAX package in
+`tests/test_torch_rate_engines.py`.
 
 The long-GOP modes run the biref engine with its B pictures batched (MD5
 is off by default): lossless and vc2_main are integer paths and must be
@@ -123,19 +126,13 @@ def test_push_pull_equals_encode_stream(frames):
 
 
 @pytest.mark.parametrize("kw", [
-    # the VC-2 profiles are ported: what stays out of them is field coding
+    # the VC-2 profiles and every long-GOP rate control are ported (the
+    # rate controls' parity cases are in tests/test_torch_rate_engines.py):
+    # what stays out is field coding
     dict(rate_control="low_delay", interlaced_coding=True),
     dict(enable_noarith=True, interlaced_coding=True),
     dict(interlaced_coding=True),
-    dict(rate_control="constant_error"),
-    dict(rate_control="constant_noise_threshold"),
-    dict(gop_structure="backref"),
-    dict(gop_structure="backref", rate_control="constant_bitrate",
-         bitrate=300_000),
-    dict(enable_multiquant=True),
-], ids=["vc2_low_delay", "vc2_simple", "interlaced", "constant_error",
-        "constant_noise_threshold", "backref_constant_quality",
-        "backref_cbr", "multiquant"])
+], ids=["vc2_low_delay", "vc2_simple", "interlaced"])
 def test_out_of_scope_raises_not_implemented(kw):
     with pytest.raises(NotImplementedError, match="ROADMAP|not ported"):
         t_api.Encoder(video_format(W, H), t_config.EncoderConfig(**kw),

@@ -172,9 +172,9 @@ def step_rows():
         frames[k], p, r0, ref2=r4, want_recon=False, device="cpu", **qs)
         for k, qs in zip((1, 2, 3), qsels)]
     units = [(t_inter.finish_inter_picture(b, k, 0, is_ref=False,
-                                           ref2_num=4),
+                                           ref2_num=4)[0],
               t_inter.finish_inter_picture(s, k, 0, is_ref=False,
-                                           ref2_num=4))
+                                           ref2_num=4)[0])
              for k, b, s in zip((1, 2, 3), batch, singles)]
     return batch, singles, units
 

@@ -3,8 +3,9 @@
 The ME search CUDA kernel (every shape and mode the ME launches, one
 picture and a batch) and its cost probe against the plain PyTorch
 version, small streams of the slices encoded on the card against the CPU
-encode, the pipelined decoder against the per-picture one, and the entry
-points' default device.  This file
+encode (every long-GOP rate control among them), the multiquant sums'
+float32 order on the card against the CPU, the pipelined decoder against
+the per-picture one, and the entry points' default device.  This file
 imports no JAX, so it also runs where only PyTorch is installed:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py -q
@@ -275,3 +276,53 @@ def test_entry_points_default_to_the_card(cuda_device):
     assert enc.device.type == "cuda" and dec.device.type == "cuda"
     assert PipelinedStreamDecoder().device.type == "cuda"
     assert api.Encoder(video_format(128, 64)).device.type == "cuda"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [5, 16, 17, 100, 544])
+def test_multiquant_integral_image_same_bits_on_card(cuda_device, n):
+    """The multiquant codeblock sums are float32 adds in the JAX
+    package's order (`inter._block_cumsum0`): the card gives the CPU's
+    bits (torch.equal), for scans shorter and longer than a block."""
+    from schroedinger_tpu_torch.encoder import inter
+    rng = np.random.default_rng(n)
+    a = (rng.random((3, n, 37)) * rng.choice([1.0, 1e3, 1e6], (3, n, 37))
+         ).astype(np.float32)
+    cpu = inter._block_cumsum0(torch.tensor(a))
+    card = inter._block_cumsum0(torch.tensor(a, device=cuda_device))
+    assert torch.equal(card.cpu(), cpu)
+    ys = np.asarray([n * k // 4 for k in range(5)])
+    xs = np.asarray([37 * k // 6 for k in range(7)])
+    sums = [inter._cb_sums(torch.tensor(a, device=d), torch.tensor(ys,
+            device=d), torch.tensor(xs, device=d)).cpu()
+            for d in ("cpu", cuda_device)]
+    assert sums[0].shape == (3, 4, 6) and torch.equal(*sums)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kw", [
+    dict(gop_structure="backref"),
+    dict(gop_structure="backref", rate_control="constant_bitrate",
+         bitrate=500_000, enable_rdo_cbr=False),
+    dict(rate_control="constant_error"),
+    dict(enable_multiquant=True)],
+    ids=["backref_quality", "backref_alloc", "constant_error",
+         "multiquant"])
+def test_rate_control_stream_on_card_within_bands_of_cpu(cuda_device, kw):
+    """Each long-GOP rate control at 128x64 (I, P, B pictures): the card's
+    stream within the bands of the CPU's (0.7 dB, 15 %), decoded clean by
+    the pipelined decoder on the card."""
+    from schroedinger_tpu_torch.config import EncoderConfig
+    frames = make_frames(5, 128, 64)
+    vf = video_format(128, 64)
+    streams = [api.Encoder(vf, EncoderConfig(**kw), device=d).encode_stream(
+        frames) for d in (None, "cpu")]
+    psnrs = []
+    for stream, device in zip(streams, (None, "cpu")):
+        dec = api.Decoder(device=device)
+        out = dec.decode_stream(stream)
+        assert len(out) == 5 and dec.errors == []
+        psnrs.append(np.mean([_psnr(o[0], f[0])
+                              for o, f in zip(out, frames)]))
+    assert abs(psnrs[0] - psnrs[1]) < 0.7
+    assert abs(len(streams[0]) - len(streams[1])) < 0.15 * len(streams[1])

@@ -160,7 +160,8 @@ def _two_ref_pictures(frames, refs, encoders, lam, target, corr):
                                                  ref2_num=2)
     tp = t_inter.start_inter_picture(frames[1], tenc._params(2), t0,
                                      ref2=t2, device="cpu", **kw)
-    tunit = t_inter.finish_inter_picture(tp, 1, 0, is_ref=False, ref2_num=2)
+    tunit, _ = t_inter.finish_inter_picture(tp, 1, 0, is_ref=False,
+                                            ref2_num=2)
     return tp, tunit, jp, junit, jstats
 
 

@@ -167,6 +167,17 @@ def test_d_port_runs_without_jax():
                            frames[:2])
         d = StreamDecoder(device="cpu")
         assert len(d.decode_stream(s)) == 2 and d.md5_failures == []
+        # the sixth slice's rate controls: the backref engine under an RD
+        # pick and a host pick, the allocation controller, multiquant
+        for kw in (dict(gop_structure="backref"),
+                   dict(gop_structure="backref",
+                        rate_control="constant_error"),
+                   dict(rate_control="constant_bitrate", bitrate=300_000,
+                        enable_rdo_cbr=False),
+                   dict(enable_multiquant=True)):
+            s = api.Encoder(video_format(64, 64), config.EncoderConfig(**kw),
+                            device="cpu").encode_stream(frames)
+            assert len(api.Decoder(device="cpu").decode_stream(s)) == 3
         loaded = sorted(m for m in sys.modules
                         if m == "jax" or m.startswith("jax.")
                         or m == "schroedinger_tpu"
@@ -266,17 +277,10 @@ def test_unported_options_raise():
     assert list(jsig) == [k for k in tsig if k != "device"]
     for k, v in jsig.items():
         assert tsig[k].default == v.default, k
-    for kw in (dict(bitrate=8_000_000),
-               dict(gop_structure="biref", bitrate=8_000_000,
-                    rdo_cbr=False),
-               dict(quantiser_engine=object()),
-               dict(gop_structure="biref",
-                    quantiser_engine=QuantiserEngine("constant_error")),
-               dict(quantiser_engine=QuantiserEngine("constant_lambda")),
-               dict(block_size="small"), dict(codeblock_size="full"),
-               dict(enable_multiquant=True), dict(downsample_levels=3),
-               dict(enable_phasecorr=True), dict(filtering="gaussian"),
-               dict(estimation=("fullscan",)), dict(enable_psnr=True)):
+    for kw in (dict(block_size="small"), dict(codeblock_size="full"),
+               dict(downsample_levels=3), dict(enable_phasecorr=True),
+               dict(filtering="gaussian"), dict(estimation=("fullscan",)),
+               dict(enable_psnr=True)):
         with pytest.raises(NotImplementedError):
             t_gop.GopEncoder(vf, device="cpu", **kw)
     # the defaults are taken, a full subgroup's B pictures batched
