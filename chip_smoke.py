@@ -108,6 +108,28 @@ its encode and decode frames/s and bytes:
  18. smoke-1080p-multiquant: EncoderConfig(enable_multiquant=True), 13
      frames, B pictures batched: a band's codeblocks take different quant
      indices on at least one picture
+Phases 19-22, the long-GOP encoder's remaining settings on 1080p25 4:2:0
+pan + noise through api.Encoder on the card, with the checks of phases
+15-18 (the launches per reference each setting implies); in 19 and 20
+the kernel is held equal to its plain version (torch.equal) on the
+recorded inputs of every launch shape the setting makes, each timed:
+ 19. smoke-1080p-block-geometry, 9 frames each: small blocks with full
+     overlap (bsep 8, blen 16, 240 x 136 blocks), small codeblocks,
+     medium blocks (bsep 12)
+ 20. smoke-1080p-estimation: phase correlation (13 frames, B pictures one
+     at a time, 8 launches per reference); chroma ME (13 launches per
+     reference), no hierarchical (3) and no deep estimation (5), 9 frames
+     each; full scan (radius 32, 3 launches per reference, 3 frames)
+ 21. smoke-1080p-gather-decode: an I picture, then a P picture written as
+     its prediction alone with global motion (a pan; an affine matrix)
+     or with every vector near 200 pel: api.Decoder and StreamDecoder on
+     the card equal the CPU decode bit for bit; the gather render's ms
+     per picture
+ 22. smoke-1080p-prefilter-metrics, 5 frames each of the gaussian,
+     adaptive_gaussian, lowpass and center_weighted_median prefilters
+     with enable_psnr and enable_ssim: the prefilter on the card == the
+     CPU's, each frame's PSNR equal to the CPU's recomputation to 3
+     decimals and SSIM within 1e-4
 The last two lines are the nvidia-smi line and
 {"ok": true, "device": {...}}; the kernel summary JSON comes before them.
 """
@@ -1167,22 +1189,26 @@ def record_picks():
     return seen, lambda: setattr(inter, "finish_inter_picture", orig)
 
 
-def expected_launches(stream, seen):
+def expected_launches(stream, seen, per_ref=None):
     """Kernel launches a long-GOP stream implies: one ME per reference of
-    every inter picture (7 launches each), but one per reference for a
-    whole batch of B pictures (`seen`: record_batches' entries)."""
+    every inter picture (per_ref launches each, 7 by default), but one per
+    reference for a whole batch of B pictures (`seen`: record_batches'
+    entries)."""
+    per_ref = per_ref or LAUNCHES_PER_REF
     kinds = picture_kinds(stream)
     batched = {n for nums, took, _ in seen if took for n in nums}
     refs = sum(r for n, r, _ in kinds if n not in batched)
-    return LAUNCHES_PER_REF * (refs + 2 * sum(1 for s in seen if s[1]))
+    return per_ref * (refs + 2 * sum(1 for s in seen if s[1]))
 
 
-def run_rate_phase(card, tag, name, make, frames, encode=None):
+def run_rate_phase(card, tag, name, make, frames, encode=None,
+                   per_ref=None, warm=6):
     """Encode `frames` with the encoder `make()` gives (after a warm-up of
-    the first 6), counting the kernel's launches, and hold the stream to
-    the phase checks.  Returns (stream, launches, encoder, batches)."""
+    the first `warm`), counting the kernel's launches (per_ref a
+    reference), and hold the stream to the phase checks.  Returns
+    (stream, launches, encoder, batches)."""
     encode = encode or (lambda e: e.encode_stream(frames))
-    make().encode_stream(frames[:6])                         # warm-up
+    make().encode_stream(frames[:warm])                      # warm-up
     torch.cuda.synchronize()
     enc = make()
     gop = getattr(enc, "_gop", enc)
@@ -1194,10 +1220,12 @@ def run_rate_phase(card, tag, name, make, frames, encode=None):
     torch.cuda.synchronize()
     t_enc = time.perf_counter() - t0
     launches = pr.LAUNCHES
-    expect = expected_launches(stream, seen)
+    per_ref = per_ref or LAUNCHES_PER_REF
+    expect = expected_launches(stream, seen, per_ref)
     if launches != expect:
         raise AssertionError(f"{tag}: {launches} launches, expected {expect}"
-                             " (7 per reference, 14 a batch of B)")
+                             f" ({per_ref} per reference, {2 * per_ref} a "
+                             "batch of B)")
     vals, fps_pipe, fps_base = check_two_decoders(stream, frames, made, card,
                                                   tag)
     n_i, n_p, n_b = picture_mix(stream)
@@ -1377,6 +1405,275 @@ def phases_vc2(card):
     return phase_bench_noarith(card)
 
 
+# ---- the long-GOP encoder's remaining settings (phases 19-22) -----------
+
+CARD = "cuda"            # the device of phases 21 and 22's own tensors
+
+class record_searches:
+    """Within the block, keep the arguments of the first me_search call of
+    each launch shape the ME makes (cur's shape, block size, radius,
+    scale), and count the calls of each."""
+
+    def __init__(self):
+        self.first, self.count = {}, {}
+
+    def __enter__(self):
+        self.saved = me_mod.me_search
+
+        def recording(*args):
+            cur, _, _, scale, bs_y, bs_x, rad = args[:7]
+            key = (tuple(cur.shape), bs_y, bs_x, rad, scale)
+            if key not in self.first:
+                self.first[key] = tuple(a.clone() if torch.is_tensor(a)
+                                        else a for a in args)
+            self.count[key] = self.count.get(key, 0) + 1
+            return self.saved(*args)
+        me_mod.me_search = recording
+        return self
+
+    def __exit__(self, *exc):
+        me_mod.me_search = self.saved
+
+
+def hold_shapes(card, tag, searches, done):
+    """Kernel == plain (torch.equal) on the recorded inputs of every launch
+    shape not held before (`done`, updated), each timed on the device
+    (CUDA-graph replay) beside its bound; returns the largest |diff|."""
+    worst = 0
+    for key, args in sorted(searches.first.items()):
+        if key in done:
+            continue
+        got = pr.me_search(*args)
+        want = pr.me_search_plain(*args)
+        torch.cuda.synchronize()
+        worst = max(worst, assert_equal_outputs(got, want, f"{tag} {key}"))
+        b_ms, by = refine_bound_ms(args)
+        ms = graph_ms(pr.me_search, args)
+        done[key] = {"ms": ms, "bound_ms": b_ms, "bound_by": by,
+                     "launches": searches.count[key]}
+        print(f"{tag} me_search cur {key[0]}, blocks {key[1]}x{key[2]}, rad "
+              f"{key[3]}, scale {key[4]}: kernel == plain; {ms:.4f} ms per "
+              f"launch on the device, bound {b_ms:.5f} ms by {by}, "
+              f"{searches.count[key]} launches with the warm-up [{card}]",
+              flush=True)
+    return worst
+
+
+def run_setting_phase(card, tag, name, cfg, frames, per_ref, done):
+    """One setting through api.Encoder on the card (run_rate_phase's
+    checks, per_ref launches a reference), its launch shapes held to the
+    plain version.  Returns (stream, launches, encoder, batches, max
+    |diff|)."""
+    W, H = FULL
+    with record_searches() as searches:
+        stream, launches, gop, seen = run_rate_phase(
+            card, tag, name, lambda: api.Encoder(video_format(W, H), cfg),
+            frames, per_ref=per_ref, warm=2)
+    return stream, launches, gop, seen, hold_shapes(card, tag, searches,
+                                                    done)
+
+
+def phase_block_geometry(card, done):
+    """smoke-1080p-block-geometry; returns (launches, max |diff|)."""
+    W, H = FULL
+    frames = make_frames(9, W, H)
+    launches, worst = 0, 0
+    # (name, settings, (bsep, blen) or None for the automatic geometry);
+    # at 1080p small blocks make a 240 x 136 grid, medium a 160 x 92 one
+    for name, kw, geo in (
+            ("small blocks, full overlap",
+             dict(motion_block_size="small", motion_block_overlap="full"),
+             (8, 16)),
+            ("small codeblocks", dict(codeblock_size="small"), None),
+            ("medium blocks", dict(motion_block_size="medium"), (12, 16))):
+        stream, n, gop, seen, err = run_setting_phase(
+            card, "phase19", f"smoke-1080p-block-geometry ({name})",
+            EncoderConfig(**kw), frames, LAUNCHES_PER_REF, done)
+        p = gop._params(1)
+        got = (p.xbsep_luma, p.xblen_luma, p.x_num_blocks, p.y_num_blocks)
+        if geo and got != geo + (4 * -(-W // (4 * geo[0])),
+                                 4 * -(-H // (4 * geo[0]))):
+            raise AssertionError(f"phase19 {name}: geometry {got}")
+        print(f"phase19 {name}: bsep {got[0]}, blen {got[1]}, {got[2]} x "
+              f"{got[3]} blocks, codeblocks {p.horiz_codeblocks} x "
+              f"{p.vert_codeblocks}", flush=True)
+        if name == "small codeblocks" and p.horiz_codeblocks[3] < 2:
+            raise AssertionError("phase19: codeblock_size=small kept one "
+                                 "codeblock per band")
+        launches += n
+        worst = max(worst, err)
+    return launches, worst
+
+
+def phase_estimation(card, done):
+    """smoke-1080p-estimation; returns (launches, max |diff|)."""
+    W, H = FULL
+    frames = make_frames(13, W, H)
+    launches, worst = 0, 0
+    # (name, settings, frames, launches per reference: the pyramid's
+    # levels and the candidates' searches)
+    for name, kw, n, per_ref in (
+            ("phase correlation", dict(enable_phasecorr_estimation=1), 13,
+             LAUNCHES_PER_REF + 1),
+            ("chroma ME", dict(enable_chroma_me=1), 9,
+             LAUNCHES_PER_REF + 6),
+            ("no hierarchical", dict(enable_hierarchical_estimation=0), 9,
+             3),
+            ("no deep", dict(enable_deep_estimation=0), 9,
+             LAUNCHES_PER_REF - 2),
+            ("full scan", dict(enable_fullscan_estimation=1), 3, 3)):
+        stream, count, gop, seen, err = run_setting_phase(
+            card, "phase20", f"smoke-1080p-estimation ({name})",
+            EncoderConfig(**kw), frames[:n], per_ref, done)
+        if kw.get("enable_phasecorr_estimation") and any(
+                took for _, took, _ in seen):
+            raise AssertionError("phase20: a batch of B pictures under "
+                                 "phase correlation")
+        launches += count
+        worst = max(worst, err)
+    return launches, worst
+
+
+def gather_streams(vf, frame):
+    """1080p streams whose second picture needs the gather render: an I
+    picture coded on the card, then a P picture written as its
+    prediction alone (inter.write_prediction_unit) with global motion on
+    every block (a pan, then an affine a-matrix) or with every vector
+    near 200 pel.  Returns {name: (stream, Params of the P picture)}."""
+    from schroedinger_tpu_torch.encoder import inter
+    from schroedinger_tpu_torch.params import GlobalMotion
+    enc = GopEncoder(vf, base_qi_intra=10, gop_length=1)
+    head = enc.encode_frame(frame)
+    out = {}
+    rng = np.random.default_rng(21)
+    for name, gm in (("pan", GlobalMotion(b0=32, b1=-16, a00=0, a11=0)),
+                     ("affine", GlobalMotion(b0=12, b1=-8, a_exp=16,
+                                             a00=2600, a01=-650, a10=650,
+                                             a11=2600)),
+                     ("mv200", None)):
+        p = enc._params(1)
+        p.mv_precision = 2
+        yb, xb = p.y_num_blocks, p.x_num_blocks
+        z = np.zeros((yb, xb), np.int32)
+        mv = dict(split=z + 2, pred_mode=z + 1, using_global=z, dx2=z,
+                  dy2=z, dc0=z, dc1=z, dc2=z)
+        if gm is None:
+            for k in ("dx1", "dy1"):
+                mv[k] = (rng.choice([-1, 1], (yb, xb)) * 800
+                         + rng.integers(-40, 41, (yb, xb))).astype(np.int32)
+        else:
+            p.have_global_motion = True
+            p.global_motion = (gm, GlobalMotion())
+            mv.update(using_global=z + 1, dx1=z, dy1=z)
+        unit = inter.write_prediction_unit(p, 1, [0], mv)
+        out[name] = (head + bs.fixup_offsets([unit, bs.make_eos_unit()],
+                                             prev=enc._chain.prev), p, mv)
+    return out
+
+
+def phase_gather_decode(card):
+    """smoke-1080p-gather-decode: both decoders on the card give the CPU
+    decode's planes bit for bit; the gather render timed per picture."""
+    from schroedinger_tpu_torch.decoder.core import _MV_FIELDS
+    from schroedinger_tpu_torch.ops import obmc
+    W, H = FULL
+    vf = video_format(W, H)
+    frame = make_frames(1, W, H)[0]
+    for name, (stream, p, mv) in gather_streams(vf, frame).items():
+        outs = {}
+        for label, dec in (("pipelined", api.Decoder()),
+                           ("per-picture", StreamDecoder()),
+                           ("cpu", StreamDecoder(device="cpu"))):
+            t0 = time.perf_counter()
+            out = dec.decode_stream(stream)
+            torch.cuda.synchronize()
+            if len(out) != 2 or dec.errors:
+                raise AssertionError(f"phase21 {name} {label}: {len(out)} "
+                                     f"frames, errors {dec.errors}")
+            outs[label] = (out, time.perf_counter() - t0)
+        cpu = outs["cpu"][0]
+        for label in ("pipelined", "per-picture"):
+            if not all(np.array_equal(a, b) for fa, fb in zip(
+                    outs[label][0], cpu) for a, b in zip(fa, fb)):
+                raise AssertionError(f"phase21 {name}: {label} decode on the"
+                                     " card differs from the CPU decode")
+        if np.array_equal(cpu[1][0], cpu[0][0]):
+            raise AssertionError(f"phase21 {name}: the P picture repeats "
+                                 "the I picture")
+        # the gather render alone, as the decoder calls it, on the card
+        ups = tuple(obmc.make_halfpel(obmc.upsample_plane(
+            torch.tensor(pl, device=CARD))) for pl in cpu[0])
+        mvt = {k: torch.tensor(mv[k], device=CARD) for k in _MV_FIELDS}
+        body = obmc.make_render_body(p, 1, use_patches=False)
+        ms = time_ms(lambda: body(mvt, ups, None), (), iters=5, warmups=1)
+        print(f"phase21 smoke-1080p-gather-decode ({name}): pipelined and "
+              f"per-picture decoders on the card == CPU decode; decode "
+              f"{outs['pipelined'][1]:.3f} s pipelined, "
+              f"{outs['per-picture'][1]:.3f} s per-picture, "
+              f"{outs['cpu'][1]:.3f} s CPU for 2 frames; gather render "
+              f"{ms:.3f} ms per picture on the card [{card}]", flush=True)
+
+
+def phase_prefilter_metrics(card):
+    """smoke-1080p-prefilter-metrics; returns its launches."""
+    from schroedinger_tpu_torch.ops.filters import apply_prefilter
+    from schroedinger_tpu_torch.ops.metrics import ssim_frame
+    W, H = FULL
+    frames = make_frames(5, W, H)
+    launches = 0
+    for filtering in ("gaussian", "adaptive_gaussian", "lowpass",
+                      "center_weighted_median"):
+        card_f = apply_prefilter(frames[0], filtering, 5.0, CARD)
+        cpu_f = [apply_prefilter(f, filtering, 5.0) for f in frames]
+        if not all(np.array_equal(a, b) for a, b in zip(card_f, cpu_f[0])):
+            raise AssertionError(f"phase22 {filtering}: the prefilter on the"
+                                 " card differs from the CPU's")
+        cfg = EncoderConfig(filtering=filtering, enable_psnr=True,
+                            enable_ssim=True)
+        stream, n, gop, _ = run_rate_phase(
+            card, "phase22", f"smoke-1080p-prefilter-metrics ({filtering})",
+            lambda: api.Encoder(video_format(W, H), cfg), frames, warm=1)
+        out = StreamDecoder().decode_stream(stream)
+        worst_ssim = 0.0
+        for rec in gop.stats.frames:
+            num = rec["frame"]
+            src = cpu_f[num][0].astype(np.float64)
+            got = out[num][0].astype(np.float64)
+            mse = np.mean((got - src) ** 2)
+            want = round(99.0 if mse == 0
+                         else 10 * np.log10(255.0 ** 2 / mse), 3)
+            if rec["psnr"] != want:
+                raise AssertionError(f"phase22 {filtering} frame {num}: "
+                                     f"PSNR {rec['psnr']} on the card, "
+                                     f"{want} from the CPU")
+            d = abs(rec["ssim"] - ssim_frame(src, got))
+            worst_ssim = max(worst_ssim, d)
+            if d > 1e-4:
+                raise AssertionError(f"phase22 {filtering} frame {num}: "
+                                     f"SSIM {rec['ssim']} differs by {d}")
+        print(f"phase22 {filtering}: prefilter on the card == CPU; per-frame"
+              f" PSNR {[r['psnr'] for r in gop.stats.frames]} == the CPU's "
+              f"to 3 decimals, SSIM {[r['ssim'] for r in gop.stats.frames]}"
+              f" within {worst_ssim:.2e} of the CPU's", flush=True)
+        launches += n
+    return launches
+
+
+def phases_settings(card):
+    """Phases 19-22; returns their launch counts and the largest |diff| of
+    the kernel against its plain version at their launch shapes."""
+    done = {}
+    out = {}
+    out["launches_block_geometry"], w1 = phase_block_geometry(card, done)
+    out["launches_estimation"], w2 = phase_estimation(card, done)
+    phase_gather_decode(card)
+    out["launches_prefilter_metrics"] = phase_prefilter_metrics(card)
+    out["setting_shapes"] = [
+        dict(cur=list(k[0]), bs_y=k[1], bs_x=k[2], rad=k[3], scale=k[4], **v)
+        for k, v in sorted(done.items())]
+    return out, max(w1, w2)
+
+
 def main() -> int:
     card = gpu_line()
     print(f"phase0 gpu: {card}", flush=True)
@@ -1386,6 +1683,7 @@ def main() -> int:
     print(f"phase0 torch {torch.__version__} cuda {torch.version.cuda} "
           f"device {torch.cuda.get_device_name(0)}", flush=True)
 
+    t_start = time.perf_counter()
     secs = pr.build()
     print(f"phase1 built {pr.LIBRARY} in {secs:.2f} s", flush=True)
     for line in pr.BUILD_LOG.splitlines():
@@ -1409,6 +1707,16 @@ def main() -> int:
     # the long-GOP rate controls; each count is set to 0 just before its
     # path and read just after
     entry.update(phases_rate(card))
+    t_rate = time.perf_counter()
+    # the long-GOP encoder's remaining settings; each count is set to 0
+    # just before its path and read just after
+    settings, worst = phases_settings(card)
+    entry.update(settings)
+    entry["max_abs_err"] = max(entry["max_abs_err"], worst)
+    t_end = time.perf_counter()
+    print(f"wall: phases 1-18 {t_rate - t_start:.1f} s, phases 19-22 "
+          f"{t_end - t_rate:.1f} s (host clock, from the build on)",
+          flush=True)
 
     print(json.dumps({"kernels": [entry, probe_entry]}), flush=True)
     print(card, flush=True)

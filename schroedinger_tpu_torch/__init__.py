@@ -18,14 +18,15 @@ __version__ = "0.2.0"
 
 def clear_compiled_caches():
     """Drop every module-level cache of built steps: the inter step (which
-    serves single pictures and batches of B pictures alike), the fused
-    intra step, the low-delay analysis and the pipelined decoder's steps.
+    serves single pictures and batches of B pictures alike), the phase
+    correlation of each picture size, the fused intra step, the low-delay analysis and the pipelined decoder's steps.
     The counterpart of `schroedinger_tpu.clear_compiled_caches`, which
     leaves the JAX package's B-batch programs alive."""
     from schroedinger_tpu_torch.decoder import pipeline
     from schroedinger_tpu_torch.encoder import inter, intra, lowdelay
 
     inter._STEP_CACHE.clear()
+    inter._PHASECORR_FNS.clear()
     intra._I_STEP_CACHE.clear()
     pipeline._DEC_CACHE.clear()
     for cache in (lowdelay._ANALYZE_CACHE, lowdelay._TRANSFORM_CACHE,

@@ -16,7 +16,12 @@ force_profile / rate_control exactly like schro_encoder_start
                    enable_rdo_cbr, else the allocation controller),
                    constant_error and constant_noise_threshold; lossless
                    on the backref engine at quant index 0 with Haar-0;
-                   enable_multiquant / enable_dc_multiquant on any of them
+                   enable_multiquant / enable_dc_multiquant on any of them,
+                   and every other long-GOP setting: motion block size and
+                   overlap, codeblock size, the enable_*_estimation
+                   switches (chroma ME needs deep estimation), phase
+                   correlation, downsample_levels, the prefilters,
+                   enable_psnr / enable_ssim and perceptual weighting
 
 What is not ported raises NotImplementedError naming its ROADMAP.md
 item: interlaced coding (and deep long GOP, which GopEncoder refuses).

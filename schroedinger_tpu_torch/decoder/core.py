@@ -3,7 +3,9 @@
 Port of `schroedinger_tpu/decoder/core.py`.  Per picture: parse and MV
 entropy decode (host, native C++) -> residual decode (host, native C++)
 -> inverse wavelet (device) -> OBMC render from one or two references
-(device, patch path) -> combine -> reference bookkeeping in decode order
+(device: the patch render, or the per-pixel gather render for global
+motion, |mv| > MV_BOUND_PEL and overlap beyond twice the separation) ->
+combine -> reference bookkeeping in decode order
 (a reference picture enters the buffer, then retires the picture its
 header names).  Reference pictures stay on the device as u8 tensors with
 their half-pel planes; decoded frames come back to the host as numpy u8
@@ -12,8 +14,7 @@ coded after the reference that follows them).
 
 VC-2 low-delay pictures go to `decoder/lowdelay.py`, intra pictures to
 `decoder/intra.py`, both 8-bit or deep (uint16 planes out), arith or
-no-arith.  Not ported yet: the per-pixel gather render (global motion,
-|mv| > MV_BOUND_PEL) — a stream that needs it raises NotImplementedError.
+no-arith.
 """
 from __future__ import annotations
 
@@ -35,7 +36,8 @@ from schroedinger_tpu_torch.decoder import lowdelay as lod
 from schroedinger_tpu_torch.devices import resolve_device
 from schroedinger_tpu_torch.ops import obmc
 
-_MV_FIELDS = ("dx1", "dy1", "dx2", "dy2", "pred_mode", "dc0", "dc1", "dc2")
+_MV_FIELDS = ("dx1", "dy1", "dx2", "dy2", "pred_mode", "dc0", "dc1", "dc2",
+              "using_global")
 
 
 class BrokenPicture(Exception):
@@ -165,15 +167,18 @@ class StreamDecoder:
 
     def _render_inter(self, p: Params, mv, ref1: RefFrame,
                       ref2: Optional[RefFrame], residual_planes):
+        # vectors beyond the patch render's margin take the per-pixel
+        # gather render; global motion and wide overlaps take it by the
+        # render's own dispatch
         bound = obmc.MV_BOUND_PEL << p.mv_precision
-        if not all(np.abs(mv[k]).max(initial=0) <= bound
-                   for k in ("dx1", "dy1", "dx2", "dy2")):
-            raise NotImplementedError(
-                f"|mv| > {obmc.MV_BOUND_PEL} pel needs the per-pixel "
-                "gather render (not ported)")
+        in_bound = all(np.abs(mv[k]).max(initial=0) <= bound
+                       for k in ("dx1", "dy1", "dx2", "dy2"))
         mvt = {k: torch.as_tensor(np.asarray(mv[k], np.int32),
-                                  device=self.device) for k in _MV_FIELDS}
-        render = obmc.make_render_body(p, 2 if ref2 is not None else 1)
+                                  device=self.device)
+               for k in _MV_FIELDS if k in mv}
+        render = obmc.make_render_body(p, 2 if ref2 is not None else 1,
+                                       use_patches=None if in_bound
+                                       else False)
         preds = render(mvt, tuple(ref1.get_upsampled()),
                        tuple(ref2.get_upsampled())
                        if ref2 is not None else None)

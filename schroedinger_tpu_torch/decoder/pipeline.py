@@ -14,9 +14,10 @@ the shadow of device work.  Reference pictures stay on the device.
 
 Pictures outside the packed path's envelope go to `StreamDecoder`'s
 per-picture path, still on the device: per-codeblock quantisers, global
-motion, MVs beyond MV_BOUND_PEL, low delay, no-arith, deep video and the
-telemetry overlay, as in the JAX package.  Where that path is not ported
-either (the gather render, the overlay) it raises NotImplementedError.
+motion, MVs beyond MV_BOUND_PEL (both rendered by the per-pixel gather),
+low delay, no-arith, deep video and the telemetry overlay, as in the JAX
+package.  The overlay is not ported: asking for it raises
+NotImplementedError.
 """
 from __future__ import annotations
 

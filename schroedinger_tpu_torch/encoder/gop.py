@@ -27,11 +27,14 @@ Without either the pictures are coded at the fixed base indices.
 RD pick, refines each band's index codeblock by codeblock.
 
 The constructor takes the JAX encoder's whole signature with its
-defaults.  An option the port does not implement yet raises
-NotImplementedError when its value differs from the JAX default (see
-UNPORTED_DEFAULTS), so that `GopEncoder(vf, **kw)` gives the JAX
-encoder's stream for every `kw` it accepts.  Not ported yet besides:
-interlaced (field) coding and deep (>8-bit) video.
+defaults, and `GopEncoder(vf, **kw)` gives the JAX encoder's stream for
+every `kw`: the block geometry (`block_size`, `block_overlap`,
+`codeblock_size`), phase-correlation candidates, the estimation switches
+and `downsample_levels`, the prefilters (`filtering`, each picture
+filtered once), PSNR / SSIM of the reconstructions into `stats`, and the
+perceptual weighting.  Two formats raise NotImplementedError: interlaced
+(field) coding, not ported yet (ROADMAP.md Queue 1 item 8), and deep
+(>8-bit) video, which the reference codes intra only (ROADMAP.md Queue 3).
 """
 from __future__ import annotations
 
@@ -60,21 +63,17 @@ from schroedinger_tpu_torch.encoder.ratecontrol import (ArithCorrection,
                                                         stats_tables)
 from schroedinger_tpu_torch.encoder.weights import (band_lambda_scales,
                                                     cycles_per_degree)
+from schroedinger_tpu_torch.ops.filters import apply_prefilter
+from schroedinger_tpu_torch.ops.metrics import ssim_frame
 from schroedinger_tpu_torch.params import Params, subband_count
 from schroedinger_tpu_torch.pipeline import planes_to_device
 from schroedinger_tpu_torch.utils.telemetry import FrameStats
 from schroedinger_tpu_torch.video_format import VideoFormat
 from schroedinger_tpu_torch.wavelets import MAX_DEPTH_S16, Wavelet
 
-# the JAX GopEncoder's defaults of the options whose other values the
-# port does not implement yet: a value other than these raises
-# NotImplementedError.  The ported paths run exactly these settings.
-UNPORTED_DEFAULTS = dict(
-    enable_phasecorr=False, stats=None, perceptual_weighting="ccir959",
-    perceptual_distance=4.0, enable_psnr=False, enable_ssim=False,
-    block_size="automatic", block_overlap="automatic",
-    codeblock_size="automatic", filtering="none", downsample_levels=5,
-    estimation=())
+# motion block separation by block_size (init_params,
+# schroengine.c:410-455)
+BLOCK_SEPARATIONS = {"small": 8, "medium": 12, "large": 16}
 
 # magic_* tuning constants (schroencoder.c:4513-4535 defaults), the JAX
 # encoder's whole set.  keyframe_weight, inter_p_weight, inter_b_weight,
@@ -139,19 +138,14 @@ class GopEncoder:
             # a 1-deep reference buffer cannot host the tworef engine's
             # forward references: degrade to the backref (IPPP) engine
             gop_structure = "backref"
-        estimation = tuple(estimation)
-        given = locals()
-        unsupported = {f"{k}={given[k]!r}": given[k] != v
-                       for k, v in UNPORTED_DEFAULTS.items()}
-        unsupported.update({
-            "interlaced coding": video_format.interlaced_coding,
-            "bit depth > 8": video_format.bit_depth != 8,
-        })
-        missing = [k for k, v in unsupported.items() if v]
-        if missing:
+        if video_format.interlaced_coding:
             raise NotImplementedError(
-                "not ported to schroedinger_tpu_torch yet: "
-                + ", ".join(missing))
+                "interlaced (field) coding is not ported to "
+                "schroedinger_tpu_torch yet (ROADMAP.md Queue 1 item 8)")
+        if video_format.bit_depth != 8:
+            raise NotImplementedError(
+                "deep (>8-bit) long-GOP coding is refused: the reference "
+                "codes deep formats intra only (ROADMAP.md Queue 3)")
         self.device = resolve_device(device)
         self.vf = video_format
         self.intra_wavelet = intra_wavelet
@@ -175,10 +169,22 @@ class GopEncoder:
         self.scene_change_threshold = scene_change_threshold
         self._prev_input = None
         self._prev_mad = None
-        self.stats = FrameStats()
+        self.stats = stats if stats is not None else FrameStats()
         self.perceptual_weighting = perceptual_weighting
         self.perceptual_distance = perceptual_distance
         self.downsample_levels = downsample_levels
+        self.enable_phasecorr = enable_phasecorr
+        self.enable_psnr = enable_psnr
+        self.enable_ssim = enable_ssim
+        self.block_size = block_size
+        self.block_overlap = block_overlap
+        self.codeblock_size = codeblock_size
+        self.filtering = filtering
+        self.filter_value = filter_value
+        # estimation-stage switches (the enable_*_estimation settings):
+        # tokens among no_hierarchical, no_deep, no_bigblock, no_zero,
+        # chroma_me and fullscan, resolved by inter._estimation
+        self.estimation = tuple(estimation)
         self.enable_b_batch = enable_b_batch
         self.enable_multiquant = enable_multiquant
         self.enable_dc_multiquant = enable_dc_multiquant
@@ -257,14 +263,38 @@ class GopEncoder:
         p.set_default_quant_matrix()
         p.mv_precision = self.mv_precision if num_refs else 0
 
-        # automatic motion block size, partial overlap (blen = 3/2 bsep)
-        # (init_params, schroengine.c:410-455)
+        # motion block size and overlap (init_params,
+        # schroengine.c:410-455); automatic size by picture area,
+        # automatic overlap = partial (blen = 3/2 bsep)
         area = self.vf.width * self.vf.height
-        bsep = 16 if area >= 1920 * 1080 else 12 if area >= 960 * 540 else 8
+        bsep = BLOCK_SEPARATIONS.get(
+            self.block_size,
+            16 if area >= 1920 * 1080 else 12 if area >= 960 * 540 else 8)
         p.xbsep_luma = p.ybsep_luma = bsep
-        p.xblen_luma = p.yblen_luma = (bsep * 3 // 2) & ~3
-        # automatic codeblocks; one DC codeblock unless DC multiquant is
-        # on (reference decoder-compat workaround, schroengine.c:508-511)
+        if self.block_overlap == "none":
+            blen = bsep
+        elif self.block_overlap == "full":
+            blen = 2 * bsep
+        else:
+            blen = (bsep * 3 // 2) & ~3
+        p.xblen_luma = p.yblen_luma = blen
+        # codeblock_size (schroengine.c:459-505): small / medium aim at
+        # about 5x5 / 8x8 coefficient blocks, large keeps the defaults
+        # set above, full is one block per subband
+        if self.codeblock_size in ("small", "medium"):
+            denom = 5 if self.codeblock_size == "small" else 8
+            for i in range(self.depth + 1):
+                shift = self.depth if i == 0 else self.depth + 1 - i
+                p.horiz_codeblocks[i] = max(
+                    1, (p.iwt_luma_width >> shift) // denom)
+                p.vert_codeblocks[i] = max(
+                    1, (p.iwt_luma_height >> shift) // denom)
+        elif self.codeblock_size == "full":
+            for i in range(self.depth + 1):
+                p.horiz_codeblocks[i] = 1
+                p.vert_codeblocks[i] = 1
+        # one DC codeblock unless DC multiquant is on (reference
+        # decoder-compat workaround, schroengine.c:508-511)
         if not self.enable_dc_multiquant:
             p.horiz_codeblocks[0] = 1
             p.vert_codeblocks[0] = 1
@@ -280,10 +310,43 @@ class GopEncoder:
 
     def _step_kw(self) -> dict:
         return dict(
+            use_phasecorr=self.enable_phasecorr,
             me_levels=self.downsample_levels,
             block_search_threshold=self.magic["block_search_threshold"],
             scan_distance=self.magic["scan_distance"],
+            estimation=self.estimation,
             error_power=self.magic["error_power"], device=self.device)
+
+    def _prefilter(self, planes):
+        """The encoder's prefilter (schroencoder.c:2211-2234): host u8
+        planes out, each input picture filtered once."""
+        if self.filtering in ("none", 0, None):
+            return planes
+        with record_function("prefilter"):
+            return apply_prefilter(planes, self.filtering,
+                                   self.filter_value, self.device)
+
+    def _want_metrics(self) -> bool:
+        return self.enable_psnr or self.enable_ssim
+
+    def _quality_metrics(self, recon, planes) -> dict:
+        """The optional postanalysis (schroencoder.c:2729-2752): luma PSNR
+        and SSIM of the coded reconstruction against the (prefiltered)
+        input, on the host."""
+        out = {}
+        if recon is None or planes is None or not self._want_metrics():
+            return out
+        with record_function("quality_metrics"):
+            rec = recon[0].cpu().numpy().astype(np.float64)
+            src = np.asarray(planes[0], np.float64)
+            if self.enable_psnr:
+                mse = np.mean((rec - src) ** 2)
+                out["psnr"] = round(
+                    99.0 if mse == 0
+                    else float(10 * np.log10(255.0 ** 2 / mse)), 3)
+            if self.enable_ssim:
+                out["ssim"] = round(float(ssim_frame(src, rec)), 4)
+        return out
 
     def _scene_change_score(self, planes) -> float:
         """MAD vs previous input, downsampled 4x (schroencoder.c:1909
@@ -312,6 +375,7 @@ class GopEncoder:
         """Display-order input; returns coded-order parse units (references
         before the B pictures that use them).  The biref engine may return
         b'' while it buffers a subgroup."""
+        planes = self._prefilter(planes)
         if self.gop_structure == "biref":
             num = self.frame_number
             self.frame_number += 1
@@ -357,8 +421,9 @@ class GopEncoder:
             out += self.flush()
             out += self._chain.add([bs.make_eos_unit()], final_eos=True)
             return bytes(out)
-        pends = deque()  # (pending dict, (num, ref_num, retired, sc))
+        pends = deque()  # (pending, (num, ref_num, retired, sc, keep))
         for planes in frames:
+            planes = self._prefilter(planes)
             num = self.frame_number
             is_intra, sc = self._is_intra(num, planes)
             if is_intra or self.last_ref is None:
@@ -375,7 +440,8 @@ class GopEncoder:
                 # tables the engine then picks from
                 out += self._finish_pending(pends.popleft())
                 qargs = self._quant_args("P")
-            meta = (num, self.last_ref, self.prev_ref, sc)
+            meta = (num, self.last_ref, self.prev_ref, sc,
+                    planes if self._want_metrics() else None)
             pending = ei_inter.start_inter_picture(
                 planes, self._params(1), self.ref_frames[self.last_ref],
                 base_qi=self.base_qi_inter, **self._step_kw(), **qargs)
@@ -663,7 +729,8 @@ class GopEncoder:
             base_qi=self.base_qi_inter,
             ref2=(self.ref_frames[ref1] if ref1 is not None else None),
             want_recon=True, **self._step_kw(), **self._quant_args("P"))
-        meta = (num, refs, retire, True, "P", sc)
+        meta = (num, refs, retire, True, "P", sc,
+                planes if self._want_metrics() else None)
         self.ref_frames[num] = RefFrame(tuple(pending["recon"]))
         self._retire_and_add(retire, num)
         # expire_reference(encoder->last_ref) after coding each P
@@ -680,8 +747,10 @@ class GopEncoder:
             pending = ei_inter.start_inter_picture(
                 planes, self._params(2), self.ref_frames[ref0],
                 base_qi=self.base_qi_b, ref2=self.ref_frames[ref1],
-                want_recon=self.enable_md5, **self._step_kw(), **qargs)
-        meta = (num, [ref0, ref1], None, False, "B", sc)
+                want_recon=self.enable_md5 or self._want_metrics(),
+                **self._step_kw(), **qargs)
+        meta = (num, [ref0, ref1], None, False, "B", sc,
+                planes if self._want_metrics() else None)
         self._pends2.append((pending, meta))
         return self._drain_pends2()
 
@@ -690,28 +759,29 @@ class GopEncoder:
         (inter.start_inter_batch: each ME search one launch for all of
         them, and one copy of their coded data to the host).  Returns None
         to fall back to the per-picture path under exactly the JAX
-        encoder's conditions, which decide the bytes: a tail or cut
-        subgroup, a reconstruction wanted (MD5), mixed references or
-        max_refs < 2, or no on-device pick (fixed quantisers, or a host
-        pick: the constant_error and constant_noise_threshold engines and
-        the allocation controller code each B picture on its own, at 14
-        kernel launches a picture on the card instead of 14 a batch);
-        phase correlation, the JAX package's other fallback, is not taken
-        by the constructor.
+        encoder's conditions, which decide the bytes, in its order: phase
+        correlation (its candidates are per picture), a tail or cut
+        subgroup, a reconstruction wanted (MD5, PSNR or SSIM), mixed
+        references or max_refs < 2, or no on-device pick (fixed
+        quantisers, or a host pick: the constant_error and
+        constant_noise_threshold engines and the allocation controller
+        code each B picture on its own, at 14 kernel launches a picture on
+        the card instead of 14 a batch).
 
         Two things of the JAX encoder's version are left out on purpose.
         It takes the three pictures' quant args before its last check,
         that they hold lam_bands; the port makes that check first
         (`_device_pick`; the quant args have no side effects for a B
         picture, so the bytes are the same).  It prefilters the B frames a
-        second time; the port has no prefilters yet (`filtering` stays
-        "none"), and the PR that ports them must not copy that.  Its
-        compile barrier (a fetch of the pending pictures without their
-        commits, for the TPU runtime) changes no byte and has no
-        counterpart here."""
+        second time (ROADMAP.md Queue 3); the port filters every picture
+        once, in encode_frame.  Its compile barrier (a fetch of the
+        pending pictures without their commits, for the TPU runtime)
+        changes no byte and has no counterpart here."""
+        if self.enable_phasecorr:
+            return None     # per-picture candidates: per picture
         if len(bs_) != self.subgroup_length - 1:
             return None     # tail/cut subgroups: per picture
-        if self.enable_md5:
+        if self.enable_md5 or self._want_metrics():
             return None     # a reconstruction is wanted: per picture
         nums = [b[0] for b in bs_]
         refsl = [self._pick_refs(n) for n in nums]
@@ -733,10 +803,11 @@ class GopEncoder:
                 me_levels=self.downsample_levels,
                 block_search_threshold=self.magic["block_search_threshold"],
                 scan_distance=self.magic["scan_distance"],
+                estimation=self.estimation,
                 error_power=self.magic["error_power"], device=self.device)
         for (num, _, sc), pending in zip(bs_, pendings):
             self._pends2.append(
-                (pending, (num, [ref0, ref1], None, False, "B", sc)))
+                (pending, (num, [ref0, ref1], None, False, "B", sc, None)))
         return self._drain_pends2()
 
     def _drain_pends2(self) -> bytes:
@@ -757,7 +828,7 @@ class GopEncoder:
         return bytes(out)
 
     def _finish_pending2(self, pend) -> bytes:
-        pending, (num, refs, retired, is_ref, kind, sc) = pend
+        pending, (num, refs, retired, is_ref, kind, sc, keep) = pend
         unit, stats = ei_inter.finish_inter_picture(
             pending, num, refs[0], is_ref=is_ref, retired=retired,
             ref2_num=refs[1] if len(refs) > 1 else None)
@@ -785,7 +856,8 @@ class GopEncoder:
                           lam_scale=pending["lam_scale"],
                           buffer_level=(self.rc.buffer_level if self.rc
                                         else None),
-                          base_lambda=getattr(self.rc, "base_lambda", None))
+                          base_lambda=getattr(self.rc, "base_lambda", None),
+                          **self._quality_metrics(pending["recon"], keep))
         if pad_unit:
             units.append(pad_unit)
         return self._chain.add(units)
@@ -810,7 +882,7 @@ class GopEncoder:
         """Finish a pipelined backref P picture: its unit, and the engine,
         stat-table, arith-correction, badblock, ME-lambda and rate-model
         updates the JAX encoder commits here."""
-        pending, (num, ref_num, retired, sc) = pend
+        pending, (num, ref_num, retired, sc, keep) = pend
         unit, stats = ei_inter.finish_inter_picture(
             pending, num, ref_num, is_ref=True, retired=retired)
         if self.qengine is not None:
@@ -832,7 +904,8 @@ class GopEncoder:
                           badblock=round(pending["badblock_ratio"], 3),
                           qi_bands=pending["qi_bands"].tolist(),
                           buffer_level=(self.rc.buffer_level if self.rc
-                                        else None))
+                                        else None),
+                          **self._quality_metrics(pending["recon"], keep))
         if pad_unit:
             units.append(pad_unit)
         return self._chain.add(units)
@@ -1033,5 +1106,6 @@ class GopEncoder:
                                     if is_intra else None),
                           buffer_level=(self.rc.buffer_level if self.rc
                                         else None),
-                          base_lambda=getattr(self.rc, "base_lambda", None))
+                          base_lambda=getattr(self.rc, "base_lambda", None),
+                          **self._quality_metrics(recon, planes))
         return self._chain.add(units)

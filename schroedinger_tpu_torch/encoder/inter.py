@@ -20,8 +20,11 @@ The quant indices come from the on-device RD pick (`lam_bands`, with the
 multiquant refinement per codeblock under codeblock mode 1), from a host
 engine's pick (`qi_bands_override`) or from the fixed base index;
 `want_stats` brings the stat tables back to the host for the lagged host
-picks.  Not ported yet: phase-correlation candidates and the estimation
-switches.
+picks.  The estimation switches (`estimation` tokens: no_hierarchical,
+no_deep, no_bigblock, no_zero, chroma_me, fullscan) shape the ME and the
+RD split as the JAX step resolves them; `use_phasecorr` injects
+N_PHASECORR_CANDS phase-correlation vectors into the ME's candidate
+competition.
 """
 from __future__ import annotations
 
@@ -44,6 +47,7 @@ from schroedinger_tpu_torch.coding import slices as sl
 from schroedinger_tpu_torch.decoder.core import RefFrame
 from schroedinger_tpu_torch.devices import resolve_device
 from schroedinger_tpu_torch.encoder import me as me_mod
+from schroedinger_tpu_torch.encoder import phasecorr as pcm
 from schroedinger_tpu_torch.encoder.intra import _codeblock_counts
 from schroedinger_tpu_torch.encoder.lowdelay import _forward
 from schroedinger_tpu_torch.encoder.me import _take
@@ -60,6 +64,39 @@ from schroedinger_tpu_torch.ops.patch_refine import extract_ref_patches
 
 _P_FIELD_ORDER = ("split", "pred_mode", "using_global", "dx1", "dy1",
                   "dx2", "dy2", "dc0", "dc1", "dc2")
+
+N_PHASECORR_CANDS = 8
+_PHASECORR_FNS = {}
+
+
+def _phasecorr_candidates(p: Params, cur_y, ref_y):
+    """The phase-correlation candidate vectors of a picture pair: the
+    windowed correlation on the device (`phasecorr.make_phasecorr_fn`),
+    the distilling pick on the host.  Returns a host (N_PHASECORR_CANDS,
+    2) int32 array of (dy, dx)."""
+    pw, ph = p.video_format.picture_luma_size()
+    fn = _PHASECORR_FNS.get((pw, ph))
+    if fn is None:
+        fn = _PHASECORR_FNS[(pw, ph)] = pcm.make_phasecorr_fn(ph, pw)
+    vecs = fn(cur_y, ref_y)
+    return pcm.pick_candidates(vecs.cpu().numpy(), n=N_PHASECORR_CANDS)
+
+
+def _estimation(estimation, me_levels: int, scan_distance: float):
+    """The estimation switches as the JAX step resolves them
+    (schroencoder.c:638-648): (me_levels, coarse_radius, deep, bigblock,
+    zero_cand, chroma_me).  no_hierarchical and fullscan run the
+    full-resolution scan alone, fullscan at radius >= 32; no_deep drops
+    the subpel refine and the candidate competition."""
+    est = set(estimation)
+    coarse_radius = max(1, round(2 * scan_distance))
+    if "fullscan" in est:
+        coarse_radius = max(coarse_radius, 32)
+    if "fullscan" in est or "no_hierarchical" in est:
+        me_levels = 1
+    return (me_levels, coarse_radius, "no_deep" not in est,
+            "no_bigblock" not in est, "no_zero" not in est,
+            "chroma_me" in est)
 
 
 def _block_mean_f32(c, ynb, bsep_y, xnb, bsep_x):
@@ -135,12 +172,14 @@ def _sbits(v):
     return (2 * n - 1 + (m != 0).to(torch.int32)).to(torch.float32)
 
 
-def make_rd_split_body(p: Params):
+def make_rd_split_body(p: Params, granularities: bool = True):
     """Per-superblock RD split + mode search (schro_mode_decision analog,
     schromotionest.c:520-695): DC-vs-MC prediction cost per block (split
     2), per 2x2 quad (split 1) and per superblock (split 0); each
     superblock takes the granularity minimising
         sum(distortion) + lambda * estimated_bits.
+    granularities=False (no bigblock estimation): per-block modes only,
+    split 2 everywhere.
 
         body(c, ref_y, dy, dx, sad_mc, sad_dc, mean_y, mean_u, mean_v, lam)
           -> MV-field dict
@@ -160,6 +199,19 @@ def make_rd_split_body(p: Params):
 
     def body(c, ref_y, dy, dx, sad_mc, sad_dc, mean_y, mean_u, mean_v, lam):
         f32 = torch.float32
+        if not granularities:
+            mc = (sad_mc * 10 < sad_dc * 11).to(torch.int32)
+            zero = torch.zeros_like(mc)
+            return {
+                "split": torch.full_like(mc, 2),
+                "pred_mode": mc,
+                "using_global": zero,
+                "dx1": dx * mc, "dy1": dy * mc,
+                "dx2": zero, "dy2": zero,
+                "dc0": clip8(mean_y) * (1 - mc),
+                "dc1": clip8(mean_u) * (1 - mc),
+                "dc2": clip8(mean_v) * (1 - mc),
+            }
         # aggregate MVs per quad / superblock (subpel units)
         qdy, qdx = _iavg(_pool2(dy), 4), _iavg(_pool2(dx), 4)
         sdy = _iavg(_pool2(_pool2(dy)), 16)
@@ -255,7 +307,7 @@ def make_rd_split_body(p: Params):
     return body
 
 
-def make_rd_split_body2(p: Params):
+def make_rd_split_body2(p: Params, granularities: bool = True):
     """Two-reference RD split + mode search (candidate modes DC / ref1 /
     ref2 / biref, schro_mode_decision over one motion field per mode,
     schromotionest.c:520-695).
@@ -269,7 +321,9 @@ def make_rd_split_body2(p: Params):
     average is measured at full pel (a decision heuristic: coded MVs keep
     subpel precision).  Integer fields are exact; costs are float32.
     Every per-picture argument may carry leading batch dims (lam then
-    broadcasts against the block fields); P1 and P2 are shared."""
+    broadcasts against the block fields); P1 and P2 are shared.
+    granularities=False (no bigblock estimation): the 4-way pick per
+    block on SADs alone, split 2 everywhere."""
     ynb, xnb = p.y_num_blocks, p.x_num_blocks
     ybsep, xbsep = p.ybsep_luma, p.xbsep_luma
     prec = p.mv_precision
@@ -291,8 +345,35 @@ def make_rd_split_body2(p: Params):
         k11 = torch.tensor(1.1, dtype=f32, device=dev)
         k095 = torch.tensor(0.95, dtype=f32, device=dev)
 
+        def bi_sad(cb, m1y, m1x, m2y, m2x, nby, nbx, bs_y, bs_x):
+            p1 = extract_ref_patches(P1, clipf(m1y), clipf(m1x), nby, nbx,
+                                     bs_y, bs_x, 0, margin)
+            p2 = extract_ref_patches(P2, clipf(m2y), clipf(m2x), nby, nbx,
+                                     bs_y, bs_x, 0, margin)
+            avg = (p1[:, :bs_y, :bs_x] + p2[:, :bs_y, :bs_x] + 1) >> 1
+            return (cb - avg).abs().sum((1, 2), dtype=torch.int32).reshape(
+                m1y.shape)
+
         # current blocks at the three granularities
         cb2 = me_mod._to_blocks(c, ynb, ybsep, xnb, xbsep)
+        if not granularities:
+            sad_bi = bi_sad(cb2, dy1, dx1, dy2, dx2, ynb, xnb, ybsep, xbsep)
+            mode = torch.argmin(torch.stack(
+                [sad_dc.to(f32) * k11, sad1.to(f32), sad2.to(f32),
+                 sad_bi.to(f32) * k095]), dim=0).to(torch.int32)
+            use1 = ((mode & 1) != 0).to(torch.int32)
+            use2 = ((mode & 2) != 0).to(torch.int32)
+            is_dc = (mode == 0).to(torch.int32)
+            zero = torch.zeros_like(mode)
+            d = dcs(mean_y, mean_u, mean_v)
+            return {
+                "split": torch.full_like(mode, 2),
+                "pred_mode": mode,
+                "using_global": zero,
+                "dx1": dx1 * use1, "dy1": dy1 * use1,
+                "dx2": dx2 * use2, "dy2": dy2 * use2,
+                "dc0": d[0] * is_dc, "dc1": d[1] * is_dc, "dc2": d[2] * is_dc,
+            }
         cb1 = me_mod._to_blocks(c, ynb // 2, 2 * ybsep, xnb // 2, 2 * xbsep)
         cb0 = me_mod._to_blocks(c, ynb // 4, 4 * ybsep, xnb // 4, 4 * xbsep)
 
@@ -311,15 +392,6 @@ def make_rd_split_body2(p: Params):
 
         (q1y, q1x, sad1_q), (s1y, s1x, sad1_s) = gran_sads(dy1, dx1, P1)
         (q2y, q2x, sad2_q), (s2y, s2x, sad2_s) = gran_sads(dy2, dx2, P2)
-
-        def bi_sad(cb, m1y, m1x, m2y, m2x, nby, nbx, bs_y, bs_x):
-            p1 = extract_ref_patches(P1, clipf(m1y), clipf(m1x), nby, nbx,
-                                     bs_y, bs_x, 0, margin)
-            p2 = extract_ref_patches(P2, clipf(m2y), clipf(m2x), nby, nbx,
-                                     bs_y, bs_x, 0, margin)
-            avg = (p1[:, :bs_y, :bs_x] + p2[:, :bs_y, :bs_x] + 1) >> 1
-            return (cb - avg).abs().sum((1, 2), dtype=torch.int32).reshape(
-                m1y.shape)
 
         sad_bi = bi_sad(cb2, dy1, dx1, dy2, dx2, ynb, xnb, ybsep, xbsep)
         sad_bi_q = bi_sad(cb1, q1y, q1x, q2y, q2x, ynb // 2, xnb // 2,
@@ -412,34 +484,37 @@ _STEP_CACHE = {}
 
 def _step_key(p: Params, rdo_pick: bool, want_recon: bool, me_levels: int,
               block_search_threshold: float, scan_distance: float,
-              error_power: float, want_stats: bool = False):
+              error_power: float, want_stats: bool = False,
+              n_extra: int = 0, estimation: tuple = ()):
     vf = p.video_format
     return vf.picture_luma_size() + (
         p.transform_depth, int(p.wavelet_filter_index), vf.chroma_format,
         p.mv_precision, p.xbsep_luma, p.ybsep_luma, p.xblen_luma,
-        p.yblen_luma, p.num_refs, want_recon, rdo_pick, want_stats,
-        me_levels, round(block_search_threshold * 16),
-        round(scan_distance * 4), round(error_power * 16),
-        tuple(p.horiz_codeblocks), tuple(p.vert_codeblocks),
-        p.codeblock_mode_index)
+        p.yblen_luma, n_extra, p.num_refs, want_recon, rdo_pick,
+        want_stats, me_levels, round(block_search_threshold * 16),
+        round(scan_distance * 4), tuple(sorted(estimation)),
+        round(error_power * 16), tuple(p.horiz_codeblocks),
+        tuple(p.vert_codeblocks), p.codeblock_mode_index)
 
 
 def get_p_step(p: Params, rdo_pick: bool = False, want_recon: bool = True,
                me_levels: int = 5, block_search_threshold: float = 15.0,
                scan_distance: float = 4.0, error_power: float = 4.0,
-               want_stats: bool = False):
+               want_stats: bool = False, n_extra: int = 0,
+               estimation: tuple = ()):
     """make_p_step, built once per picture variant (one step serves every
     batch size)."""
     key = _step_key(p, rdo_pick, want_recon, me_levels,
                     block_search_threshold, scan_distance, error_power,
-                    want_stats)
+                    want_stats, n_extra, tuple(estimation))
     hit = _STEP_CACHE.get(key)
     if hit is None:
         hit = _STEP_CACHE[key] = make_p_step(
             p, rdo_pick=rdo_pick, want_recon=want_recon, me_levels=me_levels,
             block_search_threshold=block_search_threshold,
             scan_distance=scan_distance, error_power=error_power,
-            want_stats=want_stats)
+            want_stats=want_stats, n_extra=n_extra,
+            estimation=tuple(estimation))
     return hit
 
 
@@ -447,12 +522,14 @@ def b_batch_is_cached(p: Params, n: int, want_recon: bool = False,
                       me_levels: int = 5,
                       block_search_threshold: float = 15.0,
                       scan_distance: float = 4.0,
-                      error_power: float = 4.0) -> bool:
+                      error_power: float = 4.0,
+                      estimation: tuple = ()) -> bool:
     """True when the step that start_inter_batch runs for this variant is
     built.  The step takes any batch size n, so this is the per-picture
     step's test; the JAX package compiles one program per n."""
     return _step_key(p, True, want_recon, me_levels, block_search_threshold,
-                     scan_distance, error_power) in _STEP_CACHE
+                     scan_distance, error_power,
+                     estimation=tuple(estimation)) in _STEP_CACHE
 
 
 # per-codeblock quant deltas tried by the multiquant refinement
@@ -532,18 +609,21 @@ def _mq_layout(p: Params, shapes3, rdo_pick: bool):
 def make_p_step(p: Params, rdo_pick: bool = False, want_recon: bool = True,
                 me_levels: int = 5, block_search_threshold: float = 15.0,
                 scan_distance: float = 4.0, error_power: float = 4.0,
-                want_stats: bool = False):
+                want_stats: bool = False, n_extra: int = 0,
+                estimation: tuple = ()):
     """(front, back, shapes3) of a batch of N inter pictures with
     p.num_refs references, all N predicted from the same references (the
     B pictures of a subgroup, or one picture with N = 1).  Each picture
     comes out as it would alone: every stage takes a leading batch dim,
     and the table sums stay float64 sums of float32 terms per picture.
 
-      front(y, u, v, ref1, ref2, lam)
+      front(y, u, v, ref1, ref2, lam, extra=None)
           -> (flats (3,), preds (3,), fields int16 (N, 10, yb, xb),
               badblock (N,))
         y/u/v: (N, h, w) u8 plane tensors; ref1/ref2: RefFrame (ref2 None
-        for one reference); lam: (N,) float32, the mode-decision lambdas.
+        for one reference); lam: (N,) float32, the mode-decision lambdas;
+        extra: with n_extra, the host (n_extra, 2) injected ME candidates
+        (phase correlation), shared by both references.
         flats are (N, n_c) int32, preds (N, h_c, w_c) int32.
       back(flats, preds, qsel) -> dict
         qsel is an (N, 3*nb) int tensor of quant indices, component-major,
@@ -588,16 +668,26 @@ def make_p_step(p: Params, rdo_pick: bool = False, want_recon: bool = True,
             boff += bn
 
     pw0, ph0 = vf.picture_luma_size()
-    # magic_scan_distance drives the exhaustive coarse-scan radius
-    coarse_radius = max(1, round(2 * scan_distance))
+    # magic_scan_distance drives the exhaustive coarse-scan radius; the
+    # estimation switches reshape the ME and the RD split
+    (me_levels, coarse_radius, deep, bigblock, zero_cand,
+     chroma_me) = _estimation(estimation, me_levels, scan_distance)
+    chroma_geom = None
+    if chroma_me:
+        wc0, hc0 = vf.picture_chroma_size()
+        chroma_geom = (p.ybsep_luma >> v_shift, p.xbsep_luma >> h_shift,
+                       hc0, wc0)
     me_body = me_mod.make_me_body(ph0, pw0, p.xbsep_luma, p.ybsep_luma,
                                   xnb, ynb, levels=me_levels,
-                                  coarse_radius=coarse_radius)
+                                  coarse_radius=coarse_radius,
+                                  n_extra=n_extra, candidates=deep,
+                                  zero_cand=zero_cand, chroma=chroma_geom)
     subpel_body = (me_mod.make_subpel_body(
         ph0, pw0, p.xbsep_luma, p.ybsep_luma, xnb, ynb, p.mv_precision)
-        if p.mv_precision > 0 else None)
-    rd_split_body = (make_rd_split_body(p) if num_refs == 1
-                     else make_rd_split_body2(p))
+        if p.mv_precision > 0 and deep else None)
+    rd_split_body = (make_rd_split_body(p, granularities=bigblock)
+                     if num_refs == 1
+                     else make_rd_split_body2(p, granularities=bigblock))
     render_body = obmc.make_render_body(p, num_refs)
     pad_h, pad_w = p.ybsep_luma * ynb, p.xbsep_luma * xnb
     rd_margin = me_mod.ME_BOUND_PEL + 16
@@ -641,11 +731,19 @@ def make_p_step(p: Params, rdo_pick: bool = False, want_recon: bool = True,
                              for ix in mq_index]}
         return hit
 
-    def me_pass(y, ref: RefFrame):
+    def me_pass(y, u, v, ref: RefFrame, extra):
         with record_function("me_pass"):
-            dy, dx, sad = me_body(y, ref.planes[0])
+            # chroma ME reads the reference's pel chroma planes (the even
+            # samples of its half-pel planes)
+            cpl = ((u, v, ref.planes[1], ref.planes[2])
+                   if chroma_geom is not None else None)
+            dy, dx, sad = me_body(y, ref.planes[0], extra, cpl)
             if subpel_body is not None:
                 dy, dx, sad = subpel_body(y, ref.get_upsampled()[0], dy, dx)
+            elif p.mv_precision > 0:
+                # no deep estimation: full-pel vectors, scaled only
+                dy = dy << p.mv_precision
+                dx = dx << p.mv_precision
             return dy, dx, sad
 
     def padref(r):
@@ -653,9 +751,9 @@ def make_p_step(p: Params, rdo_pick: bool = False, want_recon: bool = True,
         return pad_edge(pad_edge(r, 0, pad_h - h, 0, pad_w - w),
                         rd_margin, rd_margin, rd_margin, rd_margin)
 
-    def front(y, u, v, ref1, ref2, lam):
+    def front(y, u, v, ref1, ref2, lam, extra=None):
         lam = lam[:, None, None]
-        dy, dx, sad_mc = me_pass(y, ref1)
+        dy, dx, sad_mc = me_pass(y, u, v, ref1, extra)
         sad_dc, mean_y = _dc_stats(y, p.ybsep_luma, p.xbsep_luma, ynb, xnb)
         mean_u = _block_means(u, p.ybsep_luma >> v_shift,
                               p.xbsep_luma >> h_shift, ynb, xnb)
@@ -669,7 +767,7 @@ def make_p_step(p: Params, rdo_pick: bool = False, want_recon: bool = True,
                 fields = rd_split_body(cpad, ref1.planes[0], dy, dx, sad_mc,
                                        sad_dc, mean_y, mean_u, mean_v, lam)
         else:
-            dy2, dx2, sad2 = me_pass(y, ref2)
+            dy2, dx2, sad2 = me_pass(y, u, v, ref2, extra)
             with record_function("rd_split"):
                 fields = rd_split_body(
                     cpad, padref(ref1.planes[0]), padref(ref2.planes[0]),
@@ -799,9 +897,10 @@ def make_p_step(p: Params, rdo_pick: bool = False, want_recon: bool = True,
 
 
 def write_prediction_parameters(w: BitWriter, p: Params) -> None:
-    """Mirror of read_picture_prediction_parameters (no global motion)."""
-    if p.have_global_motion:
-        raise NotImplementedError("global motion is not ported")
+    """Mirror of read_picture_prediction_parameters: the block geometry
+    (an index into the standard table, or the custom tuple), the MV
+    precision, the global motion of each reference, the prediction mode
+    and the picture weights."""
     blocks = [(0, 0, 0, 0), (8, 8, 4, 4), (12, 12, 8, 8),
               (16, 16, 12, 12), (24, 24, 16, 16)]
     tup = (p.xblen_luma, p.yblen_luma, p.xbsep_luma, p.ybsep_luma)
@@ -812,7 +911,32 @@ def write_prediction_parameters(w: BitWriter, p: Params) -> None:
         for v in tup:
             w.write_uint(v)
     w.write_uint(p.mv_precision)
-    w.write_bit(0)
+    w.write_bit(1 if p.have_global_motion else 0)
+    if p.have_global_motion:
+        for i in range(p.num_refs):
+            gm = p.global_motion[i]
+            if (gm.b0, gm.b1) == (0, 0):
+                w.write_bit(0)
+            else:
+                w.write_bit(1)
+                w.write_sint(gm.b0)
+                w.write_sint(gm.b1)
+            if (gm.a_exp, gm.a00, gm.a01, gm.a10, gm.a11) == (0, 1, 0, 0, 1):
+                w.write_bit(0)
+            else:
+                w.write_bit(1)
+                w.write_uint(gm.a_exp)
+                w.write_sint(gm.a00)
+                w.write_sint(gm.a01)
+                w.write_sint(gm.a10)
+                w.write_sint(gm.a11)
+            if (gm.c_exp, gm.c0, gm.c1) == (0, 0, 0):
+                w.write_bit(0)
+            else:
+                w.write_bit(1)
+                w.write_uint(gm.c_exp)
+                w.write_sint(gm.c0)
+                w.write_sint(gm.c1)
     w.write_uint(p.picture_pred_mode)
     if (p.picture_weight_bits, p.picture_weight_1,
             p.picture_weight_2) == (1, 1, 1):
@@ -843,24 +967,33 @@ def _check_refs(p: Params, ref1, ref2, dev):
 
 def _run_step(planes_list, p: Params, ref1: RefFrame, ref2, want_recon,
               qsels, me_lams, qi_bands, me_levels, block_search_threshold,
-              scan_distance, error_power, dev, want_stats=False):
+              scan_distance, error_power, dev, want_stats=False,
+              use_phasecorr=False, estimation=()):
     """The device work of N pictures against (ref1, ref2) as one batch:
     the planes stacked, then front and back.  qsels: per picture
     (lam_bands (3nb,) float64, target_bits, corr_bands (3nb,)) with the
     RD pick, or None with the fixed qi_bands (3nb,); me_lams: per picture;
     want_stats: build the stat tables and bring them back with the picture
-    even without the RD pick.  Returns the pending dicts of the batch's
-    pictures, in order."""
+    even without the RD pick; use_phasecorr (one picture): inject its
+    phase-correlation candidates against ref1 into the ME.  Returns the
+    pending dicts of the batch's pictures, in order."""
     rdo_pick = qsels is not None
+    n_extra = N_PHASECORR_CANDS if use_phasecorr else 0
     front, back, shapes3 = get_p_step(
         p, rdo_pick=rdo_pick, want_recon=want_recon, me_levels=me_levels,
         block_search_threshold=block_search_threshold,
         scan_distance=scan_distance, error_power=error_power,
-        want_stats=want_stats)
+        want_stats=want_stats, n_extra=n_extra, estimation=estimation)
     n = len(planes_list)
     nb = subband_count(p.transform_depth)
     y, u, v = (torch.stack(c) for c in zip(
         *(_to_device_planes(pl, dev) for pl in planes_list)))
+    extra = None
+    if use_phasecorr:
+        if n != 1:
+            raise ValueError("phase correlation codes one picture a step")
+        with record_function("phasecorr"):
+            extra = _phasecorr_candidates(p, y[0], ref1.planes[0])
     lam = torch.as_tensor(np.asarray(me_lams, np.float32), device=dev)
     if rdo_pick:
         targets = [float(np.float32(qs[1] or 0.0)) for qs in qsels]
@@ -872,7 +1005,7 @@ def _run_step(planes_list, p: Params, ref1: RefFrame, ref2, want_recon,
     else:
         targets = [None] * n
         qsel = torch.as_tensor(np.tile(qi_bands, (n, 1)), device=dev)
-    flats, preds, f16, badblock = front(y, u, v, ref1, ref2, lam)
+    flats, preds, f16, badblock = front(y, u, v, ref1, ref2, lam, extra)
     outs = back(flats, preds, qsel)
     mq = [(ci, bi, vcb, hcb) for (ci, bi, vcb, hcb, *_) in
           _mq_layout(p, shapes3, rdo_pick)]
@@ -908,13 +1041,15 @@ def _rd_qsel(nb, lam_bands, target_bits, corr_bands):
 
 
 def start_inter_picture(planes_u8, p: Params, ref1: RefFrame,
-                        base_qi: int = 20, qi_bands_override=None,
+                        base_qi: int = 20, use_phasecorr: bool = False,
+                        qi_bands_override=None,
                         want_stats: bool = False,
                         ref2: Optional[RefFrame] = None,
                         want_recon: bool = True, lam_bands=None,
                         me_lam: Optional[float] = None, me_levels: int = 5,
                         block_search_threshold: float = 15.0,
-                        scan_distance: float = 4.0, error_power: float = 4.0,
+                        scan_distance: float = 4.0, estimation: tuple = (),
+                        error_power: float = 4.0,
                         target_bits: float = 0.0, corr_bands=None,
                         device=None) -> dict:
     """Queue the device work of one inter picture (nothing waits for the
@@ -933,8 +1068,10 @@ def start_inter_picture(planes_u8, p: Params, ref1: RefFrame,
     qi_bands_override ((nb,) shared by the components or (3*nb,)), the
     pick of a host engine, or else at base_qi less the quant matrix.
     want_stats brings the picture's (bits, error) stat tables back with
-    it, for the lagged host picks.  The step is the batched one at N =
-    1."""
+    it, for the lagged host picks.  use_phasecorr injects the picture's
+    phase-correlation candidates (against ref1) into the ME of both
+    references; `estimation` holds the estimation switches.  The step is
+    the batched one at N = 1."""
     dev = resolve_device(device)
     _check_refs(p, ref1, ref2, dev)
     nb = subband_count(p.transform_depth)
@@ -958,15 +1095,16 @@ def start_inter_picture(planes_u8, p: Params, ref1: RefFrame,
                / np.float32(8.0))
     return _run_step([planes_u8], p, ref1, ref2, want_recon, qsels, [lam],
                      qi_bands, me_levels, block_search_threshold,
-                     scan_distance, error_power, dev, want_stats)[0]
+                     scan_distance, error_power, dev, want_stats,
+                     use_phasecorr, tuple(estimation))[0]
 
 
 def start_inter_batch(planes_list, p: Params, ref1: RefFrame,
                       ref2: RefFrame, qsels, want_recon: bool = False,
                       want_stats: bool = False, me_levels: int = 5,
                       block_search_threshold: float = 15.0,
-                      scan_distance: float = 4.0, error_power: float = 4.0,
-                      device=None):
+                      scan_distance: float = 4.0, estimation: tuple = (),
+                      error_power: float = 4.0, device=None):
     """Queue the device work of the N independent B pictures of a biref
     subgroup as one batch (the port of the JAX package's vmapped
     start_inter_batch: the vmap is a leading batch dimension through the
@@ -990,7 +1128,7 @@ def start_inter_batch(planes_list, p: Params, ref1: RefFrame,
     return _run_step(list(planes_list), p, ref1, ref2, want_recon, rq,
                      [qs["me_lam"] for qs in qsels], None, me_levels,
                      block_search_threshold, scan_distance, error_power,
-                     dev, want_stats)
+                     dev, want_stats, estimation=tuple(estimation))
 
 
 def _fetch_batch(shared) -> None:
@@ -1093,7 +1231,7 @@ def encode_inter_picture(planes_u8, p: Params, frame_number: int,
     """Encode one P picture (start + finish).  `quant` passes on to
     start_inter_picture (qi_bands_override, want_stats, lam_bands,
     corr_bands, target_bits, me_lam, block_search_threshold,
-    error_power).  Returns the JAX function's tuple (parse_unit_bytes,
+    error_power, use_phasecorr, estimation).  Returns the JAX function's tuple (parse_unit_bytes,
     recon_planes, base_qi, stats, None, dc_ratio, pending): stats as
     finish_inter_picture gives them; the JAX package's upsampled planes
     have no counterpart (a RefFrame upsamples its planes itself)."""
@@ -1104,6 +1242,56 @@ def encode_inter_picture(planes_u8, p: Params, frame_number: int,
     unit, stats = finish_inter_picture(pend, frame_number, ref1_num,
                                        is_ref=is_ref, retired=retired)
     return unit, pend["recon"], base_qi, stats, None, pend["dc_ratio"], pend
+
+
+def _write_motion_part(p: Params, frame_number: int, refs, is_ref: bool,
+                       retired: Optional[int], mv) -> BitWriter:
+    """An inter picture's parse unit up to its residual: parse info,
+    picture header, prediction parameters and the MV data of the fields
+    `mv` (with the global-motion flags where p has global motion)."""
+    num_refs = len(refs)
+    w = BitWriter()
+    write_parse_info(w, parse_code_picture(is_ref, num_refs, False,
+                                           p.is_noarith))
+    retired_delta = None
+    if is_ref:
+        retired_delta = (retired - frame_number) if retired is not None else 0
+    write_picture_header(w, frame_number,
+                         ref_deltas=[r - frame_number for r in refs],
+                         retired_delta=retired_delta)
+    w.sync()
+    write_prediction_parameters(w, p)
+    w.sync()
+    with record_function("motion_encode"):
+        bufs = _native.motion_encode(mv, p.x_num_blocks, p.y_num_blocks,
+                                     num_refs,
+                                     have_global=p.have_global_motion,
+                                     is_noarith=p.is_noarith)
+    for s in range(9):
+        if bufs[s] is None:
+            continue
+        w.write_uint(len(bufs[s]))
+        w.sync()
+        w.write_bytes(bytes(bufs[s]))
+    w.sync()
+    return w
+
+
+def write_prediction_unit(p: Params, frame_number: int, refs, mv,
+                          is_ref: bool = False,
+                          retired: Optional[int] = None) -> bytes:
+    """The parse unit of an inter picture coded as its prediction alone
+    (zero_residual = 1): the MV fields `mv` (split, pred_mode,
+    using_global, dx1, dy1, dx2, dy2, dc0, dc1, dc2; (ynb, xnb) int32)
+    against len(refs) references, with p's block geometry, MV precision,
+    global motion and picture weights.  A decoder's output for it is the
+    OBMC render itself."""
+    w = _write_motion_part(p, frame_number, refs, is_ref, retired,
+                           {k: np.ascontiguousarray(v, np.int32)
+                            for k, v in mv.items()})
+    w.write_bit(1)
+    w.sync()
+    return w.get_bytes()
 
 
 def _write_p_unit(p: Params, frame_number: int, refs, is_ref: bool,
@@ -1120,29 +1308,7 @@ def _write_p_unit(p: Params, frame_number: int, refs, is_ref: bool,
     band) coded payload bits (actual_subband_bits analog,
     schroencoder.c:2532-2546) that feed the arith-correction EMA."""
     nb = subband_count(p.transform_depth)
-    num_refs = len(refs)
-    w = BitWriter()
-    write_parse_info(w, parse_code_picture(is_ref, num_refs, False,
-                                           p.is_noarith))
-    retired_delta = None
-    if is_ref:
-        retired_delta = (retired - frame_number) if retired is not None else 0
-    write_picture_header(w, frame_number,
-                         ref_deltas=[r - frame_number for r in refs],
-                         retired_delta=retired_delta)
-    w.sync()
-    write_prediction_parameters(w, p)
-    w.sync()
-    with record_function("motion_encode"):
-        bufs = _native.motion_encode(mv, p.x_num_blocks, p.y_num_blocks,
-                                     num_refs, is_noarith=p.is_noarith)
-    for s in range(9):
-        if bufs[s] is None:
-            continue
-        w.write_uint(len(bufs[s]))
-        w.sync()
-        w.write_bytes(bytes(bufs[s]))
-    w.sync()
+    w = _write_motion_part(p, frame_number, refs, is_ref, retired, mv)
     # transform parameters (zero_residual=0)
     w.write_bit(0)
     w.write_uint(int(p.wavelet_filter_index))

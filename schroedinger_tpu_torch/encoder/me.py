@@ -6,16 +6,17 @@ Every full-pel search of the pyramid is one call of `me_search`
 and runs its plain version for CPU tensors: the exhaustive scan around
 zero at the coarsest level, the refine of the upsampled parent vectors at
 each finer level, and, in the final level's candidate competition
-(hierarchy vs zero vs 3x3-median 'predicted'), the SADs at the median
-field and at zero.  That is levels + 2 searches per ME pass.
+(hierarchy vs zero vs 3x3-median 'predicted', plus injected uniform
+candidates such as phase correlation's), the SADs at the median field and
+at zero, the chroma SADs of every candidate (chroma ME) and the radius-1
+rescan around an injected winner.  That is levels + 2 searches per ME
+pass without the options.  The luma SADs of the injected candidates are
+the JAX package's wrap-around (rolled) SADs, computed as a plain
+difference: the kernel clamps at the edges instead.
 `make_subpel_body` refines the winners to 1/2^prec pel.  Both take a batch
 of current planes (N, H, W) against one reference, the B pictures of a
 subgroup against their shared references: every search is then one
 launch for the whole batch.
-
-Not ported yet: injected candidates (n_extra / phase correlation), chroma
-ME, the single-level full scan and the estimation switches that turn the
-candidate competition or the zero candidate off.
 """
 from __future__ import annotations
 
@@ -108,18 +109,47 @@ def _take(stacked, best):
     return torch.gather(stacked, 0, best[None])[0]
 
 
+def _roll_sads(c, r, bs_y, bs_x, cands):
+    """Per-block SAD of c against r shifted by each uniform candidate,
+    with wrap-around at the plane's edges (the JAX package's roll
+    formulation, `me._block_sads`): r is read at ((y + dy) mod h,
+    (x + dx) mod w).  c: (N, h, w), r: (h, w), cands: host (dy, dx) int
+    pairs.  Returns [(N, h // bs_y, w // bs_x) int32] per candidate."""
+    h, w = c.shape[-2:]
+    ci = c.to(torch.int32)
+    ri = r.to(torch.int32)
+    out = []
+    for dy, dx in cands:
+        d = (ci - torch.roll(ri, (-int(dy), -int(dx)), (0, 1))).abs()
+        out.append(d.reshape(-1, h // bs_y, bs_y, w // bs_x, bs_x).sum(
+            (2, 4), dtype=torch.int32))
+    return out
+
+
 def make_me_body(H, W, xbsep, ybsep, x_num_blocks, y_num_blocks,
-                 levels=3, coarse_radius=8):
-    """Build the ME: me(cur_y u8, ref_y u8) -> (dy, dx, sad) per block
-    (pel), all (y_num_blocks, x_num_blocks) int32 tensors.  A batch cur_y
-    (N, H, W) against the one ref_y gives (N, y_num_blocks, x_num_blocks)
-    and launches each search once for the batch.
+                 levels=3, coarse_radius=8, n_extra=0, candidates=True,
+                 zero_cand=True, chroma=None):
+    """Build the ME: me(cur_y u8, ref_y u8, extra=None, chroma_planes=None)
+    -> (dy, dx, sad) per block (pel), all (y_num_blocks, x_num_blocks)
+    int32 tensors.  A batch cur_y (N, H, W) against the one ref_y gives
+    (N, y_num_blocks, x_num_blocks) and launches each search once for the
+    batch.
 
     The final-level candidate set mirrors the reference's list {scan /
-    hierarchy, predicted, zero} (schroencoder.h:421-440): the hierarchy
-    result competes against the zero vector (with the reference's zero
-    bias) and the 3x3-median 'predicted' field.  levels=1 disables the
-    pyramid."""
+    hierarchy, predicted, zero, global/phasecorr} (schroencoder.h:421-440):
+    the hierarchy result competes against the zero vector (with the
+    reference's zero bias) and the 3x3-median 'predicted' field, and with
+    n_extra > 0 against the n_extra uniform full-pel candidates `extra`
+    (a host (n_extra, 2) array of (dy, dx)), after which the winner gets a
+    radius-1 rescan.  levels=1 disables the pyramid (the option's cap
+    keeps the coarsest level at >= 16 px).  candidates=False (no deep
+    estimation) returns the pyramid's result when there are no injected
+    candidates; zero_cand=False drops the zero candidate.
+
+    chroma: None, or (cbs_y, cbs_x, ch, cw), the chroma block geometry
+    (chroma ME): each candidate's chroma SAD (u + v, sampled at mv >>
+    chroma shift) joins the selection metric; the returned SAD stays
+    luma.  chroma_planes is then (cur_u, cur_v, ref_u, ref_v)."""
     pad_h = ybsep * y_num_blocks
     pad_w = xbsep * x_num_blocks
 
@@ -130,7 +160,7 @@ def make_me_body(H, W, xbsep, ybsep, x_num_blocks, y_num_blocks,
 
     margin = ME_BOUND_PEL + 2 * max(coarse_radius, REFINE_RADIUS) + 16
 
-    def me(cur, ref):
+    def me(cur, ref, extra=None, chroma_planes=None):
         batched = cur.ndim == 3
         if not batched:
             cur = cur[None]
@@ -165,34 +195,97 @@ def make_me_body(H, W, xbsep, ybsep, x_num_blocks, y_num_blocks,
 
         mv = mv.clamp(-ME_BOUND_PEL, ME_BOUND_PEL)
 
+        def out(mv, sad):
+            if not batched:
+                return mv[0, ..., 0], mv[0, ..., 1], sad[0]
+            return mv[..., 0], mv[..., 1], sad
+
+        if not candidates and not n_extra:
+            return out(mv, sad)
+
         # final-level candidate competition: hierarchy vs zero vs the
-        # median-'predicted' field (schromotionest.c:520-695 analog); c, r
-        # are level 0 cropped to whole blocks of ybsep x xbsep
+        # median-'predicted' field (schromotionest.c:520-695 analog) and
+        # the injected candidates; c, r are level 0 cropped to whole
+        # blocks of ybsep x xbsep
+        nby, nbx = mv.shape[-3], mv.shape[-2]
         med = torch.stack([_median3x3_field(mv[..., 0]),
                            _median3x3_field(mv[..., 1])], dim=-1)
         _, sad_med = me_search(c, r, med.contiguous(), 1, ybsep, xbsep, 0,
                                ME_BOUND_PEL, margin)
-        _, sad_zero = me_search(c, r, None, 0, ybsep, xbsep, 0,
-                                ME_BOUND_PEL, margin)
-        zero = torch.zeros_like(mv)
 
         # the reference biases toward zero/predicted ("gravity",
         # schrometric.c:122)
         bias = ybsep * xbsep // 16
-        all_sads = torch.stack([sad, sad_med, sad_zero])
-        all_mvs = torch.stack([mv, med, zero])
-        biased = all_sads - torch.as_tensor(
-            [0, bias, bias], dtype=torch.int32,
-            device=dev)[:, None, None, None]
+        cand_mvs = [mv, med]
+        cand_sads = [sad, sad_med]
+        cand_bias = [0, bias]
+        if zero_cand:
+            _, sad_zero = me_search(c, r, None, 0, ybsep, xbsep, 0,
+                                    ME_BOUND_PEL, margin)
+            cand_mvs.append(torch.zeros_like(mv))
+            cand_sads.append(sad_zero)
+            cand_bias.append(bias)
+        if n_extra:
+            ext = [(max(-ME_BOUND_PEL, min(ME_BOUND_PEL, int(dy))),
+                    max(-ME_BOUND_PEL, min(ME_BOUND_PEL, int(dx))))
+                   for dy, dx in extra]
+            cand_sads += _roll_sads(c, r, ybsep, xbsep, ext)
+            cand_mvs += [torch.tensor(e, dtype=torch.int32, device=dev)
+                         .expand(mv.shape) for e in ext]
+            cand_bias += [0] * len(ext)
+        cand_sel = cand_sads
+        if chroma is not None:
+            cand_sel = [s + sc for s, sc in zip(cand_sads, _chroma_sads(
+                chroma, chroma_planes, cand_mvs, ybsep, xbsep, nby, nbx,
+                margin, zero_cand, batched))]
+        all_sads = torch.stack(cand_sads)
+        all_mvs = torch.stack(cand_mvs)
+        biased = torch.stack(cand_sel) - torch.as_tensor(
+            cand_bias, dtype=torch.int32, device=dev)[:, None, None, None]
         best = torch.argmin(biased, dim=0)                # (N, nby, nbx)
         mv = torch.gather(all_mvs, 0, best[None, ..., None].expand(
             1, *best.shape, 2))[0]
         sad = _take(all_sads, best)
-        if not batched:
-            return mv[0, ..., 0], mv[0, ..., 1], sad[0]
-        return mv[..., 0], mv[..., 1], sad
+        if n_extra:
+            # injected candidates are uniform vectors: a local rescan
+            # recovers per-block detail around the winner
+            mv, sad = me_search(c, r, mv.contiguous(), 1, ybsep, xbsep, 1,
+                                ME_BOUND_PEL, margin)
+        return out(mv, sad)
 
     return me
+
+
+def _chroma_sads(chroma, chroma_planes, cand_mvs, ybsep, xbsep, nby, nbx,
+                 margin, zero_cand, batched):
+    """Per candidate MV field, the per-block chroma SAD (u + v) of the
+    chroma blocks at the chroma-shifted vector, one me_search at radius 0
+    per candidate and plane (the zero candidate's at scale 0)."""
+    cbs_y, cbs_x, ch, cw = chroma
+    cu, cv, ru, rv = chroma_planes
+    if not batched:
+        cu, cv = cu[None], cv[None]
+    cph, cpw = cbs_y * nby, cbs_x * nbx
+    vsh = (ybsep // cbs_y).bit_length() - 1
+    hsh = (xbsep // cbs_x).bit_length() - 1
+    cmargin = (margin >> min(vsh, hsh)) + 2
+    cur = [_plane(pad_edge(x, 0, cph - ch, 0, cpw - cw)) for x in (cu, cv)]
+    ref = [_plane(pad_edge(x, 0, cph - ch, 0, cpw - cw)) for x in (ru, rv)]
+    out = []
+    for k, f in enumerate(cand_mvs):
+        if zero_cand and k == 2:
+            field, scale = None, 0
+        else:
+            field = torch.stack([f[..., 0] >> vsh, f[..., 1] >> hsh],
+                                dim=-1).contiguous()
+            scale = 1
+        tot = None
+        for c_, r_ in zip(cur, ref):
+            _, s = me_search(c_, r_, field, scale, cbs_y, cbs_x, 0,
+                             ME_BOUND_PEL, cmargin)
+            tot = s if tot is None else tot + s
+        out.append(tot)
+    return out
 
 
 # per-level static candidate tables for the patch formulation (see the

@@ -2,7 +2,8 @@
 
     python -m schroedinger_tpu_torch.profile_slice
         [--config backref|flagship|draining|bench|lowdelay|
-                  backref-quality|constant-error|multiquant]
+                  backref-quality|constant-error|multiquant|
+                  phasecorr-chroma|prefilter-metrics]
         [--frames N] [--out DIR]
 
 Encodes pan + noise 1080p25 4:2:0 frames with the port's GopEncoder under
@@ -22,7 +23,10 @@ encoder's worker thread reports its fetch and native packing time.
 `--config backref-quality`, `constant-error` and `multiquant` (13
 frames, 6 of warm-up) run api.Encoder under EncoderConfig(
 gop_structure="backref"), (rate_control="constant_error") and
-(enable_multiquant=True): chip_smoke's phases 15, 17 and 18.
+(enable_multiquant=True): chip_smoke's phases 15, 17 and 18;
+`phasecorr-chroma` (phase correlation with chroma ME, B pictures one at a
+time) and `prefilter-metrics` (the Gaussian prefilter with PSNR and SSIM)
+run the estimation and prefilter settings of phases 20 and 22.
 Prints, per run: wall time,
 the device's busy time (union of kernel intervals) and idle share, the
 host time in the entropy-coding calls and in the encoder's stage spans
@@ -63,7 +67,11 @@ CONFIGS = {"backref": (CONFIG, 6, 2), "flagship": (CONFIG_FLAGSHIP, 13, 6),
 # warm-up): the long-GOP rate controls
 API_CONFIGS = {"backref-quality": dict(gop_structure="backref"),
                "constant-error": dict(rate_control="constant_error"),
-               "multiquant": dict(enable_multiquant=True)}
+               "multiquant": dict(enable_multiquant=True),
+               "phasecorr-chroma": dict(enable_phasecorr_estimation=1,
+                                        enable_chroma_me=1),
+               "prefilter-metrics": dict(filtering="gaussian",
+                                         enable_psnr=1, enable_ssim=1)}
 # record_function spans of the port: host entropy coding, then the inter
 # and intra steps' stages (host time of a stage = its enqueue, not the
 # device's work)
@@ -71,9 +79,10 @@ HOST_SPANS = ("encode_subband_arith", "decode_subband_arith",
               "encode_subband_noarith", "decode_subband_noarith",
               "motion_encode", "motion_decode", "frame_md5", "ld_pack",
               "ld_decode")
-STAGE_SPANS = ("me_pass", "rd_split", "render", "stat_tables", "rd_pick",
-               "multiquant", "quantise_recon", "p_transfer", "b_batch_step",
-               "b_picture_step", "ld_analysis", "ld_inverse")
+STAGE_SPANS = ("me_pass", "phasecorr", "rd_split", "render", "stat_tables",
+               "rd_pick", "multiquant", "quantise_recon", "p_transfer",
+               "b_batch_step", "b_picture_step", "prefilter",
+               "quality_metrics", "ld_analysis", "ld_inverse")
 
 
 _CUDA = torch.autograd.DeviceType.CUDA

@@ -18,7 +18,7 @@ with a repeatable `--set name=value`.  Input/output video is YUV4MPEG2
 (.y4m; 8-bit, or 10-bit as C420p10/C422p10/C444p10, which the JAX CLI
 refuses), "-" for stdin/stdout pipes, or raw planar I420 (.yuv) with an
 explicit --size WxH.  The default profile is VC-2 low delay, as in the
-JAX CLI.  What the port does not implement yet (the settings on
+JAX CLI.  What the port does not implement yet (interlaced coding, on
 api.Encoder's list) ends the run with NotImplementedError.
 """
 import argparse

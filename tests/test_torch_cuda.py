@@ -326,3 +326,100 @@ def test_rate_control_stream_on_card_within_bands_of_cpu(cuda_device, kw):
                               for o, f in zip(out, frames)]))
     assert abs(psnrs[0] - psnrs[1]) < 0.7
     assert abs(len(streams[0]) - len(streams[1])) < 0.15 * len(streams[1])
+
+
+# the launch shapes the long-GOP settings add (block size, estimation
+# switches, phase correlation's rescan, chroma ME), all on the kernel's
+# generic instance
+_SETTING_SHAPES = {
+    "medium-level0": dict(rad=2, bs=12, scale=2, parent=(3, 4)),
+    "medium-level1": dict(rad=2, bs=6, scale=2, parent=(3, 4)),
+    "no-hierarchical": dict(rad=8, bs=16, scale=0),
+    "fullscan": dict(rad=32, bs=16, scale=0),
+    "rescan": dict(rad=1, bs=16, scale=1),
+    "chroma-8": dict(rad=0, bs=8, scale=1),
+    "chroma-6": dict(rad=0, bs=6, scale=1),
+    "chroma-4": dict(rad=0, bs=4, scale=1),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("flat", [False, True], ids=["random", "flat"])
+@pytest.mark.parametrize("mode", sorted(_SETTING_SHAPES))
+def test_me_search_setting_shapes_kernel_matches_plain(cuda_device, mode,
+                                                       flat):
+    _assert_kernel_equals_plain(_case(flat=flat, dev=cuda_device,
+                                      **_SETTING_SHAPES[mode]))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("gm", [None, (8, -4, 0, 0, 0, 0, 0, 0, 0, 0),
+                                (3, -2, 16, 66000, -1200, 900, 64000, 0, 0,
+                                 0)], ids=["mv300", "pan", "affine"])
+def test_gather_render_card_equals_cpu(cuda_device, gm):
+    """The per-pixel gather render on the card gives the CPU's planes
+    (integer arithmetic throughout), vectors of 300 pel included."""
+    from schroedinger_tpu_torch.ops import obmc
+    from schroedinger_tpu_torch.params import GlobalMotion, Params
+    p = Params(video_format=video_format(160, 96), num_refs=2,
+               transform_depth=3)
+    p.xblen_luma = p.yblen_luma = 24
+    p.xbsep_luma = p.ybsep_luma = 8
+    p.mv_precision = 2
+    if gm is not None:
+        p.have_global_motion = True
+        p.global_motion = (GlobalMotion(*gm), GlobalMotion(*gm))
+    rng = np.random.default_rng(1)
+    yb, xb = p.y_num_blocks, p.x_num_blocks
+    mv = {k: rng.integers(-1200, 1200, (yb, xb)).astype(np.int32)
+          for k in ("dx1", "dy1", "dx2", "dy2")}
+    mv.update({k: rng.integers(-128, 128, (yb, xb)).astype(np.int32)
+               for k in ("dc0", "dc1", "dc2")})
+    mv["pred_mode"] = rng.integers(0, 4, (yb, xb)).astype(np.int32)
+    mv["using_global"] = rng.integers(0, 2, (yb, xb)).astype(np.int32)
+    planes = [rng.integers(0, 256, s, dtype=np.uint8)
+              for s in ((96, 160), (48, 80), (48, 80))] * 2
+    out = []
+    for dev in ("cpu", cuda_device):
+        ups = [obmc.make_halfpel(obmc.upsample_plane(torch.tensor(
+            pl, device=dev))) for pl in planes]
+        body = obmc.make_render_body(p, 2, use_patches=False)
+        out.append(body({k: torch.tensor(v, device=dev)
+                         for k, v in mv.items()}, ups[:3], ups[3:]))
+    for a, b in zip(*out):
+        assert torch.equal(a, b.cpu())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kw", [
+    dict(motion_block_size="small", motion_block_overlap="full"),
+    dict(motion_block_size="medium", codeblock_size="small"),
+    dict(enable_chroma_me=1), dict(enable_hierarchical_estimation=0),
+    dict(enable_deep_estimation=0, mv_precision=2),
+    dict(enable_fullscan_estimation=1),
+    dict(enable_phasecorr_estimation=1),
+    dict(filtering="gaussian", enable_psnr=1, enable_ssim=1)],
+    ids=["small_full", "medium_cb_small", "chroma_me", "no_hierarchical",
+         "no_deep", "fullscan", "phasecorr", "gaussian_metrics"])
+def test_setting_stream_on_card_within_bands_of_cpu(cuda_device, kw):
+    """Each long-GOP setting of phases 19-22 at 128x64 (I, P and B
+    pictures): the card's stream within the bands of the CPU's (0.7 dB,
+    15 %; phase correlation runs cuFFT there), decoded clean by both
+    decoders on the card to equal planes."""
+    from schroedinger_tpu_torch.config import EncoderConfig
+    frames = make_frames(5, 128, 64)
+    vf = video_format(128, 64)
+    streams = [api.Encoder(vf, EncoderConfig(**kw), device=d).encode_stream(
+        frames) for d in (None, "cpu")]
+    psnrs = []
+    for stream, device in zip(streams, (None, "cpu")):
+        dec = api.Decoder(device=device)
+        out = dec.decode_stream(stream)
+        assert len(out) == 5 and dec.errors == []
+        base = StreamDecoder(device=device).decode_stream(stream)
+        for a, b in zip(out, base):
+            assert all(np.array_equal(x, y) for x, y in zip(a, b))
+        psnrs.append(np.mean([_psnr(o[0], f[0])
+                              for o, f in zip(out, frames)]))
+    assert abs(psnrs[0] - psnrs[1]) < 0.7
+    assert abs(len(streams[0]) - len(streams[1])) < 0.15 * len(streams[1])
