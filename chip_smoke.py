@@ -130,9 +130,44 @@ recorded inputs of every launch shape the setting makes, each timed:
      with enable_psnr and enable_ssim: the prefilter on the card == the
      CPU's, each frame's PSNR equal to the CPU's recomputation to 3
      decimals and SSIM within 1e-4
+Phases 23-26, interlaced (field) coding, the streaming decoder, the
+telemetry overlay and the stream tools, on the card:
+ 23. smoke-1080i25-biref-cbr: api.Encoder(1080i25 4:2:0 top field first,
+     EncoderConfig(rate_control="constant_bitrate", bitrate=8_000_000,
+     interlaced_coding=1, mv_precision=2)) on 13 frames of pan + noise =
+     26 field pictures (biref, MD5 off, every full subgroup's three B
+     fields one batch): the kernel's launches the picture mix implies;
+     bytes within 0.1x-4x of the pro-rata 520000; api.Decoder's woven
+     frames equal to the weave of StreamDecoder's fields; the
+     StreamingDecoder (the stream pushed in seeded pieces of 1-64 KiB)
+     gives every field once, equal to StreamDecoder's; every I and P field
+     equal to the encoder's reconstruction; luma PSNR >= 30 dB on every
+     frame; encode and decode frames/s; the kernel == plain at every
+     launch shape of the fields (1920x576 with the superblock padding,
+     36 x 120 blocks at level 0), one picture and a batch of three, each
+     timed beside its bound and the plain version
+ 24. smoke-576i25-sd-cbr: tools/bench_breadth.py's SD field cell (720x576
+     4:2:0, TM5 CBR 4 Mbit/s, interlaced_coding, mv_precision=2, 25
+     frames) with the checks of 23 (pro-rata 500000); then 4 frames
+     bottom field first with MD5: md5_failures == [] in api.Decoder and
+     the StreamingDecoder
+ 25. 128x64 field streams on the card equal to the CPU encode byte for
+     byte: biref TM5 CBR top field first, backref constant quality bottom
+     field first; a VC-2 low-delay config with interlaced_coding raises
+     ValueError
+ 26. phase 23's stream decoded with StreamDecoder(telemetry=True) on the
+     card equal to a CPU telemetry decode (every inter field's luma
+     marked, chroma untouched), and by the CLI's `decode --telemetry`
+     (its y4m == the woven telemetry fields); a telemetry decode of 24's
+     MD5 stream without MD5 failures; dirac_inspect, dump_gop and drc_cut
+     (the first 9 coded pictures) on the stream: the cut decodes to the
+     full decode's fields; the StreamingDecoder's decode frames/s beside
+     api.Decoder's, in turns
 The last two lines are the nvidia-smi line and
-{"ok": true, "device": {...}}; the kernel summary JSON comes before them.
+{"ok": true, "device": {...}}; the kernel summary JSON comes before them
+(with the launches of phases 23 and 24 and the field launch shapes).
 """
+import dataclasses
 import json
 import os
 import subprocess
@@ -150,10 +185,12 @@ from schroedinger_tpu_torch.coding import native as coder
 from schroedinger_tpu_torch.coding.bitio import BitReader
 from schroedinger_tpu_torch.config import EncoderConfig
 from schroedinger_tpu_torch.decoder.core import StreamDecoder
+from schroedinger_tpu_torch.decoder.streaming import StreamingDecoder
 from schroedinger_tpu_torch.encoder import lowdelay as loe
 from schroedinger_tpu_torch.encoder import gop as gop_mod
 from schroedinger_tpu_torch.encoder import me as me_mod
 from schroedinger_tpu_torch.encoder.gop import GopEncoder
+from schroedinger_tpu_torch.frontends import weave_fields
 from schroedinger_tpu_torch.ops import patch_refine as pr
 from schroedinger_tpu_torch.pipeline import planes_to_device
 from schroedinger_tpu_torch.tools.schro_tpu import encoder_config
@@ -1438,7 +1475,8 @@ class record_searches:
 def hold_shapes(card, tag, searches, done):
     """Kernel == plain (torch.equal) on the recorded inputs of every launch
     shape not held before (`done`, updated), each timed on the device
-    (CUDA-graph replay) beside its bound; returns the largest |diff|."""
+    (CUDA-graph replay) beside its bound and the plain version's time
+    from Python; returns the largest |diff|."""
     worst = 0
     for key, args in sorted(searches.first.items()):
         if key in done:
@@ -1449,13 +1487,14 @@ def hold_shapes(card, tag, searches, done):
         worst = max(worst, assert_equal_outputs(got, want, f"{tag} {key}"))
         b_ms, by = refine_bound_ms(args)
         ms = graph_ms(pr.me_search, args)
-        done[key] = {"ms": ms, "bound_ms": b_ms, "bound_by": by,
-                     "launches": searches.count[key]}
+        p_ms = time_ms(pr.me_search_plain, args)
+        done[key] = {"ms": ms, "plain_ms": p_ms, "bound_ms": b_ms,
+                     "bound_by": by, "launches": searches.count[key]}
         print(f"{tag} me_search cur {key[0]}, blocks {key[1]}x{key[2]}, rad "
               f"{key[3]}, scale {key[4]}: kernel == plain; {ms:.4f} ms per "
-              f"launch on the device, bound {b_ms:.5f} ms by {by}, "
-              f"{searches.count[key]} launches with the warm-up [{card}]",
-              flush=True)
+              f"launch on the device, plain {p_ms:.4f} ms, bound "
+              f"{b_ms:.5f} ms by {by}, {searches.count[key]} launches "
+              f"recorded [{card}]", flush=True)
     return worst
 
 
@@ -1674,6 +1713,365 @@ def phases_settings(card):
     return out, max(w1, w2)
 
 
+# ---- interlaced coding, the streaming decoder, telemetry, tools (23-26) --
+
+# (width, height, frames) of phases 23 and 24: 1080i25 and the SD field
+# cell of tools/bench_breadth.py
+FIELD_HD = (1920, 1080, 13)
+FIELD_SD = (720, 576, 25)
+FIELD_SMALL = (128, 64)  # the card-vs-CPU size of phase 25
+
+
+def interlaced_format(w, h, tff=True):
+    """video_format(w, h) marked interlaced in the `tff` field order; a
+    config with interlaced_coding codes it as field pictures."""
+    return dataclasses.replace(video_format(w, h), interlaced=True,
+                               top_field_first=tff)
+
+
+def sd_frames(n, w, h, seed=0):
+    """tools/bench_breadth.py's interlaced SD content: a smooth luma
+    pattern panned 2 px a frame plus N(0, 4) noise, flat chroma."""
+    rng = np.random.default_rng(seed)
+    yy, xx = np.mgrid[0:h, 0:w]
+    base = 128 + 64 * np.sin(xx / 23.0) * np.cos(yy / 17.0)
+    u = np.full((h // 2, w // 2), 120, np.uint8)
+    v = np.full((h // 2, w // 2), 135, np.uint8)
+    return [((np.roll(base, 2 * i, axis=1) + rng.normal(0, 4, (h, w)))
+             .clip(0, 255).astype(np.uint8), u, v) for i in range(n)]
+
+
+def stream_pieces(stream, seed, lo=1024, hi=65536):
+    """The stream cut into seeded random pieces of lo..hi bytes."""
+    rng = np.random.default_rng(seed)
+    i = 0
+    while i < len(stream):
+        n = int(rng.integers(lo, hi + 1))
+        yield stream[i:i + n]
+        i += n
+
+
+def streaming_decode(stream, seed, device=None):
+    """StreamingDecoder over the stream pushed in seeded pieces of 1-64
+    KiB, pulling as it goes.  Returns (decoder, [(number, planes)],
+    seconds)."""
+    dec = StreamingDecoder(device=device)
+    out = []
+    t0 = time.perf_counter()
+    for piece in stream_pieces(stream, seed):
+        dec.push(piece)
+        out += dec.pull_all()
+    out += dec.pull_all()
+    return dec, out, time.perf_counter() - t0
+
+
+def same_planes(a, b):
+    return all(np.array_equal(x, y) for x, y in zip(a, b))
+
+
+def check_fields(stream, frames, made, card, tag, tff, seed):
+    """The field stream on the card through api.Decoder (woven frames),
+    StreamDecoder (fields) and the StreamingDecoder (fields pushed in
+    seeded pieces of 1-64 KiB): every field number once, equal fields in
+    both, the woven frames equal to the weave of the fields, every
+    reference field equal to the encoder's reconstruction, no MD5
+    failure or picture error, luma PSNR >= 30 dB on every frame.
+    Returns (PSNRs, api.Decoder frames/s, StreamDecoder frames/s)."""
+    n = len(frames)
+    t0 = time.perf_counter()
+    dec = api.Decoder()
+    woven = dec.decode_stream(stream)
+    torch.cuda.synchronize()
+    t_api = time.perf_counter() - t0
+    base = StreamDecoder()
+    t0 = time.perf_counter()
+    fields = base.decode_stream(stream)
+    torch.cuda.synchronize()
+    t_base = time.perf_counter() - t0
+    sdec, pairs, _ = streaming_decode(stream, seed)
+    if len(fields) != 2 * n or sorted(k for k, _ in pairs) != list(
+            range(2 * n)):
+        raise AssertionError(f"{tag}: {len(fields)} fields from "
+                             f"StreamDecoder, numbers "
+                             f"{[k for k, _ in pairs]} from the "
+                             "StreamingDecoder")
+    for d in (base, sdec):
+        if d.md5_failures or d.errors:
+            raise AssertionError(f"{tag}: md5_failures={d.md5_failures} "
+                                 f"errors={d.errors}")
+    for num, planes in pairs:
+        if not same_planes(planes, fields[num]):
+            raise AssertionError(f"{tag}: field {num}: the StreamingDecoder "
+                                 "differs from StreamDecoder")
+    for k in range(n):
+        if not same_planes(woven[k], weave_fields(
+                fields[2 * k], fields[2 * k + 1], tff=tff)):
+            raise AssertionError(f"{tag}: frame {k}: api.Decoder's weave "
+                                 "differs from the fields")
+    for num, rf in made.items():
+        if not all(torch.equal(torch.from_numpy(x), y.cpu())
+                   for x, y in zip(fields[num], rf.planes)):
+            raise AssertionError(f"{tag}: reference field {num} decodes "
+                                 "to other planes than the encoder's "
+                                 "reconstruction")
+    vals = check_decoded(woven, frames, dec, tag)
+    return vals, n / t_api, n / t_base
+
+
+def run_field_phase(card, tag, name, make, frames, done, seed, bitrate,
+                    warm):
+    """Encode `frames` as fields with the api.Encoder `make()` gives
+    (after a warm-up of the first `warm`), with the kernel's launches
+    counted and its launch shapes recorded, and hold the stream to
+    check_fields, the launches the picture mix implies, every full
+    subgroup's B fields batched and the bytes within 0.1x-4x of the
+    pro-rata share; then the kernel to its plain version at every new
+    launch shape.  Returns (stream, launches, max |diff|, encoder)."""
+    make().encode_stream(frames[:warm])                     # warm-up
+    torch.cuda.synchronize()
+    enc = make()
+    gop = enc._gop
+    seen = record_batches(gop)
+    made = record_refs(gop)
+    with record_searches() as searches:
+        pr.LAUNCHES = 0
+        t0 = time.perf_counter()
+        stream = enc.encode_stream(frames)
+        torch.cuda.synchronize()
+        t_enc = time.perf_counter() - t0
+        launches = pr.LAUNCHES
+    expect = expected_launches(stream, seen)
+    if launches != expect:
+        raise AssertionError(f"{tag}: {launches} launches, expected "
+                             f"{expect}")
+    full = gop.subgroup_length - 1
+    if any(len(s[0]) == full and not s[1] for s in seen):
+        raise AssertionError(f"{tag}: a full subgroup of B fields went "
+                             f"per picture: {seen}")
+    share = len(frames) * bitrate / 25 / 8
+    if not 0.1 * share <= len(stream) <= 4 * share:
+        raise AssertionError(f"{tag}: {len(stream)} bytes outside 0.1x-4x "
+                             f"of the pro-rata {share:.0f}")
+    vals, fps_api, fps_base = check_fields(
+        stream, frames, made, card, tag, gop.vf.top_field_first, seed)
+    n_i, n_p, n_b = picture_mix(stream)
+    print(f"{tag} {name} x{len(frames)} frames ({2 * len(frames)} fields: "
+          f"{n_i} I, {n_p} P, {n_b} B, {sum(1 for s in seen if s[1])} "
+          f"batches): me_search launches {launches} (expected {expect}); "
+          f"{len(stream)} bytes ({len(stream) / share:.3f} of the pro-rata "
+          f"{share:.0f}), luma PSNR mean {np.mean(vals):.3f} min "
+          f"{min(vals):.3f} dB, {len(made)} reference fields equal to the "
+          f"encoder's; encode {len(frames) / t_enc:.3f} frames/s, decode "
+          f"{fps_api:.3f} frames/s api.Decoder, {fps_base:.3f} "
+          f"StreamDecoder [{card}]", flush=True)
+    worst = hold_shapes(card, tag, searches, done)
+    return stream, launches, worst, enc
+
+
+def phase_1080i(card, done):
+    """smoke-1080i25-biref-cbr: returns (stream, frames, launches, max
+    |diff|)."""
+    W, H, N = FIELD_HD
+    frames = make_frames(N, W, H)
+
+    def make():
+        return api.Encoder(interlaced_format(W, H), EncoderConfig(
+            rate_control="constant_bitrate", bitrate=8_000_000,
+            interlaced_coding=1, mv_precision=2))
+    stream, launches, worst, _ = run_field_phase(
+        card, "phase23", "smoke-1080i25-biref-cbr", make, frames, done,
+        seed=23, bitrate=8_000_000, warm=3)
+    return stream, frames, launches, worst
+
+
+def phase_576i(card, done):
+    """smoke-576i25-sd-cbr, then 4 frames bottom field first with MD5;
+    returns (the MD5 stream, launches, max |diff|)."""
+    W, H, N = FIELD_SD
+    frames = sd_frames(N, W, H)
+
+    def make(tff=True, **kw):
+        return api.Encoder(interlaced_format(W, H, tff), EncoderConfig(
+            rate_control="constant_bitrate", bitrate=4_000_000,
+            interlaced_coding=True, mv_precision=2, **kw))
+    _, launches, worst, _ = run_field_phase(
+        card, "phase24", "smoke-576i25-sd-cbr", make, frames, done, seed=24,
+        bitrate=4_000_000, warm=2)
+    md5_stream = make(tff=False, enable_md5=1).encode_stream(frames[:4])
+    dec = api.Decoder()
+    out = dec.decode_stream(md5_stream)
+    sdec, pairs, _ = streaming_decode(md5_stream, seed=240)
+    check_decoded(out, frames[:4], dec, "phase24 bottom field first")
+    if len(pairs) != 8 or sdec.md5_failures or sdec.errors:
+        raise AssertionError(f"phase24 bottom field first: {len(pairs)} "
+                             f"fields, md5_failures={sdec.md5_failures} "
+                             f"errors={sdec.errors}")
+    print(f"phase24 576i25 x4 bottom field first with MD5: {len(md5_stream)}"
+          f" bytes, md5_failures == [] in api.Decoder and the "
+          f"StreamingDecoder [{card}]", flush=True)
+    return md5_stream, launches, worst
+
+
+def phase_interlaced_card_vs_cpu(card):
+    """128x64 field streams (biref TM5 CBR top field first, backref
+    constant quality bottom field first) on the card equal to the CPU
+    encode byte for byte; a VC-2 profile refuses interlaced coding."""
+    W, H = FIELD_SMALL
+    small = make_frames(4, W, H)
+    runs = {"biref TM5 CBR, top field first": (dict(
+                rate_control="constant_bitrate", bitrate=500_000,
+                interlaced_coding=1, mv_precision=2), True),
+            "backref constant quality, bottom field first": (dict(
+                gop_structure="backref", interlaced_coding=1), False)}
+    for name, (kw, tff) in runs.items():
+        streams = [api.Encoder(interlaced_format(W, H, tff),
+                               EncoderConfig(**kw), device=dev
+                               ).encode_stream(small)
+                   for dev in (None, "cpu")]
+        if streams[0] != streams[1]:
+            raise AssertionError(f"phase25 {name}: the card's stream "
+                                 f"({len(streams[0])} bytes) differs from "
+                                 f"the CPU's ({len(streams[1])})")
+        dec = api.Decoder()
+        vals = check_decoded(dec.decode_stream(streams[0]), small, dec,
+                             f"phase25 {name}")
+        print(f"phase25 {W}x{H} x4 {name}: card == CPU, {len(streams[0])} "
+              f"bytes, luma PSNR mean {np.mean(vals):.3f} dB [{card}]",
+              flush=True)
+    try:
+        api.Encoder(video_format(W, H), EncoderConfig(
+            rate_control="low_delay", interlaced_coding=True))
+    except ValueError as e:
+        print(f"phase25 VC-2 low delay with interlaced_coding: ValueError "
+              f"({e})", flush=True)
+    else:
+        raise AssertionError("phase25: VC-2 low delay took interlaced "
+                             "coding")
+
+
+def run_tool(name, *args):
+    """`python -m schroedinger_tpu_torch.tools.<name> args`: its stdout."""
+    env = dict(os.environ, PYTHONPATH=os.path.dirname(
+        os.path.abspath(__file__)))
+    return subprocess.run([sys.executable, "-m",
+                           f"schroedinger_tpu_torch.tools.{name}", *args],
+                          check=True, env=env, timeout=300,
+                          capture_output=True, text=True).stdout
+
+
+def phase_telemetry_tools(card, stream, frames, md5_stream):
+    """Telemetry decodes of phase 23's stream on the card (StreamDecoder
+    and the CLI's `decode --telemetry`) equal to a CPU telemetry decode;
+    a telemetry decode of an MD5 stream holds its MD5s; the three stream
+    tools on phase 23's stream (the cut stream decodes); the
+    StreamingDecoder's frames/s beside the pipelined decoder's."""
+    n = len(frames)
+    t0 = time.perf_counter()
+    dec = StreamDecoder(telemetry=True)
+    got = dec.decode_stream(stream)
+    torch.cuda.synchronize()
+    t_tel = time.perf_counter() - t0
+    cpu = StreamDecoder(telemetry=True, device="cpu")
+    want = cpu.decode_stream(stream)
+    clean = StreamDecoder().decode_stream(stream)
+    if not len(got) == len(want) == 2 * n or dec.errors or cpu.errors:
+        raise AssertionError(f"phase26: {len(got)} / {len(want)} fields, "
+                             f"errors {dec.errors} {cpu.errors}")
+    marked = 0
+    for num, (a, b, c) in enumerate(zip(got, want, clean)):
+        if not same_planes(a, b):
+            raise AssertionError(f"phase26: telemetry field {num}: card "
+                                 "differs from the CPU")
+        if not same_planes(a[1:], c[1:]):
+            raise AssertionError(f"phase26: telemetry field {num}: chroma "
+                                 "touched")
+        marked += not np.array_equal(a[0], c[0])
+    n_i = picture_mix(stream)[0]
+    if marked != 2 * n - n_i:
+        raise AssertionError(f"phase26: {marked} fields overlaid, expected "
+                             f"the {2 * n - n_i} inter fields")
+    md5_dec = StreamDecoder(telemetry=True)
+    md5_out = md5_dec.decode_stream(md5_stream)
+    if md5_dec.md5_failures or md5_dec.errors or len(md5_out) != 8:
+        raise AssertionError(f"phase26: telemetry on the MD5 stream: "
+                             f"md5_failures={md5_dec.md5_failures} "
+                             f"errors={md5_dec.errors}")
+    with tempfile.TemporaryDirectory() as tmp:
+        drc, dst, cut = (os.path.join(tmp, f) for f in ("in.drc", "out.y4m",
+                                                        "cut.drc"))
+        with open(drc, "wb") as f:
+            f.write(stream)
+        t0 = time.perf_counter()
+        run_tool("schro_tpu", "decode", drc, dst, "--telemetry")
+        t_cli = time.perf_counter() - t0
+        _, cli, _ = y4m.read_y4m(dst)
+        cli = list(cli)
+        inspect = run_tool("dirac_inspect", drc, "-v")
+        gop_lines = run_tool("dump_gop", drc).splitlines()
+        cut_line = run_tool("drc_cut", drc, cut, "--start", "0",
+                            "--count", "9").strip()
+        cut_stream = open(cut, "rb").read()
+    if len(cli) != n or not all(same_planes(cli[k], weave_fields(
+            got[2 * k], got[2 * k + 1], tff=dec.vf.top_field_first))
+            for k in range(n)):
+        raise AssertionError("phase26: the CLI's telemetry y4m differs from "
+                             "the woven telemetry fields")
+    if inspect.count("picture(") != 2 * n or len(gop_lines) != 2 * n:
+        raise AssertionError(f"phase26: dirac_inspect / dump_gop list "
+                             f"{inspect.count('picture(')} / "
+                             f"{len(gop_lines)} pictures")
+    # the cut keeps the first 9 pictures in coded order
+    kept = sorted(num for num, _, _ in picture_kinds(stream)[:9])
+    cut_dec = StreamDecoder()
+    cut_fields = cut_dec.decode_stream(cut_stream)
+    cut_frames = api.Decoder().decode_stream(cut_stream)
+    if (len(cut_fields) != 9 or cut_dec.errors
+            or not all(same_planes(a, clean[num])
+                       for a, num in zip(cut_fields, kept))
+            or len(cut_frames) != 4):
+        raise AssertionError(f"phase26: the cut stream: {len(cut_fields)} "
+                             f"fields, errors {cut_dec.errors}, "
+                             f"{len(cut_frames)} frames")
+    # the StreamingDecoder beside the pipelined decoder, in turns
+    runs = {"pipelined": [], "streaming": []}
+    for name in ("pipelined", "streaming", "streaming", "pipelined"):
+        if name == "pipelined":
+            t0 = time.perf_counter()
+            api.Decoder().decode_stream(stream)
+            torch.cuda.synchronize()
+            runs[name].append(time.perf_counter() - t0)
+        else:
+            runs[name].append(streaming_decode(stream, seed=26)[2])
+    fps = {k: np.mean([n / t for t in v]) for k, v in runs.items()}
+    print(f"phase26 telemetry decode of phase 23's stream on the card == "
+          f"the CPU's ({marked} inter fields overlaid, {t_tel:.3f} s on the "
+          f"card), the CLI's `decode --telemetry` == the woven fields "
+          f"({t_cli:.3f} s with the process); MD5 stream with telemetry: "
+          f"md5_failures == []; dirac_inspect {len(inspect.splitlines())} "
+          f"lines, dump_gop {len(gop_lines)} pictures, drc_cut '{cut_line}'"
+          f": fields {kept} decode equal to the full decode's [{card}]",
+          flush=True)
+    print(f"phase26 decode of the 1080i25 stream ({2 * n} fields): "
+          f"StreamingDecoder (pieces of 1-64 KiB) {fps['streaming']:.3f} "
+          f"frames/s, api.Decoder (pipelined) {fps['pipelined']:.3f} "
+          f"frames/s [{card}]", flush=True)
+
+
+def phases_interlaced(card):
+    """Phases 23-26; returns their launch counts, the launch shapes held
+    and the largest |diff| of the kernel against its plain version."""
+    done = {}
+    out = {}
+    stream, frames, out["launches_1080i"], w1 = phase_1080i(card, done)
+    md5_stream, out["launches_576i"], w2 = phase_576i(card, done)
+    phase_interlaced_card_vs_cpu(card)
+    phase_telemetry_tools(card, stream, frames, md5_stream)
+    out["interlaced_shapes"] = [
+        dict(cur=list(k[0]), bs_y=k[1], bs_x=k[2], rad=k[3], scale=k[4], **v)
+        for k, v in sorted(done.items())]
+    return out, max(w1, w2)
+
+
 def main() -> int:
     card = gpu_line()
     print(f"phase0 gpu: {card}", flush=True)
@@ -1713,9 +2111,18 @@ def main() -> int:
     settings, worst = phases_settings(card)
     entry.update(settings)
     entry["max_abs_err"] = max(entry["max_abs_err"], worst)
+    t_settings = time.perf_counter()
+    # interlaced coding at 1080i25 and 576i25, the streaming decoder,
+    # telemetry and the stream tools; each count is set to 0 just before
+    # its path and read just after
+    fields, worst = phases_interlaced(card)
+    entry.update(fields)
+    entry["max_abs_err"] = max(entry["max_abs_err"], worst)
     t_end = time.perf_counter()
     print(f"wall: phases 1-18 {t_rate - t_start:.1f} s, phases 19-22 "
-          f"{t_end - t_rate:.1f} s (host clock, from the build on)",
+          f"{t_settings - t_rate:.1f} s, phases 23-26 "
+          f"{t_end - t_settings:.1f} s, the whole script "
+          f"{t_end - t_start:.1f} s (host clock, from the build on)",
           flush=True)
 
     print(json.dumps({"kernels": [entry, probe_entry]}), flush=True)

@@ -23,8 +23,13 @@ force_profile / rate_control exactly like schro_encoder_start
                    correlation, downsample_levels, the prefilters,
                    enable_psnr / enable_ssim and perceptual weighting
 
-What is not ported raises NotImplementedError naming its ROADMAP.md
-item: interlaced coding (and deep long GOP, which GopEncoder refuses).
+Interlaced coding (the `interlaced_coding` setting, or a format that has
+it) codes each frame as two field pictures on the long-GOP engines, and
+`Decoder` weaves the decoded field pairs back into frames.  The VC-2
+profiles refuse it with a ValueError: only the long-GOP encoder splits
+frames into fields (the JAX package fails there with a shape error,
+ROADMAP.md Queue 3).  Deep long GOP raises NotImplementedError, refused
+on purpose as the reference codes deep formats intra only.
 Both classes run on the card unless the caller passes device="cpu"; a
 failed device program raises, nothing falls back to another path.
 """
@@ -47,12 +52,11 @@ from schroedinger_tpu_torch.encoder import intra as ei_intra
 from schroedinger_tpu_torch.encoder import lowdelay as loe
 from schroedinger_tpu_torch.encoder.gop import GopEncoder
 from schroedinger_tpu_torch.encoder.ratecontrol import QuantiserEngine
+from schroedinger_tpu_torch.frontends import weave_fields
 from schroedinger_tpu_torch.params import Params, subband_count
 from schroedinger_tpu_torch.pipeline import planes_to_device
 from schroedinger_tpu_torch.video_format import VideoFormat
 from schroedinger_tpu_torch.wavelets import MAX_DEPTH_S16, Wavelet
-
-_NEXT_SLICES = "ROADMAP.md Queue 1, next slices"
 
 
 def _reduce_fraction(n: int, d: int) -> Tuple[int, int]:
@@ -72,16 +76,24 @@ class Encoder:
                  config: Optional[EncoderConfig] = None, device=None):
         self.vf = video_format
         self.cfg = config or EncoderConfig()
-        if self.cfg.get("interlaced_coding") or video_format.interlaced_coding:
-            raise NotImplementedError(
-                f"interlaced coding is not ported ({_NEXT_SLICES}: "
-                "interlaced coding)")
+        self.profile = self._resolve_profile()
+        interlaced = bool(self.cfg.get("interlaced_coding")
+                          or video_format.interlaced_coding)
+        if interlaced and self.profile != "main":
+            raise ValueError(
+                f"interlaced coding needs the long-GOP profile: the "
+                f"{self.profile} profile codes whole frames, and only the "
+                f"long-GOP encoder splits them into field pictures")
+        if interlaced and not video_format.interlaced_coding:
+            # the sequence header carries both flags (the JAX encoder
+            # sets them on the caller's format too)
+            video_format.interlaced = True
+            video_format.interlaced_coding = True
         self.device = resolve_device(device)
         self.frame_number = 0
         self._out: List[bytes] = []
         self._chain = bs.OffsetChain()
         self._gop = None
-        self.profile = self._resolve_profile()
 
         if self.profile == "vc2_low_delay":
             self._init_lowdelay()
@@ -381,7 +393,7 @@ class Encoder:
 class Decoder:
     """Dirac/VC-2 decoder: the pipelined stream decoder (host entropy
     decode overlaps the device's render; falls back per picture where
-    needed)."""
+    needed).  Field pictures come out woven into frames."""
 
     def __init__(self, device=None):
         self._core = PipelinedStreamDecoder(device=device)
@@ -399,10 +411,17 @@ class Decoder:
         return self._core.vf
 
     def decode_stream(self, stream: bytes) -> List[Tuple[np.ndarray, ...]]:
-        frames = self._core.decode_stream(stream)
-        vf = self._core.vf
-        if vf is not None and vf.interlaced_coding:
-            raise NotImplementedError(
-                f"weaving decoded fields into frames (frontends.py) is not "
-                f"ported ({_NEXT_SLICES}: interlaced coding)")
-        return frames
+        return weave_pictures(self._core.decode_stream(stream),
+                              self._core.vf)
+
+
+def weave_pictures(pictures, vf):
+    """A decoder's pictures in presentation order as frames: under
+    interlaced coding the pairs of field pictures woven in the format's
+    field order (an unpaired last field is dropped, as in the JAX
+    decoder), else the pictures themselves."""
+    if vf is None or not vf.interlaced_coding:
+        return pictures
+    return [weave_fields(pictures[i], pictures[i + 1],
+                         tff=vf.top_field_first)
+            for i in range(0, len(pictures) - 1, 2)]

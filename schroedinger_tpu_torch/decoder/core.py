@@ -19,6 +19,7 @@ no-arith.
 from __future__ import annotations
 
 import dataclasses
+import os
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
@@ -33,6 +34,7 @@ from schroedinger_tpu_torch.video_format import VideoFormat
 from schroedinger_tpu_torch.wavelets import Wavelet
 from schroedinger_tpu_torch.decoder import intra as di
 from schroedinger_tpu_torch.decoder import lowdelay as lod
+from schroedinger_tpu_torch.decoder.overlay import overlay_motion
 from schroedinger_tpu_torch.devices import resolve_device
 from schroedinger_tpu_torch.ops import obmc
 
@@ -150,14 +152,17 @@ class StreamDecoder:
     as (y, u, v) numpy u8 planes (u16 when deep).  All tensor work runs
     on `device`: the card when None (an error where there is none), the
     CPU on request.
-    The telemetry overlay (`decoder/overlay.py`) is not ported: asking
-    for it raises NotImplementedError."""
+
+    `telemetry` (None: read SCHRO_TPU_TELEMETRY) draws each inter
+    picture's motion field onto its output luma (`decoder/overlay.py`,
+    on the host); the MD5 is checked on the clean picture first, and the
+    reference planes stay clean."""
 
     def __init__(self, telemetry=None, device=None):
-        if telemetry:
-            raise NotImplementedError("the telemetry overlay "
-                                      "(decoder/overlay.py) is not ported")
-        self.telemetry = False
+        if telemetry is None:
+            telemetry = os.environ.get("SCHRO_TPU_TELEMETRY", "") not in \
+                ("", "0")
+        self.telemetry = bool(telemetry)
         self.device = resolve_device(device)
         self.vf: Optional[VideoFormat] = None
         self.refs: Dict[int, RefFrame] = {}
@@ -293,7 +298,22 @@ class StreamDecoder:
             self.refs[picture_number] = RefFrame(planes)
             if retired is not None and retired != picture_number:
                 self.refs.pop(retired, None)
+        if self.telemetry and mv is not None:
+            planes = self._overlay(picture_number, planes, mv, p)
         return picture_number, planes
+
+    def _overlay(self, picture_number, planes, mv, p):
+        """The telemetry overlay on the output copy only (schrodecoder.c:
+        107); the reference planes kept above stay clean.  The in-stream
+        MD5 is checked against the clean picture first."""
+        with record_function("telemetry_overlay"):
+            host = tuple(pl.cpu().numpy() for pl in planes)
+            if self._pending_md5 is not None:
+                if _native.frame_md5(host) != self._pending_md5:
+                    self.md5_failures.append(picture_number)
+                self._pending_md5 = None
+            y = torch.from_numpy(overlay_motion(host[0], mv, p))
+            return (y.to(self.device),) + tuple(planes[1:])
 
     def decode_stream(self, stream: bytes, presentation_order: bool = True):
         out = []

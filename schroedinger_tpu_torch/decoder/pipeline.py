@@ -15,9 +15,8 @@ the shadow of device work.  Reference pictures stay on the device.
 Pictures outside the packed path's envelope go to `StreamDecoder`'s
 per-picture path, still on the device: per-codeblock quantisers, global
 motion, MVs beyond MV_BOUND_PEL (both rendered by the per-pixel gather),
-low delay, no-arith, deep video and the telemetry overlay, as in the JAX
-package.  The overlay is not ported: asking for it raises
-NotImplementedError.
+low delay, no-arith, deep video and, with the telemetry overlay on,
+every picture, as in the JAX package.
 """
 from __future__ import annotations
 

@@ -32,9 +32,12 @@ every `kw`: the block geometry (`block_size`, `block_overlap`,
 `codeblock_size`), phase-correlation candidates, the estimation switches
 and `downsample_levels`, the prefilters (`filtering`, each picture
 filtered once), PSNR / SSIM of the reconstructions into `stats`, and the
-perceptual weighting.  Two formats raise NotImplementedError: interlaced
-(field) coding, not ported yet (ROADMAP.md Queue 1 item 8), and deep
-(>8-bit) video, which the reference codes intra only (ROADMAP.md Queue 3).
+perceptual weighting.  Interlaced coding (`video_format.interlaced_coding`)
+splits each frame into two field pictures (`frontends.split_fields`, in
+the format's field order) coded back to back as pictures 2n and 2n+1;
+the GOP length and the access-unit boundary count frames, the TM5
+controller fields.  Deep (>8-bit) video raises NotImplementedError: the
+reference codes deep formats intra only (ROADMAP.md Queue 3).
 """
 from __future__ import annotations
 
@@ -63,6 +66,7 @@ from schroedinger_tpu_torch.encoder.ratecontrol import (ArithCorrection,
                                                         stats_tables)
 from schroedinger_tpu_torch.encoder.weights import (band_lambda_scales,
                                                     cycles_per_degree)
+from schroedinger_tpu_torch.frontends import split_fields
 from schroedinger_tpu_torch.ops.filters import apply_prefilter
 from schroedinger_tpu_torch.ops.metrics import ssim_frame
 from schroedinger_tpu_torch.params import Params, subband_count
@@ -138,10 +142,6 @@ class GopEncoder:
             # a 1-deep reference buffer cannot host the tworef engine's
             # forward references: degrade to the backref (IPPP) engine
             gop_structure = "backref"
-        if video_format.interlaced_coding:
-            raise NotImplementedError(
-                "interlaced (field) coding is not ported to "
-                "schroedinger_tpu_torch yet (ROADMAP.md Queue 1 item 8)")
         if video_format.bit_depth != 8:
             raise NotImplementedError(
                 "deep (>8-bit) long-GOP coding is refused: the reference "
@@ -170,6 +170,8 @@ class GopEncoder:
         self._prev_input = None
         self._prev_mad = None
         self.stats = stats if stats is not None else FrameStats()
+        # field coding: two pictures per frame
+        self.field_factor = 2 if video_format.interlaced_coding else 1
         self.perceptual_weighting = perceptual_weighting
         self.perceptual_distance = perceptual_distance
         self.downsample_levels = downsample_levels
@@ -228,7 +230,7 @@ class GopEncoder:
                 subgroup_length=(subgroup_length
                                  if gop_structure == "biref" else 4),
                 buffer_size=buffer_size, buffer_level=buffer_level,
-                interlaced=False,
+                interlaced=video_format.interlaced_coding,
                 b_lambda_scale=self.magic["B_lambda_scale"],
                 p_lambda_scale=self.magic["P_lambda_scale"],
                 i_lambda_scale=self.magic["I_lambda_scale"])
@@ -240,7 +242,7 @@ class GopEncoder:
             self.rc = CbrController(
                 bitrate, fps, gop_length,
                 buffer_size=buffer_size, buffer_level=buffer_level,
-                interlaced=False,
+                interlaced=video_format.interlaced_coding,
                 keyframe_weight=self.magic["keyframe_weight"],
                 inter_p_weight=self.magic["inter_p_weight"],
                 inter_b_weight=self.magic["inter_b_weight"],
@@ -363,7 +365,7 @@ class GopEncoder:
 
     def _is_intra(self, num, planes):
         """backref: (intra?, scene-change score) for picture num."""
-        is_intra = (num % self.gop_length) == 0
+        is_intra = ((num // self.field_factor) % self.gop_length) == 0
         sc = (self._scene_change_score(planes)
               if self.enable_scene_change else 0.0)
         if (not is_intra and sc > self.scene_change_threshold
@@ -371,21 +373,34 @@ class GopEncoder:
             is_intra = True
         return is_intra, sc
 
+    def _pictures(self, planes):
+        """The pictures of one input frame: the frame itself, or its two
+        fields in the format's field order under interlaced coding
+        (schro_encoder_push_frame_full, schroencoder.c:1072-1110)."""
+        if self.field_factor == 2:
+            return split_fields(planes, tff=self.vf.top_field_first)
+        return (planes,)
+
     def encode_frame(self, planes) -> bytes:
         """Display-order input; returns coded-order parse units (references
         before the B pictures that use them).  The biref engine may return
-        b'' while it buffers a subgroup."""
+        b'' while it buffers a subgroup.  Under interlaced coding the
+        frame's two fields are coded back to back; the second field
+        predicts from the first."""
         planes = self._prefilter(planes)
-        if self.gop_structure == "biref":
+        out = bytearray()
+        for pic in self._pictures(planes):
             num = self.frame_number
-            self.frame_number += 1
-            sc = (self._scene_change_score(planes)
-                  if self.enable_scene_change else 0.0)
-            self._queue.append((num, planes, sc))
-            return self._drain_subgroups(final=False)
-        num = self.frame_number
-        is_intra, sc = self._is_intra(num, planes)
-        return bytes(self._encode_ref(planes, num, is_intra, sc))
+            if self.gop_structure == "biref":
+                self.frame_number += 1
+                sc = (self._scene_change_score(pic)
+                      if self.enable_scene_change else 0.0)
+                self._queue.append((num, pic, sc))
+                out += self._drain_subgroups(final=False)
+            else:
+                is_intra, sc = self._is_intra(num, pic)
+                out += self._encode_ref(pic, num, is_intra, sc)
+        return bytes(out)
 
     def flush(self) -> bytes:
         """Code what the biref engine still buffers and finish its pending
@@ -422,8 +437,9 @@ class GopEncoder:
             out += self._chain.add([bs.make_eos_unit()], final_eos=True)
             return bytes(out)
         pends = deque()  # (pending, (num, ref_num, retired, sc, keep))
-        for planes in frames:
-            planes = self._prefilter(planes)
+        pictures = (pic for planes in frames
+                    for pic in self._pictures(self._prefilter(planes)))
+        for planes in pictures:
             num = self.frame_number
             is_intra, sc = self._is_intra(num, planes)
             if is_intra or self.last_ref is None:
@@ -571,7 +587,7 @@ class GopEncoder:
         if self.rc is None:
             return b""
         if self._tm5:
-            pad = self.rc.update(kind, bits, num, 1)
+            pad = self.rc.update(kind, bits, num, self.field_factor)
         else:
             pad = self.rc.update(bits, est)
         return bs.make_padding_unit(pad) if pad else b""
@@ -656,7 +672,8 @@ class GopEncoder:
             for j in range(min(sg, n)):
                 num, _, sc = self._queue[j]
                 is_au = (self._au_frame is None
-                         or (num - self._au_frame) >= self.gop_length)
+                         or (num - self._au_frame)
+                         >= self.gop_length * self.field_factor)
                 cut = (self.enable_scene_change
                        and sc > self.scene_change_threshold
                        and self._refbuf)

@@ -275,8 +275,9 @@ def encode_picture_fused(planes_u8, p: Params, frame_number: int,
     the bit estimates.  Returns (unit_bytes, recon tensors, qi_bands,
     (bits61, err61), band_bits_actual, band_bits_est)."""
     if p.video_format.bit_depth != 8 or p.is_noarith:
-        raise NotImplementedError("the fused intra step codes 8-bit arith "
-                                  "pictures")
+        # a caller's error, not a missing feature: deep and no-arith
+        # pictures take encode_picture
+        raise ValueError("the fused intra step codes 8-bit arith pictures")
     dev = resolve_device(device)
     nb = subband_count(p.transform_depth)
     step1, step2, lay = get_i_step(p, error_power=error_power)

@@ -3,7 +3,7 @@
     python -m schroedinger_tpu_torch.profile_slice
         [--config backref|flagship|draining|bench|lowdelay|
                   backref-quality|constant-error|multiquant|
-                  phasecorr-chroma|prefilter-metrics]
+                  phasecorr-chroma|prefilter-metrics|interlaced-cbr]
         [--frames N] [--out DIR]
 
 Encodes pan + noise 1080p25 4:2:0 frames with the port's GopEncoder under
@@ -26,7 +26,10 @@ gop_structure="backref"), (rate_control="constant_error") and
 (enable_multiquant=True): chip_smoke's phases 15, 17 and 18;
 `phasecorr-chroma` (phase correlation with chroma ME, B pictures one at a
 time) and `prefilter-metrics` (the Gaussian prefilter with PSNR and SSIM)
-run the estimation and prefilter settings of phases 20 and 22.
+run the estimation and prefilter settings of phases 20 and 22;
+`interlaced-cbr` phase 23's 1080i25 field coding (TM5 CBR at 8 Mbit/s,
+quarter-pel, bottom field first: the format's default), whose decode
+counts field pictures.
 Prints, per run: wall time,
 the device's busy time (union of kernel intervals) and idle share, the
 host time in the entropy-coding calls and in the encoder's stage spans
@@ -71,7 +74,10 @@ API_CONFIGS = {"backref-quality": dict(gop_structure="backref"),
                "phasecorr-chroma": dict(enable_phasecorr_estimation=1,
                                         enable_chroma_me=1),
                "prefilter-metrics": dict(filtering="gaussian",
-                                         enable_psnr=1, enable_ssim=1)}
+                                         enable_psnr=1, enable_ssim=1),
+               "interlaced-cbr": dict(rate_control="constant_bitrate",
+                                      bitrate=8_000_000, interlaced_coding=1,
+                                      mv_precision=2)}
 # record_function spans of the port: host entropy coding, then the inter
 # and intra steps' stages (host time of a stage = its enqueue, not the
 # device's work)

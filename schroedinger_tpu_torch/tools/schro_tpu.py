@@ -18,8 +18,11 @@ with a repeatable `--set name=value`.  Input/output video is YUV4MPEG2
 (.y4m; 8-bit, or 10-bit as C420p10/C422p10/C444p10, which the JAX CLI
 refuses), "-" for stdin/stdout pipes, or raw planar I420 (.yuv) with an
 explicit --size WxH.  The default profile is VC-2 low delay, as in the
-JAX CLI.  What the port does not implement yet (interlaced coding, on
-api.Encoder's list) ends the run with NotImplementedError.
+JAX CLI.  A y4m input's It / Ib flag marks the source interlaced; it is
+coded as field pictures only with `--set interlaced_coding=1` (on the
+long-GOP profile), and `decode` weaves a field stream's pictures back
+into frames (the JAX CLI writes the fields).  `decode --telemetry` draws
+each inter picture's motion field onto its luma (decoder/overlay.py).
 """
 import argparse
 import os
@@ -134,7 +137,7 @@ def main(argv=None) -> None:
                     dest="settings", help="any registry setting (repeatable; "
                     "see list-settings)")
     ap.add_argument("--telemetry", action="store_true",
-                    help="decode: draw the MV/split overlay (not ported)")
+                    help="decode: draw the MV/split overlay")
     ap.add_argument("--device", default="cuda",
                     help="cuda (the card, the default) or cpu")
     args = ap.parse_args(argv)
@@ -194,7 +197,8 @@ def main(argv=None) -> None:
                 else open(args.infile, "rb").read())
         dec = PipelinedStreamDecoder(telemetry=args.telemetry or None,
                                      device=device)
-        frames = dec.decode_stream(data)
+        from schroedinger_tpu_torch.api import weave_pictures
+        frames = weave_pictures(dec.decode_stream(data), dec.vf)
         if _is_y4m(args.outfile, False):
             from schroedinger_tpu_torch import y4m
             dst = sys.stdout.buffer if args.outfile == "-" else args.outfile

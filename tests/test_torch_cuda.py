@@ -5,7 +5,8 @@ picture and a batch) and its cost probe against the plain PyTorch
 version, small streams of the slices encoded on the card against the CPU
 encode (every long-GOP rate control among them), the multiquant sums'
 float32 order on the card against the CPU, the pipelined decoder against
-the per-picture one, and the entry points' default device.  This file
+the per-picture one, interlaced streams and the telemetry overlay on the
+card against the CPU, and the entry points' default device.  This file
 imports no JAX, so it also runs where only PyTorch is installed:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py -q
@@ -423,3 +424,49 @@ def test_setting_stream_on_card_within_bands_of_cpu(cuda_device, kw):
                               for o, f in zip(out, frames)]))
     assert abs(psnrs[0] - psnrs[1]) < 0.7
     assert abs(len(streams[0]) - len(streams[1])) < 0.15 * len(streams[1])
+
+
+def _interlaced(vf, tff):
+    import dataclasses
+    return dataclasses.replace(vf, interlaced=True, top_field_first=tff)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kw,tff", [
+    (dict(rate_control="constant_bitrate", bitrate=500_000,
+          interlaced_coding=1, mv_precision=2), True),
+    (dict(gop_structure="backref", interlaced_coding=1), False)],
+    ids=["biref_cbr_tff", "backref_bff"])
+def test_interlaced_stream_on_card_equals_cpu(cuda_device, kw, tff):
+    """Field coding at 128x64 (128x32 fields; I, P and B fields): the
+    card's stream equals the CPU's byte for byte, and the card's woven
+    decode equals the CPU's."""
+    from schroedinger_tpu_torch.config import EncoderConfig
+    frames = make_frames(4, 128, 64)
+    streams = [api.Encoder(_interlaced(video_format(128, 64), tff),
+                           EncoderConfig(**kw), device=d).encode_stream(frames)
+               for d in (None, "cpu")]
+    assert streams[0] == streams[1]
+    outs = [api.Decoder(device=d).decode_stream(streams[0])
+            for d in (None, "cpu")]
+    assert len(outs[0]) == 4 and outs[0][0][0].shape == (64, 128)
+    for a, b in zip(*outs):
+        assert all(np.array_equal(x, y) for x, y in zip(a, b))
+
+
+@pytest.mark.cuda
+def test_telemetry_decode_on_card_equals_cpu(cuda_device):
+    """The telemetry overlay on the card's decode (both decoders) equals
+    the CPU's plane for plane; the MD5s hold."""
+    frames = make_frames(5, 128, 64)
+    stream = GopEncoder(video_format(128, 64), device="cpu",
+                        **dict(CONFIG_FLAGSHIP, bitrate=500_000)
+                        ).encode_stream(frames)
+    want = StreamDecoder(telemetry=True, device="cpu").decode_stream(stream)
+    for dec in (StreamDecoder(telemetry=True),
+                PipelinedStreamDecoder(telemetry=True)):
+        got = dec.decode_stream(stream)
+        assert dec.md5_failures == [] and dec.errors == []
+        assert len(got) == len(want) == 5
+        for a, b in zip(got, want):
+            assert all(np.array_equal(x, y) for x, y in zip(a, b))

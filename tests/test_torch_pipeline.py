@@ -15,6 +15,7 @@ import torch
 
 from schroedinger_tpu.decoder import pipeline as j_pipe
 from schroedinger_tpu.encoder import gop as j_gop
+from schroedinger_tpu_torch import bitstream as bs
 from schroedinger_tpu_torch.decoder import core as t_core
 from schroedinger_tpu_torch.decoder import pipeline as t_pipe
 from schroedinger_tpu_torch.encoder import gop as t_gop
@@ -100,6 +101,33 @@ def test_pipelined_decoder_matches(streams, name):
         assert fallbacks == []
 
 
-def test_pipelined_decoder_keeps_the_telemetry_overlay_out():
-    with pytest.raises(NotImplementedError):
-        t_pipe.PipelinedStreamDecoder(telemetry=True, device="cpu")
+def test_pipelined_decoder_keeps_the_telemetry_overlay_out(streams):
+    """With the telemetry overlay on, the packed path is kept out: every
+    picture goes per picture, as in the JAX decoder, and the output
+    equals StreamDecoder's telemetry decode.  The MD5s hold (checked on
+    the clean pictures), the overlay marks each inter picture's luma
+    only, and the intra pictures come out clean."""
+    stream = streams["flagship"]
+    port = t_pipe.PipelinedStreamDecoder(telemetry=True, device="cpu")
+    fallbacks = []
+    orig = port.decode_picture_unit
+
+    def counted(code, payload):
+        fallbacks.append(code)
+        return orig(code, payload)
+    port.decode_picture_unit = counted
+    got = port.decode_stream(stream)
+    base = t_core.StreamDecoder(telemetry=True, device="cpu")
+    want = base.decode_stream(stream)
+    clean = t_core.StreamDecoder(device="cpu").decode_stream(stream)
+    assert len(fallbacks) == len(got) == len(want) == len(clean) == 9
+    assert port.md5_failures == base.md5_failures == []
+    assert port.errors == []
+    kinds = {int.from_bytes(p[:4], "big"): bs.num_refs(c)
+             for c, p in bs.split_units(stream) if bs.is_picture(c)}
+    for num, (a, b, c) in enumerate(zip(got, want, clean)):
+        for x, y in zip(a, b):
+            np.testing.assert_array_equal(x, y)
+        np.testing.assert_array_equal(a[1], c[1])
+        np.testing.assert_array_equal(a[2], c[2])
+        assert np.array_equal(a[0], c[0]) == (kinds[num] == 0)

@@ -268,9 +268,10 @@ def test_encode_frame_path_matches_jax(frames):
 
 def test_unported_options_raise():
     """The port's GopEncoder takes the JAX constructor's whole signature
-    with its defaults and every value of its options; what it does not
-    implement (interlaced coding) or refuses on purpose (deep long GOP)
-    raises NotImplementedError naming its ROADMAP.md item."""
+    with its defaults and every value of its options, interlaced coding
+    included (tests/test_torch_interlaced*.py); what it refuses on
+    purpose (deep long GOP) raises NotImplementedError naming its
+    ROADMAP.md item."""
     import dataclasses
     import inspect
     vf = video_format(W, H)
@@ -284,11 +285,11 @@ def test_unported_options_raise():
                dict(filtering="gaussian"), dict(estimation=("fullscan",)),
                dict(enable_psnr=True)):
         t_gop.GopEncoder(vf, device="cpu", **kw)
-    for bad, item in ((dataclasses.replace(vf, interlaced_coding=True),
-                       "Queue 1 item 8"),
-                      (video_format(W, H, bit_depth=10), "Queue 3")):
-        with pytest.raises(NotImplementedError, match=item):
-            t_gop.GopEncoder(bad, device="cpu")
+    fields = t_gop.GopEncoder(dataclasses.replace(vf, interlaced_coding=True),
+                              device="cpu")
+    assert fields.field_factor == 2
+    with pytest.raises(NotImplementedError, match="Queue 3"):
+        t_gop.GopEncoder(video_format(W, H, bit_depth=10), device="cpu")
     # the defaults are taken, a full subgroup's B pictures batched
     enc = t_gop.GopEncoder(vf, device="cpu", gop_structure="biref",
                            block_size="automatic", downsample_levels=5,
