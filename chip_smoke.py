@@ -163,9 +163,40 @@ telemetry overlay and the stream tools, on the card:
      (the first 9 coded pictures) on the stream: the cut decodes to the
      full decode's fields; the StreamingDecoder's decode frames/s beside
      api.Decoder's, in turns
+ 27. frames-within-GOP on the card (graft_entry stages 1, 5 and 6) over a
+     world of 4 ranks on cuda:0 (gloo, printed): each rank codes one B
+     picture (bench.py's pan rolled by its rank) against the replicated
+     references through the two-reference step with the RD pick and the
+     stat tables at N = 1, at 64x64, 1080p and 2160p (24/16 blocks); its
+     fields, quantiser picks, quantised bands and stat tables equal rank
+     0's batched step of the 4 pictures; kernel #1 launches 14 times per
+     rank and 14 for the batch at 1080p and 2160p; the device ms of rank
+     0's batched step and of an N = 1 step; the kernel == plain at every
+     launch shape of the 2160p step, timed beside its bound
+ 28. tiles at 1080p over 4 ranks: the row-sharded forward and inverse
+     wavelet of a 1088x1920 int16 frame at depth 3 (LeGall 5,3,
+     Deslauriers-Dubuc 9,7, Fidelity; halo rows through the host), the
+     upsample of a 1080x1920 plane and the banded two-reference render of
+     1080p luma, each equal to the unsharded op on the card; both forms
+     timed
+ 29. smoke-1080p-gop-sharded: 48 frames of bench.py's pan + noise, two
+     GOPs of 24, on two shard threads: CONFIG with scene change off equals
+     the serial stream byte for byte; CONFIG_BENCH with per-chunk
+     reservoirs (exact=False): threads == sequential, api.Decoder gives
+     all 48 frames in order at luma PSNR >= 30 dB, each chunk's picture
+     bytes within 0.1x-4x of its pro-rata share, kernel #1's launches as
+     the pictures imply (7 per reference, 14 per batch of B pictures);
+     serial and sharded frames/s in turns
+ 30. smoke-1080p-multiprocess: two processes of
+     tools/multihost_worker.py on the one card (gloo), CONFIG_BENCH, 48
+     frames: their merged streams equal each other and phase 29's
+     sequential stream (else the first differing picture is named)
+ 31. graft_entry.entry(): the CIF low-delay analysis on the card equal to
+     the CPU's
 The last two lines are the nvidia-smi line and
 {"ok": true, "device": {...}}; the kernel summary JSON comes before them
-(with the launches of phases 23 and 24 and the field launch shapes).
+(with the launches of phases 23, 24 and 27-30 and the field and 2160p
+launch shapes).
 """
 import dataclasses
 import json
@@ -180,6 +211,7 @@ import torch
 
 from schroedinger_tpu_torch import api
 from schroedinger_tpu_torch import bitstream as bs
+from schroedinger_tpu_torch import graft_entry
 from schroedinger_tpu_torch import y4m
 from schroedinger_tpu_torch.coding import native as coder
 from schroedinger_tpu_torch.coding.bitio import BitReader
@@ -192,13 +224,16 @@ from schroedinger_tpu_torch.encoder import me as me_mod
 from schroedinger_tpu_torch.encoder.gop import GopEncoder
 from schroedinger_tpu_torch.frontends import weave_fields
 from schroedinger_tpu_torch.ops import patch_refine as pr
+from schroedinger_tpu_torch.parallel import gops, group
 from schroedinger_tpu_torch.pipeline import planes_to_device
 from schroedinger_tpu_torch.tools.schro_tpu import encoder_config
 from schroedinger_tpu_torch.video_format import ChromaFormat
+from schroedinger_tpu_torch.wavelets import Wavelet
 from schroedinger_tpu_torch.slice_config import (CONFIG, CONFIG_BENCH,
                                                  CONFIG_FLAGSHIP,
                                                  CONFIG_FLAGSHIP_DRAINING,
                                                  make_frames, video_format)
+from schroedinger_tpu_torch.tools import multihost_worker as mw
 from schroedinger_tpu_torch.tools import profile_patch_refine as probe_tool
 from schroedinger_tpu_torch.tools.profile_patch_refine import (gpu_line,
                                                                graph_ms,
@@ -2072,6 +2107,254 @@ def phases_interlaced(card):
     return out, max(w1, w2)
 
 
+# ---- the multi-device paths on torch.distributed (27-31) ----------------
+
+WORLD = 4                        # ranks of phases 27 and 28, on cuda:0
+FRAMES_IN_GOP_STAGES = (1, 5, 6)  # graft_entry stages of phase 27
+HOLD_STAGE = 6                   # the stage whose launch shapes are held
+# phase 28: the wavelet frame (rows, cols) at depth 3 and its wavelets,
+# the upsampled plane, the rendered picture (W, H, blen, bsep)
+TILES_WAVE = ((1088, 1920), 3, (Wavelet.LE_GALL_5_3,
+                                Wavelet.DESLAURIERS_DUBUC_9_7,
+                                Wavelet.FIDELITY))
+TILES_PLANE = (1080, 1920)
+TILES_PICTURE = (1920, 1080, 24, 16)
+TILES_REPEAT = 5                 # timed calls of each form
+SHARD_SIZE = "1080p"             # the worker's clip of phases 29 and 30
+
+
+def phase_frames_in_gop(card):
+    """Graft-entry stages 1, 5 and 6 over a world of WORLD ranks on the
+    card (gloo: they share it), then kernel #1 held to its plain version
+    at every launch shape of one step of stage 6 (2160p, 24/16 blocks).
+    Returns (launches, the shapes held, max |diff|)."""
+    t0 = time.perf_counter()
+    reports = graft_entry.dryrun_multichip(WORLD,
+                                           stages=FRAMES_IN_GOP_STAGES)
+    t_world = time.perf_counter() - t0
+    launches = 0
+    for stage in FRAMES_IN_GOP_STAGES:
+        r = reports[stage]
+        W, H, blen, bsep = graft_entry.FRAMES_IN_GOP[stage]
+        # 7 searches a reference at full size; the 64x64 pyramid has fewer
+        # levels, so there every rank must match the batch
+        want = 2 * LAUNCHES_PER_REF if W >= 1920 else r["batch_launches"]
+        if set(r["launches"]) != {want} or r["batch_launches"] != want:
+            raise AssertionError(f"phase27 stage {stage}: kernel #1 "
+                                 f"launched {r['launches']} times per rank "
+                                 f"and {r['batch_launches']} for the batch, "
+                                 f"expected {want} each")
+        launches += sum(r["launches"]) + r["batch_launches"]
+        print(f"phase27 stage {stage} {W}x{H} ({blen}/{bsep} blocks): every "
+              f"rank's B picture == rank 0's batched step; kernel #1 "
+              f"launches per rank {r['launches']}, batch "
+              f"{r['batch_launches']}; device ms (CUDA events, with the "
+              f"fetch) of rank 0's batched step of {WORLD} "
+              f"{r['batch_ms']:.3f}, of one rank's N = 1 step "
+              f"{r['single_ms']:.3f} [{card}]", flush=True)
+    frames, step = graft_entry.frames_in_gop_step(HOLD_STAGE, 1,
+                                                  torch.device(CARD))
+    done = {}
+    with record_searches() as searches:
+        step([frames[1]])
+    worst = hold_shapes(card, "phase27", searches, done)
+    shapes = [dict(cur=list(k[0]), bs_y=k[1], bs_x=k[2], rad=k[3],
+                   scale=k[4], **v) for k, v in sorted(done.items())]
+    print(f"phase27 frames-within-GOP over {WORLD} ranks: {t_world:.1f} s "
+          f"with the world's start [{card}]", flush=True)
+    return launches, shapes, worst
+
+
+def phase_tiles(card):
+    """The row-sharded wavelet (forward and inverse), upsample and banded
+    render at 1080p over WORLD ranks, each equal to the unsharded op on
+    the card, both forms timed."""
+    (wave_hw, depth, wavelets), plane_hw = TILES_WAVE, TILES_PLANE
+    t0 = time.perf_counter()
+    times = group.run_world(graft_entry.tiles_check, WORLD, wave_hw, depth,
+                            wavelets, plane_hw, TILES_PICTURE,
+                            TILES_REPEAT)[0]
+    t_world = time.perf_counter() - t0
+    for op, (ms_sharded, ms_whole) in times.items():
+        print(f"phase28 {op}: {WORLD} ranks == the unsharded op; host ms a "
+              f"call (synchronized, {TILES_REPEAT} calls): sharded "
+              f"{ms_sharded:.3f}, "
+              f"unsharded {ms_whole:.3f} on one rank [{card}]", flush=True)
+    print(f"phase28 tiles: wavelet {wave_hw[0]}x{wave_hw[1]} int16 at depth "
+          f"{depth}, upsample {plane_hw[0]}x{plane_hw[1]}, render "
+          f"{TILES_PICTURE[0]}x{TILES_PICTURE[1]} luma; {t_world:.1f} s with "
+          f"the world's start [{card}]", flush=True)
+
+
+def chunk_bytes(stream, ranges):
+    """Bytes of the picture units of each chunk range (in frames)."""
+    out = [0] * len(ranges)
+    for code, payload in bs.split_units(stream):
+        if bs.is_picture(code):
+            num = int.from_bytes(payload[:4], "big")
+            k = next(i for i, (a, b) in enumerate(ranges) if a <= num < b)
+            out[k] += 13 + len(payload)
+    return out
+
+
+def timed_encode(fn):
+    """fn() timed on the host around a synchronise: (its result,
+    seconds); encode_timed's form for an encode that is not one
+    encoder's."""
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def phase_gop_sharded(card):
+    """smoke-1080p-gop-sharded: 48 frames of bench.py's pan + noise, two
+    GOPs of 24, on two shard threads.  CONFIG with scene change off: the
+    sharded stream == the serial one.  CONFIG_BENCH, exact=False: threads
+    == sequential, decodes in order, luma PSNR >= 30 dB, each chunk's
+    picture bytes within 0.1x-4x of its pro-rata share, kernel #1's
+    launches as the pictures imply.  Returns (launches, the sequential
+    exact=False stream)."""
+    frames = mw.make_frames(SHARD_SIZE)
+    vf = mw.make_encoder(SHARD_SIZE).vf
+    n = len(frames)
+
+    def exact():
+        return GopEncoder(vf, **dict(CONFIG, enable_scene_change=False))
+    serial, t_serial = timed_encode(lambda: exact().encode_stream(frames))
+    sharded, t_sharded = timed_encode(
+        lambda: gops.encode_gops_sharded(frames, exact, n_shards=2))
+    if sharded != serial:
+        raise AssertionError(f"phase29 CONFIG: the sharded stream "
+                             f"({len(sharded)} bytes) differs from the "
+                             f"serial one ({len(serial)})")
+    print(f"phase29 CONFIG (backref, fixed quantisers, scene change off) "
+          f"x{n}: two shard threads == serial, {len(serial)} bytes; encode "
+          f"{n / t_sharded:.3f} frames/s sharded, {n / t_serial:.3f} serial "
+          f"[{card}]", flush=True)
+
+    seens = []
+
+    def bench():
+        enc = mw.make_encoder(SHARD_SIZE)
+        seens.append(record_batches(enc))
+        return enc
+    # serial and sharded in turns; the count is set to 0 just before each
+    # sharded encode and read just after
+    runs = {"serial": [], "sharded": []}
+    for name in ("serial", "sharded", "sharded", "serial"):
+        if name == "serial":
+            _, t = timed_encode(
+                lambda: mw.make_encoder(SHARD_SIZE).encode_stream(frames))
+        else:
+            seens.clear()
+            pr.LAUNCHES = 0
+            threaded, t = timed_encode(lambda: gops.encode_gops_sharded(
+                frames, bench, n_shards=2, exact=False))
+            launches = pr.LAUNCHES
+        runs[name].append(round(n / t, 3))
+    sequential = gops.encode_gops_sharded(
+        frames, lambda: mw.make_encoder(SHARD_SIZE), n_shards=2,
+        sequential=True, exact=False)
+    if threaded != sequential:
+        raise AssertionError("phase29 CONFIG_BENCH: the threaded shards' "
+                             "stream differs from the sequential one")
+    want = expected_launches(threaded, [b for seen in seens for b in seen])
+    if launches != want:
+        raise AssertionError(f"phase29: {launches} launches of kernel #1, "
+                             f"the pictures imply {want}")
+    dec = api.Decoder()
+    vals = check_decoded(dec.decode_stream(threaded), frames, dec,
+                         "phase29")
+    enc = mw.make_encoder(SHARD_SIZE)
+    ranges = gops.chunk_ranges(n, enc.gop_length, 2)
+    shares = [(b - a) * enc.rc.bits_per_picture / 8 for a, b in ranges]
+    sizes = chunk_bytes(threaded, ranges)
+    if not all(0.1 * s <= b <= 4 * s for b, s in zip(sizes, shares)):
+        raise AssertionError(f"phase29: chunk picture bytes {sizes} outside "
+                             f"0.1x-4x of {shares}")
+    n_i, n_p, n_b = picture_mix(threaded)
+    print(f"phase29 smoke-{SHARD_SIZE}-gop-sharded (CONFIG_BENCH, exact="
+          f"False) x{n}: {n_i} I, {n_p} P, {n_b} B; {len(threaded)} bytes, "
+          f"chunks {sizes} of pro-rata {[round(s) for s in shares]}; luma "
+          f"PSNR mean {np.mean(vals):.3f} min {min(vals):.3f} dB; threads =="
+          f" sequential; kernel #1 launches {launches} over both threads; "
+          f"encode frames/s in turns (serial, sharded, sharded, serial): "
+          f"sharded {runs['sharded']}, serial {runs['serial']} [{card}]",
+          flush=True)
+    return launches, sequential
+
+
+def first_differing_picture(a, b):
+    """The picture number of the first picture unit in which two streams
+    differ (in coded order), or None."""
+    ua = [(c, p) for c, p in bs.split_units(a) if bs.is_picture(c)]
+    ub = [(c, p) for c, p in bs.split_units(b) if bs.is_picture(c)]
+    for (ca, pa), (cb, pb) in zip(ua, ub):
+        if (ca, pa) != (cb, pb):
+            return int.from_bytes(pa[:4], "big")
+    return None
+
+
+def phase_multiprocess(card, sequential):
+    """smoke-1080p-multiprocess: two processes of the worker on the one
+    card (gloo), CONFIG_BENCH: the merged streams equal each other and
+    phase 29's sequential exact=False stream.  Returns the workers'
+    launches."""
+    t0 = time.perf_counter()
+    streams, reports = graft_entry.multiprocess_encode(SHARD_SIZE,
+                                                       torch.device(CARD))
+    wall = time.perf_counter() - t0
+    for s in streams:
+        if s != sequential:
+            raise AssertionError(
+                f"phase30: a worker's merged stream ({len(s)} bytes) differs "
+                f"from the sequential one ({len(sequential)}); first "
+                f"differing picture {first_differing_picture(s, sequential)}")
+    launches = sum(r["launches"] for r in reports)
+    if any(r["launches"] == 0 for r in reports):
+        raise AssertionError(f"phase30: a worker launched no kernel: "
+                             f"{reports}")
+    print(f"phase30 smoke-{SHARD_SIZE}-multiprocess: 2 worker processes on "
+          f"{[r['device'] for r in reports]}, merged {len(streams[0])} bytes "
+          f"on both == phase 29's sequential stream; kernel #1 launches "
+          f"{[r['launches'] for r in reports]}; {wall:.1f} s with the "
+          f"processes' start [{card}]", flush=True)
+    return launches
+
+
+def phase_entry(card):
+    """graft_entry.entry(): the CIF low-delay analysis on the card equal to
+    the CPU's."""
+    fn, args = graft_entry.entry()
+    got = fn(*args)
+    fn_cpu, args_cpu = graft_entry.entry(device="cpu")
+    want = fn_cpu(*args_cpu)
+
+    def flat(outs):
+        return list(outs[:3]) + [a for agg in outs[3:] for a in agg]
+    for k, (g, w) in enumerate(zip(flat(got), flat(want))):
+        if not torch.equal(g.cpu(), w):
+            raise AssertionError(f"phase31 entry(): output {k} on the card "
+                                 "differs from the CPU's")
+    print(f"phase31 entry(): the CIF low-delay analysis on "
+          f"{args[0].device} == the CPU's ({len(flat(got))} outputs) "
+          f"[{card}]", flush=True)
+
+
+def phases_distributed(card):
+    """Phases 27-31; returns their launch counts, the launch shapes held
+    and the largest |diff| of the kernel against its plain version."""
+    out = {}
+    out["launches_frames_in_gop"], out["frames_in_gop_shapes"], worst = \
+        phase_frames_in_gop(card)
+    phase_tiles(card)
+    out["launches_gop_sharded"], sequential = phase_gop_sharded(card)
+    out["launches_multiprocess"] = phase_multiprocess(card, sequential)
+    phase_entry(card)
+    return out, worst
+
+
 def main() -> int:
     card = gpu_line()
     print(f"phase0 gpu: {card}", flush=True)
@@ -2118,10 +2401,17 @@ def main() -> int:
     fields, worst = phases_interlaced(card)
     entry.update(fields)
     entry["max_abs_err"] = max(entry["max_abs_err"], worst)
+    t_fields = time.perf_counter()
+    # the multi-device paths: each count is set to 0 just before its path
+    # and read just after (in the ranks and workers for 27 and 30)
+    dist_counts, worst = phases_distributed(card)
+    entry.update(dist_counts)
+    entry["max_abs_err"] = max(entry["max_abs_err"], worst)
     t_end = time.perf_counter()
     print(f"wall: phases 1-18 {t_rate - t_start:.1f} s, phases 19-22 "
           f"{t_settings - t_rate:.1f} s, phases 23-26 "
-          f"{t_end - t_settings:.1f} s, the whole script "
+          f"{t_fields - t_settings:.1f} s, phases 27-31 "
+          f"{t_end - t_fields:.1f} s, the whole script "
           f"{t_end - t_start:.1f} s (host clock, from the build on)",
           flush=True)
 

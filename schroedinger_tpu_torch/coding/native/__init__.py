@@ -16,6 +16,7 @@ import ctypes as C
 import hashlib
 import os
 import subprocess
+import threading
 
 import numpy as np
 
@@ -26,6 +27,10 @@ BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build",
                          "schroedinger_tpu_torch")
 CXX_FLAGS = ["-O3", "-march=native", "-shared", "-fPIC", "-std=c++17"]
 LIBRARY = None      # path of the built library, set by build()
+# guards the build, the load and the late declarations of the library
+# (reentrant: a declaration reaches the library through _Library):
+# encoders and decoders may run on several threads
+_LOCK = threading.RLock()
 
 _i32p = np.ctypeslib.ndpointer(np.int32, flags="C_CONTIGUOUS")
 _i64p = np.ctypeslib.ndpointer(np.int64, flags="C_CONTIGUOUS")
@@ -105,10 +110,12 @@ class _Library:
     _cdll = None
 
     def _get(self):
-        if _Library._cdll is None:
-            lib = C.CDLL(build())
-            _declare(lib)
-            _Library._cdll = lib
+        if _Library._cdll is None:    # checked again under the lock
+            with _LOCK:
+                if _Library._cdll is None:
+                    lib = C.CDLL(build())
+                    _declare(lib)
+                    _Library._cdll = lib
         return _Library._cdll
 
     def __getattr__(self, name):
@@ -253,12 +260,13 @@ _lib2 = None
 
 def _ensure_motion():
     global _lib2
-    if _lib2 is None:
-        _lib.motion_decode.restype = None
-        _lib.motion_decode.argtypes = [
-            C.c_char_p, _i64p, _i64p,
-            C.c_int, C.c_int, C.c_int, C.c_int, C.c_int] + [_i32p] * 10
-        _lib2 = _lib
+    with _LOCK:
+        if _lib2 is None:
+            _lib.motion_decode.restype = None
+            _lib.motion_decode.argtypes = [
+                C.c_char_p, _i64p, _i64p,
+                C.c_int, C.c_int, C.c_int, C.c_int, C.c_int] + [_i32p] * 10
+            _lib2 = _lib
     return _lib2
 
 
@@ -288,16 +296,17 @@ def motion_decode(buffers, x_num_blocks, y_num_blocks, num_refs,
 
 
 def _ensure_noarith():
-    if not hasattr(_lib, "_na_ready"):
-        _lib.subband_encode_noarith.restype = C.c_int64
-        _lib.subband_encode_noarith.argtypes = [
-            _i32p, C.c_int, C.c_int, C.c_int, C.c_int, C.c_int, C.c_int,
-            _u8p, C.c_int64]
-        _lib.subband_decode_noarith.restype = None
-        _lib.subband_decode_noarith.argtypes = [
-            C.c_char_p, C.c_int64, C.c_int, C.c_int, C.c_int,
-            C.c_int, C.c_int, C.c_int, C.c_int, C.c_int, _i32p]
-        _lib._na_ready = True
+    with _LOCK:
+        if not hasattr(_lib, "_na_ready"):
+            _lib.subband_encode_noarith.restype = C.c_int64
+            _lib.subband_encode_noarith.argtypes = [
+                _i32p, C.c_int, C.c_int, C.c_int, C.c_int, C.c_int, C.c_int,
+                _u8p, C.c_int64]
+            _lib.subband_decode_noarith.restype = None
+            _lib.subband_decode_noarith.argtypes = [
+                C.c_char_p, C.c_int64, C.c_int, C.c_int, C.c_int,
+                C.c_int, C.c_int, C.c_int, C.c_int, C.c_int, _i32p]
+            _lib._na_ready = True
 
 
 def encode_subband_noarith(qdata, position, hcb, vcb, have_quant_offset_mode):
@@ -324,12 +333,13 @@ def decode_subband_noarith(payload, shape, quant_index, position, hcb, vcb,
 
 
 def _ensure_motion_enc():
-    if not hasattr(_lib, "_me_ready"):
-        _lib.motion_encode.restype = C.c_int64
-        _lib.motion_encode.argtypes = (
-            [C.c_int, C.c_int, C.c_int, C.c_int, C.c_int]
-            + [_i32p] * 10 + [_u8p, C.c_int64, _i64p, _i64p])
-        _lib._me_ready = True
+    with _LOCK:
+        if not hasattr(_lib, "_me_ready"):
+            _lib.motion_encode.restype = C.c_int64
+            _lib.motion_encode.argtypes = (
+                [C.c_int, C.c_int, C.c_int, C.c_int, C.c_int]
+                + [_i32p] * 10 + [_u8p, C.c_int64, _i64p, _i64p])
+            _lib._me_ready = True
 
 
 def motion_encode(mv: dict, x_num_blocks, y_num_blocks, num_refs,
@@ -361,11 +371,12 @@ def motion_encode(mv: dict, x_num_blocks, y_num_blocks, num_refs,
 
 def frame_md5(planes):
     """schro_frame_md5: raw row-padded MD5 over Y,U,V planes -> 16 bytes."""
-    if not hasattr(_lib, "_md5_ready"):
-        _lib.frame_md5.restype = None
-        _lib.frame_md5.argtypes = [_u8p, C.c_int, C.c_int, _u8p, _u8p,
-                                   C.c_int, C.c_int, _u8p]
-        _lib._md5_ready = True
+    with _LOCK:
+        if not hasattr(_lib, "_md5_ready"):
+            _lib.frame_md5.restype = None
+            _lib.frame_md5.argtypes = [_u8p, C.c_int, C.c_int, _u8p, _u8p,
+                                       C.c_int, C.c_int, _u8p]
+            _lib._md5_ready = True
     y, u, v = (np.ascontiguousarray(p, np.uint8) for p in planes)
     out = np.zeros(16, dtype=np.uint8)
     _lib.frame_md5(y, y.shape[1], y.shape[0], u, v,
@@ -374,18 +385,19 @@ def frame_md5(planes):
 
 
 def _ensure_tab():
-    if not hasattr(_lib, "_tab_ready"):
-        _lib.ld_encode_tab.restype = C.c_int64
-        _lib.ld_encode_tab.argtypes = [
-            _i32p, _i32p, _i32p, _i32p, _i32p,
-            C.c_int, C.c_int, C.c_int, C.c_int,
-            C.c_int, C.c_int, C.c_int, C.c_int,
-            _i32p, _i32p, _i32p,
-            C.c_int, C.c_int, C.c_int, C.c_int,
-            C.c_int, C.c_int, _i64p,
-            _i32p, _i32p, _i32p, _i32p, _i32p, _i32p,
-            _u8p, C.c_int64, _i32p]
-        _lib._tab_ready = True
+    with _LOCK:
+        if not hasattr(_lib, "_tab_ready"):
+            _lib.ld_encode_tab.restype = C.c_int64
+            _lib.ld_encode_tab.argtypes = [
+                _i32p, _i32p, _i32p, _i32p, _i32p,
+                C.c_int, C.c_int, C.c_int, C.c_int,
+                C.c_int, C.c_int, C.c_int, C.c_int,
+                _i32p, _i32p, _i32p,
+                C.c_int, C.c_int, C.c_int, C.c_int,
+                C.c_int, C.c_int, _i64p,
+                _i32p, _i32p, _i32p, _i32p, _i32p, _i32p,
+                _u8p, C.c_int64, _i32p]
+            _lib._tab_ready = True
 
 
 def ld_encode_tab(yd, ud, vd, y_qmo, uv_qmo, ny, nx, y_bh, y_bw, uv_bh, uv_bw,

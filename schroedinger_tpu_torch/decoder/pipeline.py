@@ -20,6 +20,7 @@ every picture, as in the JAX package.
 """
 from __future__ import annotations
 
+import threading
 from collections import deque
 
 import numpy as np
@@ -43,6 +44,8 @@ from schroedinger_tpu_torch.params import (Params, subband_count,
                                            subband_position)
 
 _DEC_CACHE = {}
+# guards _DEC_CACHE: decoders may run on several threads
+_DEC_LOCK = threading.Lock()
 
 _MV_FIELD_ORDER = ("split", "pred_mode", "using_global", "dx1", "dy1",
                    "dx2", "dy2", "dc0", "dc1", "dc2")
@@ -67,6 +70,11 @@ def _get_dec_step(p: Params, wide: bool, device):
     dequantised per band, inverse-transformed per component, and for an
     inter picture rendered from the references' half-pel planes and
     combined."""
+    with _DEC_LOCK:
+        return _build_dec_step(p, wide, device)
+
+
+def _build_dec_step(p: Params, wide: bool, device):
     vf = p.video_format
     num_refs = p.num_refs
     key = (vf.picture_luma_size(), vf.picture_chroma_size(),

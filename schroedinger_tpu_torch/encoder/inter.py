@@ -28,6 +28,7 @@ competition.
 """
 from __future__ import annotations
 
+import threading
 from typing import Optional
 
 import numpy as np
@@ -67,6 +68,9 @@ _P_FIELD_ORDER = ("split", "pred_mode", "using_global", "dx1", "dy1",
 
 N_PHASECORR_CANDS = 8
 _PHASECORR_FNS = {}
+# guards the build-once caches of this module (_PHASECORR_FNS and
+# _STEP_CACHE): GOP shards encode on several threads
+_BUILD_LOCK = threading.Lock()
 
 
 def _phasecorr_candidates(p: Params, cur_y, ref_y):
@@ -75,9 +79,10 @@ def _phasecorr_candidates(p: Params, cur_y, ref_y):
     the distilling pick on the host.  Returns a host (N_PHASECORR_CANDS,
     2) int32 array of (dy, dx)."""
     pw, ph = p.video_format.picture_luma_size()
-    fn = _PHASECORR_FNS.get((pw, ph))
-    if fn is None:
-        fn = _PHASECORR_FNS[(pw, ph)] = pcm.make_phasecorr_fn(ph, pw)
+    with _BUILD_LOCK:
+        fn = _PHASECORR_FNS.get((pw, ph))
+        if fn is None:
+            fn = _PHASECORR_FNS[(pw, ph)] = pcm.make_phasecorr_fn(ph, pw)
     vecs = fn(cur_y, ref_y)
     return pcm.pick_candidates(vecs.cpu().numpy(), n=N_PHASECORR_CANDS)
 
@@ -507,14 +512,16 @@ def get_p_step(p: Params, rdo_pick: bool = False, want_recon: bool = True,
     key = _step_key(p, rdo_pick, want_recon, me_levels,
                     block_search_threshold, scan_distance, error_power,
                     want_stats, n_extra, tuple(estimation))
-    hit = _STEP_CACHE.get(key)
-    if hit is None:
-        hit = _STEP_CACHE[key] = make_p_step(
-            p, rdo_pick=rdo_pick, want_recon=want_recon, me_levels=me_levels,
-            block_search_threshold=block_search_threshold,
-            scan_distance=scan_distance, error_power=error_power,
-            want_stats=want_stats, n_extra=n_extra,
-            estimation=tuple(estimation))
+    with _BUILD_LOCK:
+        hit = _STEP_CACHE.get(key)
+        if hit is None:
+            hit = _STEP_CACHE[key] = make_p_step(
+                p, rdo_pick=rdo_pick, want_recon=want_recon,
+                me_levels=me_levels,
+                block_search_threshold=block_search_threshold,
+                scan_distance=scan_distance, error_power=error_power,
+                want_stats=want_stats, n_extra=n_extra,
+                estimation=tuple(estimation))
     return hit
 
 

@@ -12,6 +12,8 @@ device="cpu".
 """
 from __future__ import annotations
 
+import threading
+
 import numpy as np
 import torch
 from torch.profiler import record_function
@@ -157,6 +159,8 @@ def encode_picture(planes_u8, p: Params, frame_number: int,
 
 
 _I_STEP_CACHE = {}
+# guards _I_STEP_CACHE: encoders may run on several threads
+_I_STEP_LOCK = threading.Lock()
 
 
 def get_i_step(p: Params, error_power: float = 4.0):
@@ -174,6 +178,11 @@ def get_i_step(p: Params, error_power: float = 4.0):
       step2(qflats, qi_bands, dq0) -> 3 u8 recon planes
         dequantises bands >= 1, splices the host's dequantised band 0,
         inverse IWT, +128, clip: the decoder-exact reconstruction."""
+    with _I_STEP_LOCK:
+        return _get_i_step(p, error_power)
+
+
+def _get_i_step(p: Params, error_power: float):
     vf = p.video_format
     depth = p.transform_depth
     wavelet = p.wavelet_filter_index

@@ -21,6 +21,8 @@ carried over: the port's C++ coder has no Python fallback.
 """
 from __future__ import annotations
 
+import threading
+
 import numpy as np
 import torch
 from torch.profiler import record_function
@@ -88,6 +90,8 @@ def _forward(plane, depth, wavelet):
 _ANALYZE_CACHE = {}
 _TRANSFORM_CACHE = {}
 _HOST_CACHE = {}
+# guards the three build-once caches: encoders may run on several threads
+_BUILD_LOCK = threading.Lock()
 
 
 def _params_key(p: Params):
@@ -100,17 +104,19 @@ def _params_key(p: Params):
 
 def _get_analyze_fn(p: Params):
     key = _params_key(p)
-    fn = _ANALYZE_CACHE.get(key)
-    if fn is None:
-        fn = _ANALYZE_CACHE[key] = make_lowdelay_analyze(p)
+    with _BUILD_LOCK:
+        fn = _ANALYZE_CACHE.get(key)
+        if fn is None:
+            fn = _ANALYZE_CACHE[key] = make_lowdelay_analyze(p)
     return fn
 
 
 def _get_transform_fn(p: Params):
     key = _params_key(p)
-    fn = _TRANSFORM_CACHE.get(key)
-    if fn is None:
-        fn = _TRANSFORM_CACHE[key] = make_lowdelay_transform(p)
+    with _BUILD_LOCK:
+        fn = _TRANSFORM_CACHE.get(key)
+        if fn is None:
+            fn = _TRANSFORM_CACHE[key] = make_lowdelay_transform(p)
     return fn
 
 
@@ -207,12 +213,13 @@ def _picture_headers(p: Params, frame_number: int, is_ref: bool) -> bytes:
 
 def _host_arrays(p: Params):
     key = _params_key(p) + (p.slice_bytes_num, p.slice_bytes_denom)
-    v = _HOST_CACHE.get(key)
-    if v is None:
-        y_qmo, uv_qmo = _band_pos_offsets(p)
-        v = _HOST_CACHE[key] = (np.ascontiguousarray(y_qmo, np.int32),
-                                np.ascontiguousarray(uv_qmo, np.int32),
-                                _slice_bytes_array(p))
+    with _BUILD_LOCK:
+        v = _HOST_CACHE.get(key)
+        if v is None:
+            y_qmo, uv_qmo = _band_pos_offsets(p)
+            v = _HOST_CACHE[key] = (np.ascontiguousarray(y_qmo, np.int32),
+                                    np.ascontiguousarray(uv_qmo, np.int32),
+                                    _slice_bytes_array(p))
     return v
 
 

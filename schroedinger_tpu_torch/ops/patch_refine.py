@@ -40,6 +40,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 
 import torch
@@ -65,6 +66,9 @@ BUILD_LOG = ""      # nvcc's output of the last build (ptxas usage lines)
 LIBRARY = None      # path of the built library, set by build()
 
 _lib = None
+# guards the build and load of the library and the launch counts: the ME
+# runs on several threads when GOP shards encode at once
+_LOCK = threading.Lock()
 
 
 def _nvcc():
@@ -118,13 +122,16 @@ def build() -> float:
 
 def _load():
     global _lib
-    if _lib is None:
-        build()
-        lib = ctypes.CDLL(LIBRARY)
-        vp, ci = ctypes.c_void_p, ctypes.c_int
-        lib.me_search_launch.argtypes = [ci, ci] + [vp] * 4 + [ci] * 10 + [vp]
-        lib.me_search_launch.restype = ci
-        _lib = lib
+    if _lib is None:                  # checked again under the lock
+        with _LOCK:
+            if _lib is None:
+                build()
+                lib = ctypes.CDLL(LIBRARY)
+                vp, ci = ctypes.c_void_p, ctypes.c_int
+                lib.me_search_launch.argtypes = ([ci, ci] + [vp] * 4
+                                                 + [ci] * 10 + [vp])
+                lib.me_search_launch.restype = ci
+                _lib = lib
     return _lib
 
 
@@ -290,7 +297,8 @@ def me_search(cur, ref, field, scale, bs_y, bs_x, rad, bound, margin):
     if cur.device.type == "cuda":
         outs = _launch(0, cur, ref, field, scale, bs_y, bs_x, rad, bound,
                        margin)
-        LAUNCHES += 1
+        with _LOCK:
+            LAUNCHES += 1
         return outs
     if cur.device.type != "cpu":
         raise ValueError(f"me_search: unsupported device {cur.device}")
@@ -306,5 +314,6 @@ def me_search_probe(variant: str, cur, ref, field, scale, bs_y, bs_x, rad,
     global PROBE_LAUNCHES
     outs = _launch(PROBE_VARIANTS.index(variant), cur, ref, field, scale,
                    bs_y, bs_x, rad, bound, margin)
-    PROBE_LAUNCHES += 1
+    with _LOCK:
+        PROBE_LAUNCHES += 1
     return outs

@@ -73,13 +73,16 @@ _FID_W1 = (-8, 21, -46, 161, 161, -46, 21, -8)  # update on even, offset 128
 _FID_W2 = (2, -10, 25, -81, -81, 25, -10, 2)    # predict on odd, offset 127
 
 
-def _steps(wavelet: Wavelet):
+def _steps(wavelet: Wavelet, tap=None):
     """Lifting steps as (target, sign, fn(e, o, axis, dtype)) tuples.
 
     target 'o' modifies the odd (high-pass-to-be) half, 'e' the even half.
     Forward applies in order; inverse applies reversed with flipped signs.
+    `tap(x, off, axis)` supplies neighbour samples; the default clamps to
+    the array's edge, the row-sharded path (`parallel/tiles.py`) fills the
+    rows past a tile's edge from its neighbours.
     """
-    t = _shift_edge
+    t = tap if tap is not None else _shift_edge
 
     if wavelet in (Wavelet.DESLAURIERS_DUBUC_9_7,
                    Wavelet.DESLAURIERS_DUBUC_13_7):
@@ -139,9 +142,9 @@ def _steps(wavelet: Wavelet):
     raise ValueError(f"unknown wavelet {wavelet}")
 
 
-def _lift_fwd(e, o, wavelet, axis):
+def _lift_fwd(e, o, wavelet, axis, tap=None):
     dt = e.dtype
-    for target, sign, fn in _steps(wavelet):
+    for target, sign, fn in _steps(wavelet, tap):
         v = fn(e, o, axis, dt)
         if target == "o":
             o = o + v if sign > 0 else o - v
@@ -150,9 +153,9 @@ def _lift_fwd(e, o, wavelet, axis):
     return e, o
 
 
-def _lift_inv(e, o, wavelet, axis):
+def _lift_inv(e, o, wavelet, axis, tap=None):
     dt = e.dtype
-    for target, sign, fn in reversed(_steps(wavelet)):
+    for target, sign, fn in reversed(_steps(wavelet, tap)):
         v = fn(e, o, axis, dt)
         if target == "o":
             o = o - v if sign > 0 else o + v

@@ -6,7 +6,9 @@ version, small streams of the slices encoded on the card against the CPU
 encode (every long-GOP rate control among them), the multiquant sums'
 float32 order on the card against the CPU, the pipelined decoder against
 the per-picture one, interlaced streams and the telemetry overlay on the
-card against the CPU, and the entry points' default device.  This file
+card against the CPU, the entry points' default device, and the multi-
+device paths on worlds of ranks that share the card (frames-within-GOP,
+tiles) and on shard threads (GOP sharding).  This file
 imports no JAX, so it also runs where only PyTorch is installed:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py -q
@@ -470,3 +472,45 @@ def test_telemetry_decode_on_card_equals_cpu(cuda_device):
         assert len(got) == len(want) == 5
         for a, b in zip(got, want):
             assert all(np.array_equal(x, y) for x, y in zip(a, b))
+
+
+@pytest.mark.cuda
+def test_frames_in_gop_world_on_card(cuda_device):
+    """Graft-entry stage 1 over two ranks sharing the card (gloo): each
+    rank's B picture equals rank 0's batched step, and every N = 1 step
+    launches kernel #1 as often as the batch."""
+    from schroedinger_tpu_torch import graft_entry
+    r = graft_entry.dryrun_multichip(2, stages=(1,))[1]
+    assert r["batch_launches"] > 0
+    assert r["launches"] == [r["batch_launches"]] * 2
+    assert r["batch_ms"] > 0 and r["single_ms"] > 0
+
+
+@pytest.mark.cuda
+def test_tiles_world_on_card(cuda_device):
+    """Graft-entry stage 2 over two ranks on the card: the row-sharded
+    wavelet, upsample and banded render equal the unsharded ops."""
+    from schroedinger_tpu_torch import graft_entry
+    graft_entry.dryrun_multichip(2, stages=(2,))
+
+
+@pytest.mark.cuda
+def test_gop_sharding_on_card(cuda_device):
+    """128x64 on the card: two shard threads give the serial stream
+    (fixed quantisers, scene change off), and bench.py's configuration
+    with per-chunk reservoirs gives the sequential shards' stream."""
+    from schroedinger_tpu_torch.parallel import gops
+    frames = make_frames(8, 128, 64)
+    vf = video_format(128, 64)
+
+    def exact():
+        return GopEncoder(vf, gop_length=4, enable_scene_change=False,
+                          **CONFIG)
+
+    def bench():
+        return GopEncoder(vf, **dict(CONFIG_BENCH, gop_length=4))
+    assert (gops.encode_gops_sharded(frames, exact, n_shards=2)
+            == exact().encode_stream(frames))
+    assert (gops.encode_gops_sharded(frames, bench, n_shards=2, exact=False)
+            == gops.encode_gops_sharded(frames, bench, n_shards=2,
+                                        sequential=True, exact=False))
