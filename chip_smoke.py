@@ -193,11 +193,32 @@ telemetry overlay and the stream tools, on the card:
      sequential stream (else the first differing picture is named)
  31. graft_entry.entry(): the CIF low-delay analysis on the card equal to
      the CPU's
+Phases 32-35, the bench entry points (schroedinger_tpu_torch.bench and
+tools/bench_{4k,breadth,rd}.py) through their own functions at reduced
+length; each holds its leg's gates (every frame out in order, api.Decoder
+== StreamDecoder, every I and P picture == the encoder's reconstruction,
+luma PSNR >= 30 dB, bytes within 0.1x-4x of the pro-rata share, kernel
+#1's launches == the searches the picture mix implies):
+ 32. smoke-1080p-zoomrot (12 frames of bench.py's zoom and rotation) and
+     smoke-1080p-scenecut (16 frames, the cut at frame 11, the third
+     picture of its subgroup, must become an I picture), CONFIG_BENCH
+ 33. smoke-2160p-biref (6 frames of bench_4k's content, biref, 24 Mbit/s)
+     and smoke-2160p-backref (4 frames, the default engine), each decoded
+     by both decoders; the kernel == plain at every launch shape of the
+     biref encode (a 2160p reference at N = 1, a batch of three B
+     pictures at N = 3), each timed beside its bound
+ 34. smoke-720p10-422-intra: 4 frames of 1280x720 10-bit 4:2:2 main intra,
+     both decoders, luma PSNR >= 30 dB at peak 1023
+ 35. smoke-1080p-rd: bench_rd's sweep of the low-noise zoomrot clip at
+     0.5 and 1 Mbit/s over 96 frames (PROFILE.md §6's settings), on the
+     slope of the curve; the higher rate codes more bytes less the
+     padding units and a higher mean luma PSNR
 The last two lines are the nvidia-smi line and
 {"ok": true, "device": {...}}; the kernel summary JSON comes before them
-(with the launches of phases 23, 24 and 27-30 and the field and 2160p
-launch shapes).
+(with the launches of phases 23, 24, 27-30 and 32-35 and the field and
+2160p launch shapes).
 """
+import argparse
 import dataclasses
 import json
 import os
@@ -210,6 +231,11 @@ import numpy as np
 import torch
 
 from schroedinger_tpu_torch import api
+from schroedinger_tpu_torch import bench
+from schroedinger_tpu_torch.bench import (check_frames, expected_searches,
+                                          picture_kinds, picture_mix, psnr,
+                                          record_batches, record_refs,
+                                          record_searches)
 from schroedinger_tpu_torch import bitstream as bs
 from schroedinger_tpu_torch import graft_entry
 from schroedinger_tpu_torch import y4m
@@ -233,6 +259,7 @@ from schroedinger_tpu_torch.slice_config import (CONFIG, CONFIG_BENCH,
                                                  CONFIG_FLAGSHIP,
                                                  CONFIG_FLAGSHIP_DRAINING,
                                                  make_frames, video_format)
+from schroedinger_tpu_torch.tools import bench_4k, bench_breadth, bench_rd
 from schroedinger_tpu_torch.tools import multihost_worker as mw
 from schroedinger_tpu_torch.tools import profile_patch_refine as probe_tool
 from schroedinger_tpu_torch.tools.profile_patch_refine import (gpu_line,
@@ -477,31 +504,6 @@ def phase_probe(card):
             "variants_call_ms": times, "variants_ms_by_shape": by_shape}
 
 
-def psnr(a, b, peak=255.0):
-    mse = np.mean((a.astype(np.float64) - b.astype(np.float64)) ** 2)
-    return 99.0 if mse == 0 else 10 * np.log10(peak ** 2 / mse)
-
-
-def check_decoded(out, frames, dec, what, peak=255.0):
-    """Shapes, dtypes (the source's: u8, u16 when deep), MD5, errors and
-    luma PSNR >= 30 dB at `peak`; returns the PSNRs."""
-    if len(out) != len(frames):
-        raise AssertionError(f"{what}: decoded {len(out)} frames, "
-                             f"expected {len(frames)}")
-    if dec.md5_failures or dec.errors:
-        raise AssertionError(f"{what}: md5_failures={dec.md5_failures} "
-                             f"errors={dec.errors}")
-    for planes, src in zip(out, frames):
-        for got, want in zip(planes, src):
-            if got.shape != want.shape or got.dtype != want.dtype:
-                raise AssertionError(f"{what}: plane {got.shape} "
-                                     f"{got.dtype}")
-    vals = [psnr(o[0], f[0], peak) for o, f in zip(out, frames)]
-    if min(vals) < 30.0:
-        raise AssertionError(f"{what}: luma PSNR {min(vals):.2f} dB < 30")
-    return vals
-
-
 def run_on_card(vf, config, frames):
     """Encode and decode on the card, timed on the host around a
     synchronise.  Returns (encoder, stream, decoder, frames out,
@@ -553,23 +555,12 @@ def phase_backref(card):
         raise AssertionError(f"expected {LAUNCHES_PER_REF} launches per P "
                              f"picture ({LAUNCHES_PER_REF * n_p}), counted "
                              f"{launches}")
-    vals = check_decoded(out, frames, dec, "phase3")
+    vals = check_frames(out, frames, dec, "phase3")
     print(f"phase3 1080p25 4:2:0 x{N}: {len(stream)} bytes, luma PSNR "
           f"mean {np.mean(vals):.3f} min {min(vals):.3f} dB, "
           f"md5_failures=[] errors=[]; encode {N / t_enc:.3f} frames/s, "
           f"decode {N / t_dec:.3f} frames/s [{card}]", flush=True)
     return launches
-
-
-def picture_kinds(stream):
-    """[(picture number, number of references, is reference)] of the
-    stream's picture units, in coded order."""
-    kinds = []
-    for code, payload in bs.split_units(stream):
-        if bs.is_picture(code):
-            kinds.append((int.from_bytes(payload[:4], "big"),
-                          bs.num_refs(code), bs.is_reference(code)))
-    return kinds
 
 
 def fit_summary(enc):
@@ -594,7 +585,7 @@ def phase_draining(card, vf, frames):
                   f"scale {f['lam_scale']:.6g}, reservoir "
                   f"{f['buffer_level']:.0f} bits", flush=True)
     n_fit, n_bound, s_min = fit_summary(enc)
-    vals = check_decoded(out, frames, dec, "phase5 draining")
+    vals = check_frames(out, frames, dec, "phase5 draining")
     print(f"phase5 draining 1080p x{len(frames)} at "
           f"{CONFIG_FLAGSHIP_DRAINING['bitrate']} bit/s: {len(stream)} "
           f"bytes, luma PSNR mean {np.mean(vals):.3f} min {min(vals):.3f} "
@@ -620,8 +611,8 @@ def phase_flagship(card):
     d_cpu = StreamDecoder(device="cpu")
     o_cpu = d_cpu.decode_stream(s_cpu)
     e_gpu, s_gpu, d_gpu, o_gpu, _, _ = run_on_card(vf_s, cfg, small)
-    p_cpu = np.mean(check_decoded(o_cpu, small, d_cpu, "phase5 128x64 cpu"))
-    p_gpu = np.mean(check_decoded(o_gpu, small, d_gpu, "phase5 128x64 cuda"))
+    p_cpu = np.mean(check_frames(o_cpu, small, d_cpu, "phase5 128x64 cpu"))
+    p_gpu = np.mean(check_frames(o_gpu, small, d_gpu, "phase5 128x64 cuda"))
     picks = differing = 0
     for a, b in zip(e_cpu.stats.frames, e_gpu.stats.frames):
         if a["frame"] != b["frame"]:
@@ -679,7 +670,7 @@ def phase_flagship(card):
                              f"two-reference and {LAUNCHES_PER_REF} per "
                              f"one-reference picture ({expect}), counted "
                              f"{launches}")
-    vals = check_decoded(out, frames, dec, "phase5")
+    vals = check_frames(out, frames, dec, "phase5")
     share = N * CONFIG_FLAGSHIP["bitrate"] / CONFIG_FLAGSHIP["fps"] / 8
     if not 0.1 * share <= len(stream) <= 4 * share:
         raise AssertionError(f"phase5: {len(stream)} bytes outside 0.1x-4x "
@@ -790,74 +781,20 @@ def phase_batch_kernel(card):
             "bound_ms_n3": b3, "batch_shapes": shapes}
 
 
-def record_refs(enc):
-    """Keep every reference picture the encoder makes (its device
-    planes), by picture number, as the encoder stores it."""
-    made = {}
-
-    class Recording(dict):
-        def __setitem__(self, k, v):
-            made[k] = v
-            super().__setitem__(k, v)
-    enc.ref_frames = Recording(enc.ref_frames)
-    return made
-
-
-def record_batches(enc):
-    """Wrap the encoder's B-batch entry: per subgroup offered, its B
-    picture numbers, whether it went as one batch, and its launches."""
-    seen = []
-    orig = enc._start_b_batch
-
-    def wrapped(bs_):
-        before = pr.LAUNCHES
-        out = orig(bs_)
-        seen.append(([b[0] for b in bs_], out is not None,
-                     pr.LAUNCHES - before))
-        return out
-    enc._start_b_batch = wrapped
-    return seen
-
-
 def check_two_decoders(stream, frames, made, card, what, peak=255.0):
-    """api.Decoder (pipelined) and StreamDecoder on the card: equal planes
-    for every frame, every reference picture equal to the encoder's
-    reconstruction, the checks of check_decoded.  The two are timed in
-    turns (pipelined, per-picture, per-picture, pipelined).  Returns
-    (PSNRs, pipelined frames/s, per-picture frames/s), the rates the means
-    of the two turns."""
-    runs = {"pipelined": [], "per-picture": []}
-    for name in ("pipelined", "per-picture", "per-picture", "pipelined"):
-        dec = api.Decoder() if name == "pipelined" else StreamDecoder()
-        t0 = time.perf_counter()
-        out = dec.decode_stream(stream)
-        torch.cuda.synchronize()
-        runs[name].append((time.perf_counter() - t0, dec, out))
-    _, dec, out = runs["pipelined"][0]
-    _, base, out2 = runs["per-picture"][0]
-    vals = check_decoded(out, frames, dec, what, peak)
-    check_decoded(out2, frames, base, what, peak)
-    for k, (a, b) in enumerate(zip(out, out2)):
-        if not all(np.array_equal(x, y) for x, y in zip(a, b)):
-            raise AssertionError(f"{what}: frame {k}: the pipelined and the "
-                                 "per-picture decoder differ")
-    for num, rf in made.items():
-        if not all(torch.equal(torch.from_numpy(x), y.cpu())
-                   for x, y in zip(out[num], rf.planes)):
-            raise AssertionError(f"{what}: reference picture {num} decodes "
-                                 "to other planes than the encoder's "
-                                 "reconstruction")
+    """api.Decoder (pipelined) and StreamDecoder on the card, timed in
+    turns (pipelined, per-picture, per-picture, pipelined), held to the
+    bench's gates (`bench.check_decodes`: equal planes for every frame,
+    every reference picture equal to the encoder's reconstruction, luma
+    PSNR >= 30 dB).  Returns (PSNRs, pipelined frames/s, per-picture
+    frames/s), the rates the means of the two turns."""
+    runs = bench.decode_both(stream, torch.device(CARD), (
+        "pipelined", "per-picture", "per-picture", "pipelined"))
+    vals = bench.check_decodes(runs, frames, bench.ref_digests(made), what,
+                               peak)
     fps = {name: np.mean([len(frames) / r[0] for r in v])
            for name, v in runs.items()}
     return vals, fps["pipelined"], fps["per-picture"]
-
-
-def picture_mix(stream):
-    kinds = picture_kinds(stream)
-    n_i = sum(1 for _, r, _ in kinds if r == 0)
-    n_p = sum(1 for _, r, ref in kinds if r > 0 and ref)
-    n_b = sum(1 for _, r, ref in kinds if r > 0 and not ref)
-    return n_i, n_p, n_b
 
 
 def phase_small_card_vs_cpu(card):
@@ -879,7 +816,7 @@ def phase_small_card_vs_cpu(card):
         streams = [run(None), run("cpu")]
         for stream, dev in zip(streams, (None, "cpu")):
             dec = api.Decoder(device=dev)
-            psnrs.append(np.mean(check_decoded(
+            psnrs.append(np.mean(check_frames(
                 dec.decode_stream(stream), small, dec,
                 f"phase7 {name} {dev or 'cuda'}")))
         (s_gpu, s_cpu), (p_gpu, p_cpu) = streams, psnrs
@@ -1261,18 +1198,6 @@ def record_picks():
     return seen, lambda: setattr(inter, "finish_inter_picture", orig)
 
 
-def expected_launches(stream, seen, per_ref=None):
-    """Kernel launches a long-GOP stream implies: one ME per reference of
-    every inter picture (per_ref launches each, 7 by default), but one per
-    reference for a whole batch of B pictures (`seen`: record_batches'
-    entries)."""
-    per_ref = per_ref or LAUNCHES_PER_REF
-    kinds = picture_kinds(stream)
-    batched = {n for nums, took, _ in seen if took for n in nums}
-    refs = sum(r for n, r, _ in kinds if n not in batched)
-    return per_ref * (refs + 2 * sum(1 for s in seen if s[1]))
-
-
 def run_rate_phase(card, tag, name, make, frames, encode=None,
                    per_ref=None, warm=6):
     """Encode `frames` with the encoder `make()` gives (after a warm-up of
@@ -1293,7 +1218,7 @@ def run_rate_phase(card, tag, name, make, frames, encode=None,
     t_enc = time.perf_counter() - t0
     launches = pr.LAUNCHES
     per_ref = per_ref or LAUNCHES_PER_REF
-    expect = expected_launches(stream, seen, per_ref)
+    expect = expected_searches(stream, seen, per_ref)
     if launches != expect:
         raise AssertionError(f"{tag}: {launches} launches, expected {expect}"
                              f" ({per_ref} per reference, {2 * per_ref} a "
@@ -1330,7 +1255,7 @@ def phase_backref_quality(card):
     for dev in (None, "cpu"):
         stream = api.Encoder(vf_s, cfg, device=dev).encode_stream(small)
         dec = api.Decoder(device=dev)
-        psnrs.append(np.mean(check_decoded(dec.decode_stream(stream), small,
+        psnrs.append(np.mean(check_frames(dec.decode_stream(stream), small,
                                            dec, f"phase15 {SMALL} {dev}")))
         streams.append(stream)
     print(f"phase15 {SMALL[0]}x{SMALL[1]} x9 backref constant quality: cuda "
@@ -1480,32 +1405,6 @@ def phases_vc2(card):
 # ---- the long-GOP encoder's remaining settings (phases 19-22) -----------
 
 CARD = "cuda"            # the device of phases 21 and 22's own tensors
-
-class record_searches:
-    """Within the block, keep the arguments of the first me_search call of
-    each launch shape the ME makes (cur's shape, block size, radius,
-    scale), and count the calls of each."""
-
-    def __init__(self):
-        self.first, self.count = {}, {}
-
-    def __enter__(self):
-        self.saved = me_mod.me_search
-
-        def recording(*args):
-            cur, _, _, scale, bs_y, bs_x, rad = args[:7]
-            key = (tuple(cur.shape), bs_y, bs_x, rad, scale)
-            if key not in self.first:
-                self.first[key] = tuple(a.clone() if torch.is_tensor(a)
-                                        else a for a in args)
-            self.count[key] = self.count.get(key, 0) + 1
-            return self.saved(*args)
-        me_mod.me_search = recording
-        return self
-
-    def __exit__(self, *exc):
-        me_mod.me_search = self.saved
-
 
 def hold_shapes(card, tag, searches, done):
     """Kernel == plain (torch.equal) on the recorded inputs of every launch
@@ -1849,7 +1748,7 @@ def check_fields(stream, frames, made, card, tag, tff, seed):
             raise AssertionError(f"{tag}: reference field {num} decodes "
                                  "to other planes than the encoder's "
                                  "reconstruction")
-    vals = check_decoded(woven, frames, dec, tag)
+    vals = check_frames(woven, frames, dec, tag)
     return vals, n / t_api, n / t_base
 
 
@@ -1875,7 +1774,7 @@ def run_field_phase(card, tag, name, make, frames, done, seed, bitrate,
         torch.cuda.synchronize()
         t_enc = time.perf_counter() - t0
         launches = pr.LAUNCHES
-    expect = expected_launches(stream, seen)
+    expect = expected_searches(stream, seen, LAUNCHES_PER_REF)
     if launches != expect:
         raise AssertionError(f"{tag}: {launches} launches, expected "
                              f"{expect}")
@@ -1936,7 +1835,7 @@ def phase_576i(card, done):
     dec = api.Decoder()
     out = dec.decode_stream(md5_stream)
     sdec, pairs, _ = streaming_decode(md5_stream, seed=240)
-    check_decoded(out, frames[:4], dec, "phase24 bottom field first")
+    check_frames(out, frames[:4], dec, "phase24 bottom field first")
     if len(pairs) != 8 or sdec.md5_failures or sdec.errors:
         raise AssertionError(f"phase24 bottom field first: {len(pairs)} "
                              f"fields, md5_failures={sdec.md5_failures} "
@@ -1968,7 +1867,7 @@ def phase_interlaced_card_vs_cpu(card):
                                  f"({len(streams[0])} bytes) differs from "
                                  f"the CPU's ({len(streams[1])})")
         dec = api.Decoder()
-        vals = check_decoded(dec.decode_stream(streams[0]), small, dec,
+        vals = check_frames(dec.decode_stream(streams[0]), small, dec,
                              f"phase25 {name}")
         print(f"phase25 {W}x{H} x4 {name}: card == CPU, {len(streams[0])} "
               f"bytes, luma PSNR mean {np.mean(vals):.3f} dB [{card}]",
@@ -2259,12 +2158,13 @@ def phase_gop_sharded(card):
     if threaded != sequential:
         raise AssertionError("phase29 CONFIG_BENCH: the threaded shards' "
                              "stream differs from the sequential one")
-    want = expected_launches(threaded, [b for seen in seens for b in seen])
+    want = expected_searches(
+        threaded, [b for seen in seens for b in seen], LAUNCHES_PER_REF)
     if launches != want:
         raise AssertionError(f"phase29: {launches} launches of kernel #1, "
                              f"the pictures imply {want}")
     dec = api.Decoder()
-    vals = check_decoded(dec.decode_stream(threaded), frames, dec,
+    vals = check_frames(dec.decode_stream(threaded), frames, dec,
                          "phase29")
     enc = mw.make_encoder(SHARD_SIZE)
     ranges = gops.chunk_ranges(n, enc.gop_length, 2)
@@ -2355,6 +2255,173 @@ def phases_distributed(card):
     return out, worst
 
 
+# ---- the bench entry points (32-35) -------------------------------------
+
+UHD = (3840, 2160)               # the picture size of phase 33
+DEEP_HD = (1280, 720)            # the picture size of phase 34
+LEG_FRAMES = {"zoomrot": 12, "scenecut": 16, "4k-biref": 6,
+              "4k-backref": 4, "720p10-422-intra": 4, "rd": 96}
+# PROFILE.md §6's two lowest rates, on the slope of the RD curve: over
+# fewer frames the I picture's bytes overrun a low rate's share and the
+# quality sits at the clip's noise floor at any rate
+RD_RATES = (500_000, 1_000_000)
+
+
+def run_bench_leg(card, tag, name, make, frames, bitrate, warm):
+    """One leg's encode on the card through the bench's own functions:
+    a warm-up of the first `warm` frames, the count set to 0, the timed
+    encode, the count read, then the leg's gates (bench.quality: both
+    decoders, every reference picture, PSNR, the bytes, the searches the
+    picture mix implies, each one a launch).  Returns (launches, report,
+    the encode)."""
+    dev = torch.device(CARD)
+    make().encode_stream(frames[:warm])                     # warm-up
+    torch.cuda.synchronize()
+    pr.LAUNCHES = 0
+    run = bench.timed_encode(make, frames, dev, warm=0, tag=tag)
+    launches = pr.LAUNCHES
+    rep = bench.quality(run, frames, tag, bitrate)
+    if launches != rep["searches"] or launches == 0:
+        raise AssertionError(f"{tag}: {launches} launches of kernel #1 for "
+                             f"{rep['searches']} searches")
+    print(f"{tag} {name} x{len(frames)}: {rep['mix']} ({rep['batches']} "
+          f"batches); me_search launches {launches} ({rep['searches']} "
+          f"searches the mix implies, {rep['searches_per_reference']} a "
+          f"reference); {rep['bytes']} bytes ({rep['bytes_vs_pro_rata']} of "
+          f"the pro-rata share), luma PSNR mean {rep['psnr_db']:.3f} min "
+          f"{rep['psnr_min_db']:.3f} dB, {rep['references_checked']} "
+          f"reference pictures equal to the encoder's; encode "
+          f"{run.fps:.3f} frames/s, decode {rep['decode_fps_pipelined']:.3f} "
+          f"frames/s pipelined, {rep['decode_fps_per_picture']:.3f} "
+          f"StreamDecoder [{card}]", flush=True)
+    return launches, rep, run
+
+
+def bench_encoder(vf, **kw):
+    return lambda: GopEncoder(vf, device=CARD, **dict(CONFIG_BENCH, **kw))
+
+
+def phase_content_legs(card):
+    """smoke-1080p-zoomrot and smoke-1080p-scenecut (the cut at frame 11,
+    the third picture of its subgroup); returns their launches."""
+    W, H = FULL
+    vf = video_format(W, H)
+    out = {}
+    frames = bench.make_frames_zoomrot(LEG_FRAMES["zoomrot"], width=W,
+                                       height=H)
+    out["launches_zoomrot"], _, _ = run_bench_leg(
+        card, "phase32", "smoke-1080p-zoomrot", bench_encoder(vf), frames,
+        CONFIG_BENCH["bitrate"], warm=6)
+    frames = bench.make_frames_scenecut(LEG_FRAMES["scenecut"], width=W,
+                                        height=H)
+    out["launches_scenecut"], _, run = run_bench_leg(
+        card, "phase32", "smoke-1080p-scenecut", bench_encoder(vf), frames,
+        CONFIG_BENCH["bitrate"], warm=6)
+    kind = {n: ("I" if r == 0 else "P" if ref else "B")
+            for n, r, ref in picture_kinds(run.stream)}
+    print(f"phase32 smoke-1080p-scenecut: the cut at frame 11 became "
+          f"{kind[11]}; B pictures coded one at a time "
+          f"{bench.per_picture_b(run)}; coded order "
+          f"{[(n, kind[n]) for n, _, _ in picture_kinds(run.stream)]} "
+          f"[{card}]", flush=True)
+    if kind[11] != "I":
+        raise AssertionError(f"phase32 scenecut: the cut at frame 11 became "
+                             f"{kind[11]}, not an I picture")
+    return out
+
+
+def phase_uhd_legs(card):
+    """smoke-2160p-biref and smoke-2160p-backref (bench_4k's legs, 24
+    Mbit/s, each with both decoders), then kernel #1 held to its plain
+    version at every launch shape of the biref encode (a 2160p reference
+    at N = 1 and a batch of three B pictures at N = 3), each timed by
+    CUDA-graph replay beside its bound.  Returns (launches, the shapes
+    held, max |diff|)."""
+    W, H = UHD
+    vf = video_format(W, H)
+    out = {}
+    common = dict(gop_length=24, mv_precision=2, bitrate=bench_4k.BITRATE,
+                  fps=25)
+    frames = bench_4k.make_frames(LEG_FRAMES["4k-biref"], W, H)
+    with record_searches() as searches:
+        out["launches_4k_biref"], _, _ = run_bench_leg(
+            card, "phase33", "smoke-2160p-biref", lambda: GopEncoder(
+                vf, device=CARD, gop_structure="biref", **common), frames,
+            bench_4k.BITRATE, warm=2)
+    out["launches_4k_backref"], _, _ = run_bench_leg(
+        card, "phase33", "smoke-2160p-backref", lambda: GopEncoder(
+            vf, device=CARD, **common), frames[:LEG_FRAMES["4k-backref"]],
+        bench_4k.BITRATE, warm=2)
+    done = {}
+    worst = hold_shapes(card, "phase33", searches, done)
+    if {k[0][0] for k in done if len(k[0]) == 3} != {1, 3}:
+        raise AssertionError(f"phase33: the 2160p launches held are "
+                             f"{sorted(done)}, not N = 1 and N = 3")
+    out["uhd_shapes"] = [dict(cur=list(k[0]), bs_y=k[1], bs_x=k[2],
+                              rad=k[3], scale=k[4], **v)
+                         for k, v in sorted(done.items())]
+    for n in (1, 3):
+        ms = sum(v["ms"] for k, v in done.items() if k[0][0] == n)
+        b_ms = sum(v["bound_ms"] for k, v in done.items() if k[0][0] == n)
+        print(f"phase33 me_search, the launches of one 2160p reference at "
+              f"N = {n}: {ms:.4f} ms on the device, bound {b_ms:.5f} ms "
+              f"[{card}]", flush=True)
+    return out, worst
+
+
+def phase_deep_intra(card):
+    """smoke-720p10-422-intra: bench_breadth's 10-bit 4:2:2 intra leg."""
+    rep = bench_breadth.deep_intra(LEG_FRAMES["720p10-422-intra"], DEEP_HD,
+                                   CARD)
+    print(f"phase34 smoke-720p10-422-intra x{rep['frames']}: "
+          f"{rep['bytes']} bytes, luma PSNR mean {rep['psnr_db']:.3f} min "
+          f"{rep['psnr_min_db']:.3f} dB at peak 1023, max |error| "
+          f"{rep['max_abs_err']}, both decoders equal; encode "
+          f"{rep['fps']:.3f} frames/s, decode "
+          f"{rep['decode_fps_pipelined']:.3f} frames/s pipelined [{card}]",
+          flush=True)
+
+
+def phase_rd(card):
+    """smoke-1080p-rd: bench_rd's sweep at two rates on the slope of the
+    curve, each stream held to the leg's gates; the higher rate must code
+    more bytes less the padding units (TM5 CBR pads a stream up to its
+    rate) and a higher mean luma PSNR.  Returns its launches."""
+    W, H = FULL
+    args = argparse.Namespace(size=(W, H), frames=LEG_FRAMES["rd"],
+                              bitrates=list(RD_RATES), device=CARD)
+    pr.LAUNCHES = 0
+    rep = bench_rd.leg_rd(args)
+    launches = pr.LAUNCHES
+    lo, hi = rep["points"]
+    coded = [p["bytes"] - p["padding_bytes"] for p in (lo, hi)]
+    print(f"phase35 smoke-1080p-rd x{rep['frames']} (zoomrot, noise 1): "
+          + "; ".join(f"{p['bitrate']} bit/s {p['bytes']} bytes "
+                      f"({p['padding_bytes']} of padding) "
+                      f"{p['psnr_db']:.3f} dB {p['fps']:.3f} frames/s"
+                      for p in rep["points"])
+          + f"; me_search launches {launches} [{card}]", flush=True)
+    if coded[1] <= coded[0] or hi["psnr_db"] <= lo["psnr_db"]:
+        raise AssertionError(
+            f"phase35: {hi['bitrate']} bit/s coded {coded[1]} bytes less "
+            f"padding at {hi['psnr_db']:.3f} dB, {lo['bitrate']} bit/s "
+            f"{coded[0]} at {lo['psnr_db']:.3f} dB: the quality does not "
+            "follow the rate")
+    return launches
+
+
+def phases_bench(card):
+    """Phases 32-35; returns their launch counts, the 2160p launch shapes
+    held and the largest |diff| of the kernel against its plain
+    version."""
+    out = phase_content_legs(card)
+    uhd, worst = phase_uhd_legs(card)
+    out.update(uhd)
+    phase_deep_intra(card)
+    out["launches_rd"] = phase_rd(card)
+    return out, worst
+
+
 def main() -> int:
     card = gpu_line()
     print(f"phase0 gpu: {card}", flush=True)
@@ -2407,13 +2474,19 @@ def main() -> int:
     dist_counts, worst = phases_distributed(card)
     entry.update(dist_counts)
     entry["max_abs_err"] = max(entry["max_abs_err"], worst)
+    t_dist = time.perf_counter()
+    # the bench entry points: each count is set to 0 just before its path
+    # and read just after
+    legs, worst = phases_bench(card)
+    entry.update(legs)
+    entry["max_abs_err"] = max(entry["max_abs_err"], worst)
     t_end = time.perf_counter()
     print(f"wall: phases 1-18 {t_rate - t_start:.1f} s, phases 19-22 "
           f"{t_settings - t_rate:.1f} s, phases 23-26 "
           f"{t_fields - t_settings:.1f} s, phases 27-31 "
-          f"{t_end - t_fields:.1f} s, the whole script "
-          f"{t_end - t_start:.1f} s (host clock, from the build on)",
-          flush=True)
+          f"{t_dist - t_fields:.1f} s, phases 32-35 {t_end - t_dist:.1f} s, "
+          f"the whole script {t_end - t_start:.1f} s (host clock, from the "
+          f"build on)", flush=True)
 
     print(json.dumps({"kernels": [entry, probe_entry]}), flush=True)
     print(card, flush=True)

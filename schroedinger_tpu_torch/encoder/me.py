@@ -126,6 +126,17 @@ def _roll_sads(c, r, bs_y, bs_x, cands):
     return out
 
 
+def pyramid_levels(pad_h, pad_w, levels):
+    """The pyramid's depth on a pad_h x pad_w block grid: `levels`, capped
+    so that the coarsest level still holds >= 2x2 blocks of >= 4 px
+    (downsample_levels setting, schromotionest.h:20).  A pass of the
+    default estimation makes this many searches plus two (the median and
+    the zero SAD)."""
+    while levels > 1 and (min(pad_h, pad_w) >> (levels - 1)) < 16:
+        levels -= 1
+    return levels
+
+
 def make_me_body(H, W, xbsep, ybsep, x_num_blocks, y_num_blocks,
                  levels=3, coarse_radius=8, n_extra=0, candidates=True,
                  zero_cand=True, chroma=None):
@@ -152,11 +163,7 @@ def make_me_body(H, W, xbsep, ybsep, x_num_blocks, y_num_blocks,
     luma.  chroma_planes is then (cur_u, cur_v, ref_u, ref_v)."""
     pad_h = ybsep * y_num_blocks
     pad_w = xbsep * x_num_blocks
-
-    # cap pyramid depth so the coarsest level still holds >= 2x2 blocks
-    # of >= 4 px (downsample_levels setting, schromotionest.h:20)
-    while levels > 1 and (min(pad_h, pad_w) >> (levels - 1)) < 16:
-        levels -= 1
+    levels = pyramid_levels(pad_h, pad_w, levels)
 
     margin = ME_BOUND_PEL + 2 * max(coarse_radius, REFINE_RADIUS) + 16
 

@@ -20,6 +20,8 @@ and the decoders on the streams that need the gather (global motion,
   zero residual) with global motion, with |mv| ~ 200 pel and with blen =
   3 bsep decode in both port decoders to the JAX StreamDecoder's planes.
 """
+from concurrent.futures import ThreadPoolExecutor
+
 import numpy as np
 import pytest
 import torch
@@ -274,33 +276,47 @@ def test_fetch_block_and_global_vectors_match_jax():
             np.testing.assert_array_equal(g.numpy(), np.asarray(w_))
 
 
+def _jax_decode(stream):
+    dec = j_core.StreamDecoder()
+    return dec.decode_stream(stream), dec.errors
+
+
+def _stream_case(case):
+    """Both packages' streams of a case, and the JAX decoder's decode of
+    the port's stream with its errors."""
+    kw = dict(STREAM_BASE, **STREAM_CASES[case])
+    frames = make_frames(3, W, H)
+    port = t_api.Encoder(video_format(W, H), t_config.EncoderConfig(**kw),
+                         device="cpu").encode_stream(frames)
+    jax = j_api.Encoder(_jvf(W, H), j_config.EncoderConfig(
+        **kw)).encode_stream(frames)
+    return frames, port, jax, _jax_decode(port)
+
+
 @pytest.fixture(scope="module")
 def streams():
-    """Both packages' streams per stream case, each made once."""
-    made = {}
-
-    def get(case):
-        if case not in made:
-            kw = dict(STREAM_BASE, **STREAM_CASES[case])
-            frames = make_frames(3, W, H)
-            port = t_api.Encoder(video_format(W, H),
-                                 t_config.EncoderConfig(**kw),
-                                 device="cpu").encode_stream(frames)
-            jax = j_api.Encoder(_jvf(W, H), j_config.EncoderConfig(
-                **kw)).encode_stream(frames)
-            made[case] = frames, port, jax
-        return made[case]
-    return get
+    """Every stream case, each made once, on four threads that start with
+    the first test that asks for them and work ahead of the next (XLA
+    compiles, nearly all of the time, release the GIL): {case: future}."""
+    with ThreadPoolExecutor(4) as pool:
+        jobs = {case: pool.submit(_stream_case, case)
+                for case in STREAM_CASES}
+        yield jobs
+        for job in jobs.values():
+            job.cancel()
 
 
-def _decode_all(stream, n):
+def _decode_all(stream, n, jax_decoded=None):
     """(port pipelined, port per-picture, JAX) decodes of a stream; each
-    decoder gives n frames and no picture error."""
+    decoder gives n frames and no picture error.  jax_decoded: the JAX
+    decoder's (frames, errors) on this stream, if made already."""
+    decoded = [(dec.decode_stream(stream), dec.errors)
+               for dec in (t_api.Decoder(device="cpu"),
+                           StreamDecoder(device="cpu"))]
+    decoded.append(jax_decoded or _jax_decode(stream))
     outs = []
-    for dec in (t_api.Decoder(device="cpu"), StreamDecoder(device="cpu"),
-                j_core.StreamDecoder()):
-        out = dec.decode_stream(stream)
-        assert len(out) == n and dec.errors == []
+    for out, errors in decoded:
+        assert len(out) == n and errors == []
         outs.append([tuple(np.asarray(pl) for pl in f) for f in out])
     for a3, b3, c3 in zip(*outs):
         for a, b, c in zip(a3, b3, c3):
@@ -311,9 +327,9 @@ def _decode_all(stream, n):
 
 @pytest.mark.parametrize("case", list(STREAM_CASES))
 def test_stream_matches_jax(streams, case):
-    frames, stream, j_stream = streams(case)
+    frames, stream, j_stream, j_decoded = streams[case].result()
     assert stream == j_stream
-    _decode_all(stream, len(frames))
+    _decode_all(stream, len(frames), j_decoded)
 
 
 def _intra_and_refs(n_refs):

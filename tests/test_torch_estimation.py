@@ -24,6 +24,8 @@ with a stand-in for the JAX `me._dense_scan` that maps one slice over the
 candidates (`_dense_scan_mapped`); `test_dense_scan_stand_in_is_exact`
 holds the stand-in equal to the original, run eagerly, at that radius.
 """
+import threading
+from concurrent.futures import ThreadPoolExecutor
 from unittest import mock
 
 import numpy as np
@@ -286,37 +288,64 @@ def test_estimation_tokens_match_jax_api(bits):
         "no_zero" not in est, "chroma_me" in est)
 
 
+_STAND_IN = threading.local()
+
+
+def _dense_scan_on_streams(*args):
+    """The JAX `me._dense_scan` while the module's streams are made: the
+    mapped stand-in on their threads, the original elsewhere."""
+    if getattr(_STAND_IN, "on", False):
+        return _dense_scan_mapped(*args)
+    return _DENSE_SCAN(*args)
+
+
+_DENSE_SCAN = j_me._dense_scan
+
+
+def _stream_case(case):
+    """Both packages' streams of a case (the JAX one with the stand-in
+    coarse scan), and the JAX decoder's decode of the port's stream with
+    its errors."""
+    kw, (w, h) = STREAM_CASES[case]
+    kw = dict(BASE, **kw)
+    frames = make_frames(3, w, h)
+    port = t_api.Encoder(video_format(w, h), t_config.EncoderConfig(**kw),
+                         device="cpu").encode_stream(frames)
+    _STAND_IN.on = True
+    try:
+        jax_stream = j_api.Encoder(_jvf(w, h), j_config.EncoderConfig(
+            **kw)).encode_stream(frames)
+    finally:
+        _STAND_IN.on = False
+    jdec = j_core.StreamDecoder()
+    return frames, port, jax_stream, (jdec.decode_stream(port), jdec.errors)
+
+
 @pytest.fixture(scope="module")
 def streams():
-    made = {}
-
-    def get(case):
-        if case not in made:
-            kw, (w, h) = STREAM_CASES[case]
-            kw = dict(BASE, **kw)
-            frames = make_frames(3, w, h)
-            port = t_api.Encoder(video_format(w, h),
-                                 t_config.EncoderConfig(**kw),
-                                 device="cpu").encode_stream(frames)
-            with mock.patch.object(j_me, "_dense_scan",
-                                   _dense_scan_mapped):
-                jax_stream = j_api.Encoder(_jvf(w, h), j_config.EncoderConfig(
-                    **kw)).encode_stream(frames)
-            made[case] = frames, port, jax_stream
-        return made[case]
-    return get
+    """Every stream case, each made once, on four threads that start with
+    the first test that asks for them and work ahead of the next (XLA
+    compiles, nearly all of the time, release the GIL): {case: future}."""
+    with mock.patch.object(j_me, "_dense_scan", _dense_scan_on_streams), \
+            ThreadPoolExecutor(4) as pool:
+        jobs = {case: pool.submit(_stream_case, case)
+                for case in STREAM_CASES}
+        yield jobs
+        for job in jobs.values():
+            job.cancel()
 
 
 @pytest.mark.parametrize("case", list(STREAM_CASES))
 def test_stream_matches_jax(streams, case):
-    frames, stream, j_stream = streams(case)
+    frames, stream, j_stream, (j_out, j_errors) = streams[case].result()
     assert stream == j_stream
+    assert len(j_out) == len(frames) and j_errors == []
     outs = []
-    for dec in (t_api.Decoder(device="cpu"), StreamDecoder(device="cpu"),
-                j_core.StreamDecoder()):
+    for dec in (t_api.Decoder(device="cpu"), StreamDecoder(device="cpu")):
         out = dec.decode_stream(stream)
         assert len(out) == len(frames) and dec.errors == []
         outs.append(out)
+    outs.append(j_out)
     for a3, b3, c3 in zip(*outs):
         for a, b, c in zip(a3, b3, c3):
             np.testing.assert_array_equal(a, np.asarray(c))

@@ -25,6 +25,8 @@ for that one function that passes every keyword on to its
 `start_inter_picture` and `finish_inter_picture`, as its pipelined path
 does.
 """
+import threading
+from concurrent.futures import ThreadPoolExecutor
 from unittest import mock
 
 import numpy as np
@@ -90,6 +92,8 @@ CASES = {
 # one-reference P, a batch of three B
 MQ = dict(enable_multiquant=True)
 MQ_FRAMES = 5
+# the host-pick step's engine
+HOST_PICK = dict(BACKREF, rate_control="constant_error")
 
 
 def _jvf(w, h):
@@ -130,16 +134,19 @@ def _psnr(out, frames):
     return float(np.mean(vals))
 
 
-def _record_unit_picks(module):
+def _record_unit_picks(module, only=None):
     """Patch a package's finish_inter_picture to keep, per picture number,
-    its band picks and multiquant codeblock picks."""
+    its band picks and multiquant codeblock picks (with `only`, a
+    threading.local, those of a thread while its `on` is set: other
+    encodes pass through)."""
     seen = {}
     orig = module.finish_inter_picture
 
     def recording(pending, frame_number, *a, **k):
         out = orig(pending, frame_number, *a, **k)
-        seen[frame_number] = (np.asarray(pending["qi_bands"]).ravel(),
-                              dict(pending.get("qi_cb", {})))
+        if only is None or getattr(only, "on", False):
+            seen[frame_number] = (np.asarray(pending["qi_bands"]).ravel(),
+                                  dict(pending.get("qi_cb", {})))
         return out
     return mock.patch.object(module, "finish_inter_picture", recording), seen
 
@@ -147,6 +154,86 @@ def _record_unit_picks(module):
 def _controller_fields(c):
     return (c.buffer_level, c.correction, c.buffer_size,
             c.bits_per_picture)
+
+
+def _stream_case(case):
+    """Both packages' streams of a case, and the JAX decoder's decode of
+    the port's stream with its errors."""
+    entry, kw, n, (w, h) = CASES[case]
+    frames = make_frames(n, w, h)
+    port = _encode(t_api.Encoder(video_format(w, h),
+                                 t_config.EncoderConfig(**kw),
+                                 device="cpu"), entry, frames)
+    jax = _encode(j_api.Encoder(_jvf(w, h), j_config.EncoderConfig(**kw)),
+                  entry, frames)
+    jdec = j_core.StreamDecoder()
+    return frames, port, jax, (jdec.decode_stream(port), jdec.errors)
+
+
+def _jax_host_pick(me_levels):
+    """Picture 0 intra-coded by the JAX package at quant index 12, then
+    picture 1 through its one-reference step at a seeded host pick with
+    the stat tables wanted: (the reconstruction's planes, the override,
+    the pending picture, finish's output)."""
+    frames = make_frames(2, W, H)
+    jgop = j_api.Encoder(_jvf(W, H), j_config.EncoderConfig(
+        **HOST_PICK))._gop
+    _, rec = j_intra.encode_picture(frames[0], jgop._params(0), 0,
+                                    quant_indices=12, is_ref=True,
+                                    return_recon=True)
+    planes = tuple(np.asarray(pl) for pl in rec)
+    p_j = jgop._params(1)
+    override = np.random.default_rng(5).integers(
+        10, 34, subband_count(p_j.transform_depth))
+    jp = j_inter.start_inter_picture(frames[1], p_j, j_core.RefFrame(planes),
+                                     qi_bands_override=override,
+                                     want_stats=True, me_levels=me_levels)
+    return planes, override, jp, j_inter.finish_inter_picture(jp, 1, 0)
+
+
+def _jax_multiquant(only):
+    """The JAX multiquant stream, its picks (recorded while `only.on` is
+    set on this thread) and its B batches."""
+    enc = j_api.Encoder(_jvf(W, H), j_config.EncoderConfig(**MQ))
+    batches = []
+    orig = enc._gop._start_b_batch
+
+    def wrapped(bs_):
+        took = orig(bs_)
+        batches.append(([b[0] for b in bs_], took is not None))
+        return took
+    enc._gop._start_b_batch = wrapped
+    only.on = True
+    try:
+        return enc.encode_stream(make_frames(MQ_FRAMES, W, H)), batches
+    finally:
+        only.on = False
+
+
+@pytest.fixture(scope="module")
+def jax_side():
+    """The module's encodes and the reference side of its comparisons,
+    each made once, on eight threads that start with the first test that
+    asks for them and work ahead of the next (XLA compiles, nearly all of
+    the time, release the GIL): ({key: future}, the JAX multiquant picks).  The JAX streams are
+    made with the stand-in encode_inter_picture (see the module
+    docstring)."""
+    only = threading.local()
+    patch, seen = _record_unit_picks(j_inter, only)
+    with patch, mock.patch.object(j_inter, "encode_inter_picture",
+                                  _jax_encode_inter_picture), \
+            ThreadPoolExecutor(8) as pool:
+        levels = t_api.Encoder(video_format(W, H), t_config.EncoderConfig(
+            **HOST_PICK), device="cpu")._gop.downsample_levels
+        jobs = {"multiquant": pool.submit(_jax_multiquant, only),
+                "host_pick": pool.submit(_jax_host_pick, levels)}
+        # the longest first: the odd sizes, then the biref host picks
+        for case in sorted(CASES, key=lambda c: (CASES[c][3] == (W, H),
+                                                 CASES[c][2] < 9)):
+            jobs[case] = pool.submit(_stream_case, case)
+        yield jobs, seen
+        for job in jobs.values():
+            job.cancel()
 
 
 def test_cbr_controller_matches_jax():
@@ -226,30 +313,20 @@ def test_settings_encode_on_the_cpu(kw):
 
 
 @pytest.fixture(scope="module")
-def host_pick_picture():
+def host_pick_picture(jax_side):
     """Picture 1 against picture 0 (intra-coded by the JAX package at
     quant index 12) through both packages' one-reference step at a seeded
     host pick, with the stat tables wanted."""
     frames = make_frames(2, W, H)
-    cfg = dict(BACKREF, rate_control="constant_error")
-    jgop = j_api.Encoder(_jvf(W, H), j_config.EncoderConfig(**cfg))._gop
-    tgop = t_api.Encoder(video_format(W, H), t_config.EncoderConfig(**cfg),
-                         device="cpu")._gop
-    _, rec = j_intra.encode_picture(frames[0], jgop._params(0), 0,
-                                    quant_indices=12, is_ref=True,
-                                    return_recon=True)
-    planes = tuple(np.asarray(pl) for pl in rec)
-    p_t, p_j = tgop._params(1), jgop._params(1)
+    tgop = t_api.Encoder(video_format(W, H), t_config.EncoderConfig(
+        **HOST_PICK), device="cpu")._gop
+    planes, override, jp, j_out = jax_side[0]["host_pick"].result()
+    p_t = tgop._params(1)
     nb = subband_count(p_t.transform_depth)
-    override = np.random.default_rng(5).integers(10, 34, nb)
-    kw = dict(qi_bands_override=override, want_stats=True,
-              me_levels=tgop.downsample_levels)
-    jp = j_inter.start_inter_picture(frames[1], p_j, j_core.RefFrame(planes),
-                                     **kw)
-    j_out = j_inter.finish_inter_picture(jp, 1, 0)
     tp = t_inter.start_inter_picture(
         frames[1], p_t, convert.ref_frame_from_numpy(planes, device="cpu"),
-        device="cpu", **kw)
+        device="cpu", qi_bands_override=override, want_stats=True,
+        me_levels=tgop.downsample_levels)
     t_out = t_inter.finish_inter_picture(tp, 1, 0)
     return override, nb, (tp, t_out), (jp, j_out)
 
@@ -275,39 +352,16 @@ def test_host_pick_step_matches_jax(host_pick_picture):
         np.testing.assert_array_equal(a.numpy(), np.asarray(b))
 
 
-@pytest.fixture(scope="module")
-def streams():
-    """Both packages' streams per case, each made once for the module."""
-    made = {}
-
-    def get(case):
-        if case not in made:
-            entry, kw, n, (w, h) = CASES[case]
-            frames = make_frames(n, w, h)
-            port = _encode(t_api.Encoder(video_format(w, h),
-                                         t_config.EncoderConfig(**kw),
-                                         device="cpu"), entry, frames)
-            with mock.patch.object(j_inter, "encode_inter_picture",
-                                   _jax_encode_inter_picture):
-                jax = _encode(j_api.Encoder(_jvf(w, h),
-                                            j_config.EncoderConfig(**kw)),
-                              entry, frames)
-            made[case] = frames, port, jax
-        return made[case]
-    return get
-
-
 @pytest.mark.parametrize("case", list(CASES))
-def test_stream_matches_jax(streams, case):
-    frames, stream, j_stream = streams(case)
+def test_stream_matches_jax(jax_side, case):
+    frames, stream, j_stream, (theirs_of_mine, j_errors) = \
+        jax_side[0][case].result()
     print(f"{case}: port {len(stream)} bytes, JAX {len(j_stream)} bytes, "
           f"byte-equal: {stream == j_stream}")
     dec = t_api.Decoder(device="cpu")
     mine = dec.decode_stream(stream)
     assert len(mine) == len(frames) and dec.errors == []
-    jdec = j_core.StreamDecoder()
-    theirs_of_mine = jdec.decode_stream(stream)
-    assert len(theirs_of_mine) == len(frames) and jdec.errors == []
+    assert len(theirs_of_mine) == len(frames) and j_errors == []
     for a3, b3 in zip(theirs_of_mine, mine):
         for a, b in zip(a3, b3):
             np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
@@ -317,30 +371,31 @@ def test_stream_matches_jax(streams, case):
 
 
 @pytest.fixture(scope="module")
-def multiquant():
+def multiquant(jax_side):
     """Both packages' multiquant streams, with each picture's band and
     codeblock picks and whether its subgroup went as one batch."""
+    jobs, j_seen = jax_side
     frames = make_frames(MQ_FRAMES, W, H)
-    out = {}
-    for name, api, vf, kw in (
-            ("port", t_api, video_format(W, H), dict(device="cpu")),
-            ("jax", j_api, _jvf(W, H), {})):
-        module = t_inter if name == "port" else j_inter
-        patch, seen = _record_unit_picks(module)
-        enc = api.Encoder(vf, (t_config if name == "port" else j_config)
-                          .EncoderConfig(**MQ), **kw)
-        batches = []
-        orig = enc._gop._start_b_batch
+    # the port's encodes of jax_side's threads pass through the recorder
+    only = threading.local()
+    patch, seen = _record_unit_picks(t_inter, only)
+    enc = t_api.Encoder(video_format(W, H), t_config.EncoderConfig(**MQ),
+                        device="cpu")
+    batches = []
+    orig = enc._gop._start_b_batch
 
-        def wrapped(bs_, orig=orig, batches=batches):
-            took = orig(bs_)
-            batches.append(([b[0] for b in bs_], took is not None))
-            return took
-        enc._gop._start_b_batch = wrapped
-        with patch:
-            stream = enc.encode_stream(frames)
-        out[name] = stream, seen, batches
-    return frames, out
+    def wrapped(bs_):
+        took = orig(bs_)
+        batches.append(([b[0] for b in bs_], took is not None))
+        return took
+    enc._gop._start_b_batch = wrapped
+    only.on = True
+    with patch:
+        stream = enc.encode_stream(frames)
+    only.on = False
+    j_stream, j_batches = jobs["multiquant"].result()
+    return frames, {"port": (stream, seen, batches),
+                    "jax": (j_stream, j_seen, j_batches)}
 
 
 def test_multiquant_codeblock_picks_match_jax(multiquant):
