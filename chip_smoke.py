@@ -213,6 +213,13 @@ luma PSNR >= 30 dB, bytes within 0.1x-4x of the pro-rata share, kernel
      0.5 and 1 Mbit/s over 96 frames (PROFILE.md §6's settings), on the
      slope of the curve; the higher rate codes more bytes less the
      padding units and a higher mean luma PSNR
+ 36. smoke-576p-intra-daub97 (BASELINE.json config 2): 720x576 4:2:0
+     main intra, Daubechies 9,7, the fixed quantiser of the default
+     quality, 8 frames through api.Encoder: card == CPU on frame 0, both
+     decoders equal, luma PSNR >= 30 dB; then the wavelet-pair streams of
+     tests/test_torch_wavelet_settings.py (96x80, 3 frames each on the
+     backref engine, all seven wavelets) and its main intra stream, each
+     on the card equal to the CPU encode byte for byte
 The last two lines are the nvidia-smi line and
 {"ok": true, "device": {...}}; the kernel summary JSON comes before them
 (with the launches of phases 23, 24, 27-30 and 32-35 and the field and
@@ -258,7 +265,9 @@ from schroedinger_tpu_torch.wavelets import Wavelet
 from schroedinger_tpu_torch.slice_config import (CONFIG, CONFIG_BENCH,
                                                  CONFIG_FLAGSHIP,
                                                  CONFIG_FLAGSHIP_DRAINING,
-                                                 make_frames, video_format)
+                                                 CONFIG_INTRA_DAUB97,
+                                                 WAVELET_PAIRS, make_frames,
+                                                 video_format)
 from schroedinger_tpu_torch.tools import bench_4k, bench_breadth, bench_rd
 from schroedinger_tpu_torch.tools import multihost_worker as mw
 from schroedinger_tpu_torch.tools import profile_patch_refine as probe_tool
@@ -1107,9 +1116,11 @@ def phase_lowdelay_lossless(card):
           f"{N / secs:.3f} frames/s [{card}]", flush=True)
 
 
-def phase_intra_profile(card, tag, what, vf, cfg, frames, peak, profile):
-    """An intra-only profile at 1080p: card == CPU on frame 0, the
-    sequence header's profile, both decoders, PSNR >= 30 dB."""
+def phase_intra_profile(card, tag, what, vf, cfg, frames, peak, profile,
+                        cell=None):
+    """An intra-only profile (at 1080p unless `cell` names another): card
+    == CPU on frame 0, the sequence header's profile, both decoders, PSNR
+    >= 30 dB."""
     if api.Encoder(vf, cfg).encode_stream(frames[:1]) != api.Encoder(
             vf, cfg, device="cpu").encode_stream(frames[:1]):
         raise AssertionError(f"{tag}: frame 0 on the card differs from the "
@@ -1120,8 +1131,9 @@ def phase_intra_profile(card, tag, what, vf, cfg, frames, peak, profile):
                              f"{sequence_profile(stream)}")
     vals, fps_api, fps_sd = check_two_decoders(stream, frames, {}, card, tag,
                                                peak)
-    print(f"{tag} smoke-1080p-{what.replace('_', '-')}"
-          f"{'-422p10' if peak > 255 else ''} x{len(frames)}: profile "
+    cell = cell or (f"smoke-1080p-{what.replace('_', '-')}"
+                    f"{'-422p10' if peak > 255 else ''}")
+    print(f"{tag} {cell} x{len(frames)}: profile "
           f"{profile}, frame 0 card == CPU, {len(stream)} bytes, luma PSNR "
           f"mean {np.mean(vals):.3f} min {min(vals):.3f} dB at peak "
           f"{peak:.0f}; encode {len(frames) / secs:.3f} frames/s, decode "
@@ -2410,6 +2422,34 @@ def phase_rd(card):
     return launches
 
 
+SD = (720, 576)                  # BASELINE.json config 2's picture size
+SETTINGS_SMALL = (96, 80, 3)     # tests/test_torch_wavelet_settings.py's
+
+
+def phase_intra_daub97(card):
+    """smoke-576p-intra-daub97, then the wavelet settings' streams on the
+    card against the CPU."""
+    W, H = SD
+    phase_intra_profile(card, "phase36", "vc2_main", video_format(W, H),
+                        EncoderConfig(**CONFIG_INTRA_DAUB97),
+                        make_frames(8, W, H), 255.0, 2,
+                        cell="smoke-576p-intra-daub97")
+    w, h, n = SETTINGS_SMALL
+    small = make_frames(n, w, h)
+    cases = dict(WAVELET_PAIRS, main_intra_daubechies_9_7=CONFIG_INTRA_DAUB97)
+    for name, kw in cases.items():
+        streams = [api.Encoder(video_format(w, h), EncoderConfig(
+            **kw, enable_md5=True), device=dev).encode_stream(small)
+            for dev in (None, "cpu")]
+        print(f"phase36 {w}x{h} x{n} {name}: cuda {len(streams[0])} bytes, "
+              f"cpu {len(streams[1])} bytes, streams "
+              f"{'equal' if streams[0] == streams[1] else 'differ'} "
+              f"[{card}]", flush=True)
+        if streams[0] != streams[1]:
+            raise AssertionError(f"phase36 {name}: the card's stream differs "
+                                 "from the CPU encode")
+
+
 def phases_bench(card):
     """Phases 32-35; returns their launch counts, the 2160p launch shapes
     held and the largest |diff| of the kernel against its plain
@@ -2480,11 +2520,15 @@ def main() -> int:
     legs, worst = phases_bench(card)
     entry.update(legs)
     entry["max_abs_err"] = max(entry["max_abs_err"], worst)
+    t_bench = time.perf_counter()
+    # BASELINE.json config 2 and the wavelet settings: no hand kernel
+    phase_intra_daub97(card)
     t_end = time.perf_counter()
     print(f"wall: phases 1-18 {t_rate - t_start:.1f} s, phases 19-22 "
           f"{t_settings - t_rate:.1f} s, phases 23-26 "
           f"{t_fields - t_settings:.1f} s, phases 27-31 "
-          f"{t_dist - t_fields:.1f} s, phases 32-35 {t_end - t_dist:.1f} s, "
+          f"{t_dist - t_fields:.1f} s, phases 32-35 {t_bench - t_dist:.1f} "
+          f"s, phase 36 {t_end - t_bench:.1f} s, "
           f"the whole script {t_end - t_start:.1f} s (host clock, from the "
           f"build on)", flush=True)
 

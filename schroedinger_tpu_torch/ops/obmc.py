@@ -76,6 +76,13 @@ def make_halfpel(planes):
     return torch.stack([top, bot], dim=1).reshape(2 * h, 2 * w)
 
 
+def upsample_frame_np(p):
+    """numpy u8 plane -> its (2h, 2w) interleaved half-pel plane, as
+    numpy (the host form of `make_halfpel(upsample_plane(p))`)."""
+    return make_halfpel(upsample_plane(torch.from_numpy(
+        np.ascontiguousarray(p)))).numpy()
+
+
 def _ramp_weights(blen, offset):
     """1-D OBMC ramp weights for one block (length blen), 6-bit half
     (schromotionref.c:160-168, 185-209)."""

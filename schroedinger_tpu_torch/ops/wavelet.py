@@ -231,3 +231,30 @@ def inverse(pyr, wavelet: Wavelet):
     for lev in reversed(pyr["levels"]):
         cur = inv_level(cur, lev["hl"], lev["lh"], lev["hh"], wavelet)
     return cur
+
+
+def interleaved_to_pyramid(arr, depth: int):
+    """Array (numpy or torch) in the reference's in-place interleaved
+    layout -> pyramid dict, as `forward` returns it (views, no copy)."""
+    levels = []
+    cur = arr
+    for _ in range(depth):
+        w = cur.shape[-1]
+        ev, od = _split(cur, -2)
+        levels.append({
+            "hl": ev[..., :, w // 2:],
+            "lh": od[..., :, : w // 2],
+            "hh": od[..., :, w // 2:],
+        })
+        cur = ev[..., :, : w // 2]
+    return {"ll": cur, "levels": levels}
+
+
+def pyramid_to_interleaved(pyr):
+    """Inverse of `interleaved_to_pyramid` (tensors)."""
+    cur = pyr["ll"]
+    for lev in reversed(pyr["levels"]):
+        top = torch.cat([cur, lev["hl"]], dim=-1)
+        bot = torch.cat([lev["lh"], lev["hh"]], dim=-1)
+        cur = _interleave(top, bot, -2)
+    return cur

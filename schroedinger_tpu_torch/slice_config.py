@@ -19,7 +19,9 @@ MD5 off and a full subgroup's B pictures coded as one batch;
 `chroma_format` and `bit_depth` it makes the same pan + noise at another
 chroma format, scaled to 10, 12 or 16 bits, for `video_format(w, h,
 chroma_format, bit_depth)` (y4m's deep offsets), the VC-2 profiles'
-input.
+input.  `WAVELET_PAIRS` and `CONFIG_INTRA_DAUB97` are `api.EncoderConfig`
+keywords: the long-GOP wavelet pairs and `BASELINE.json` config 2's main
+intra setting.
 """
 from __future__ import annotations
 
@@ -36,6 +38,35 @@ CONFIG_FLAGSHIP_DRAINING = dict(CONFIG_FLAGSHIP, bitrate=1_000_000,
                                 buffer_level=1_500_000)
 CONFIG_BENCH = dict(gop_length=24, mv_precision=2, bitrate=8_000_000, fps=25,
                     gop_structure="biref")
+
+
+# `api.EncoderConfig` keywords of the settings that no other slice sets,
+# coded at 96x80 by the wavelet-settings parity tests and by the smoke
+# run's card == CPU check.  Long-GOP pairs of intra and inter wavelets in
+# which all seven wavelets appear, on the backref engine (an I picture,
+# then P pictures: each wavelet codes whole pictures), each at a depth
+# within its `MAX_DEPTH_S16` cap and the 4 levels of the noise-power
+# curves (a deeper long-GOP transform raises IndexError in the band
+# weights, in both packages); the Fidelity pair asks for 4 and is capped
+# at 3.
+WAVELET_PAIRS = {
+    "desl_dubuc_13_7+desl_dubuc_9_7": dict(
+        gop_structure="backref", intra_wavelet="desl_dubuc_13_7",
+        inter_wavelet="desl_dubuc_9_7", transform_depth=4),
+    "le_gall_5_3+haar_0": dict(
+        gop_structure="backref", intra_wavelet="le_gall_5_3",
+        inter_wavelet="haar_0", transform_depth=4),
+    "haar_1+fidelity": dict(
+        gop_structure="backref", intra_wavelet="haar_1",
+        inter_wavelet="fidelity", transform_depth=4),
+    "daubechies_9_7+desl_dubuc_13_7": dict(
+        gop_structure="backref", intra_wavelet="daubechies_9_7",
+        inter_wavelet="desl_dubuc_13_7", transform_depth=4),
+}
+# BASELINE.json config 2's codec setting: main intra (every picture an
+# intra picture at one fixed quantiser), Daubechies 9,7
+CONFIG_INTRA_DAUB97 = dict(gop_structure="intra_only",
+                           intra_wavelet="daubechies_9_7")
 
 
 def video_format(width, height, chroma_format=ChromaFormat.C420,

@@ -18,7 +18,10 @@ times against `full` split the kernel's time: full - nostage is the
 reference-window reads, full - nosad is the other candidates' SADs and
 their reduction, full - onewindow is what the window reads cost in device
 memory misses; what `nosad` keeps is launch, the reads, one SAD, the
-minimum and the write-out.
+minimum and the write-out.  Last, at each of the seven launch shapes,
+the closest library route to the kernel's function (`unfold` of the
+windows, `torch.cdist(p=1)`, `argmin`; `library_search`) is held equal to
+the plain version and timed beside the kernel.
 
 It needs the card and raises without one.
 """
@@ -133,6 +136,51 @@ def probe(shape, dev, rounds=2):
     return eager, device
 
 
+def library_search(cur, ref, field, scale, bs_y, bs_x, rad, bound, margin):
+    """me_search's function (N = 1) by the closest library route: each
+    block's (2 rad + 1)^2 candidate windows by `unfold` of its
+    hint-displaced patch, their L1 distances to the block by
+    `torch.cdist(p=1)` (float32: exact, a SAD is below 2^24) and the
+    first minimum by `argmin`.  Returns (mv, sad) as me_search does."""
+    h, w = cur.shape
+    nby, nbx = h // bs_y, w // bs_x
+    hint = pr.upsample_hint(field, nby, nbx, scale, bound, cur.device)
+    pat = pr.extract_ref_patches(pr.pad_ref(ref, margin), hint[..., 0],
+                                 hint[..., 1], nby, nbx, bs_y, bs_x, rad,
+                                 margin)
+    k = 2 * rad + 1
+    win = pat[:, :bs_y + 2 * rad, :bs_x + 2 * rad].unfold(
+        1, bs_y, 1).unfold(2, bs_x, 1).reshape(-1, k * k, bs_y * bs_x)
+    blocks = pr.to_blocks(cur, nby, bs_y, nbx, bs_x).reshape(
+        -1, 1, bs_y * bs_x)
+    dist = torch.cdist(blocks.float(), win.float(), p=1)[:, 0]
+    best = dist.argmin(1)
+    mv = hint + torch.stack([torch.div(best, k, rounding_mode="floor") - rad,
+                             best % k - rad], -1).reshape(nby, nbx, 2)
+    sad = dist.gather(1, best[:, None]).reshape(nby, nbx)
+    return mv.to(torch.int32), sad.to(torch.int32)
+
+
+def library_line(shape, dev, card) -> str:
+    """The library route at a launch shape against the plain version
+    (torch.equal of mv and sad) and against the kernel, both timed in
+    turns (kernel, library, library, kernel): the kernel on the device
+    alone (graph replay) and from Python, the library route from
+    Python."""
+    args = make_inputs(shape, dev)
+    mv, sad = library_search(*args)
+    pm, ps = pr.me_search_plain(*args)
+    equal = torch.equal(mv, pm) and torch.equal(sad, ps)
+    kern = graph_ms(pr.me_search, args)
+    lib = (time_ms(library_search, args) + time_ms(library_search, args)) / 2
+    kern = (kern + graph_ms(pr.me_search, args)) / 2
+    call = time_ms(pr.me_search, args)
+    return (f"{describe(shape)} library route (unfold, cdist p=1, argmin): "
+            f"{lib:.4f} ms from Python, == plain: {equal}; kernel "
+            f"{kern:.4f} ms on the device, {call:.4f} ms from Python "
+            f"[{card}]")
+
+
 def describe(shape) -> str:
     name, nby, nbx, bs, rad, scale, _ = shape
     return f"{name} ({nby}x{nbx} blocks of {bs}x{bs}, rad {rad}, scale {scale})"
@@ -150,6 +198,8 @@ def main() -> int:
             print(f"{describe(shape)} {v}: {eager[v]:.4f} ms launched from "
                   f"Python, {device[v]:.4f} ms on the device [{card}]",
                   flush=True)
+    for shape in REFINE_SHAPES:
+        print(library_line(shape, dev, card), flush=True)
     return 0
 
 

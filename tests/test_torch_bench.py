@@ -26,6 +26,7 @@ import pytest
 import torch
 
 import bench as jbench
+from tests import jax_cache  # noqa: F401 (turns the disk cache on)
 from schroedinger_tpu.encoder import gop as j_gop
 from schroedinger_tpu_torch import bench as tbench
 from schroedinger_tpu_torch.slice_config import CONFIG_BENCH, video_format

@@ -8,6 +8,7 @@ ValueError."""
 import numpy as np
 import pytest
 
+from tests import jax_cache  # noqa: F401 (turns the disk cache on)
 from schroedinger_tpu import frontends as jf
 from schroedinger_tpu_torch import frontends as tf
 

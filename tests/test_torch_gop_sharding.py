@@ -17,6 +17,7 @@ import time
 import numpy as np
 import pytest
 
+from tests import jax_cache  # noqa: F401 (turns the disk cache on)
 from schroedinger_tpu.decoder.core import StreamDecoder as JStreamDecoder
 from schroedinger_tpu.encoder.gop import GopEncoder as JGopEncoder
 from schroedinger_tpu.parallel import gops as j_gops

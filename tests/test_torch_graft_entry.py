@@ -10,6 +10,7 @@ import os
 import numpy as np
 import torch
 
+from tests import jax_cache  # noqa: F401 (turns the disk cache on)
 from schroedinger_tpu.parallel import gops as j_gops
 
 from schroedinger_tpu_torch import graft_entry

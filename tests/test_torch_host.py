@@ -10,6 +10,7 @@ import os
 import numpy as np
 import pytest
 
+from tests import jax_cache  # noqa: F401 (turns the disk cache on)
 from schroedinger_tpu import bitstream as j_bs
 from schroedinger_tpu import params as j_params
 from schroedinger_tpu import tables as j_tables

@@ -16,12 +16,14 @@ import jax
 import jax.numpy as jnp
 import torch
 
+from tests import jax_cache  # noqa: F401 (turns the disk cache on)
 from schroedinger_tpu.encoder import me as j_me
 from schroedinger_tpu.ops import obmc as j_obmc
 from schroedinger_tpu.ops import pallas_me
 from schroedinger_tpu_torch.encoder import me as t_me
 from schroedinger_tpu_torch.ops import obmc as t_obmc
 from schroedinger_tpu_torch.ops import patch_refine as pr
+from schroedinger_tpu_torch.tools import profile_patch_refine as ppr
 
 torch.set_num_threads(1)
 
@@ -307,3 +309,19 @@ def test_subpel_body_whole(prec):
     _eq(ty, jy)
     _eq(tx, jx)
     _eq(ts, js)
+
+
+@pytest.mark.parametrize("flat", [False, True])
+@pytest.mark.parametrize("shape", ppr.REFINE_SHAPES, ids=lambda s: s[0])
+def test_library_route_equals_plain_search(shape, flat):
+    """The probe's library route (`unfold`, `cdist(p=1)`, `argmin`), timed
+    beside the kernel on the card, computes me_search's function: equal
+    to the plain version at each launch shape's block size, radius and
+    scale, on a cut of its block grid."""
+    name, nby, nbx, bs, rad, scale, grid = shape
+    cut = (name, min(nby, 5), min(nbx, 6), bs, rad, scale,
+           None if grid is None else (min(grid[0], 5), min(grid[1], 6)))
+    args = ppr.make_inputs(cut, torch.device("cpu"), seed=3, flat=flat)
+    mv, sad = ppr.library_search(*args)
+    want_mv, want_sad = pr.me_search_plain(*args)
+    assert torch.equal(mv, want_mv) and torch.equal(sad, want_sad)

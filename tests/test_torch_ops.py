@@ -1,13 +1,15 @@
 """Exact CPU parity of the port's tensor ops with the JAX package:
-quantiser, the 7 lifting wavelets, half-pel upsampling and the OBMC patch
-render.  Inputs come from numpy seeds; both sides see the same arrays and
-must agree bit for bit (every stage is integer)."""
+quantiser, the 7 lifting wavelets and the layout helpers, half-pel
+upsampling (on the device and on the host) and the OBMC patch render.
+Inputs come from numpy seeds; both sides see the same arrays and must
+agree bit for bit (every stage is integer)."""
 import numpy as np
 import pytest
 
 import jax.numpy as jnp
 import torch
 
+from tests import jax_cache  # noqa: F401 (turns the disk cache on)
 from schroedinger_tpu import tables
 from schroedinger_tpu.ops import obmc as j_obmc
 from schroedinger_tpu.ops import quant as j_quant
@@ -111,6 +113,43 @@ def test_upsample_halfpel(shape):
     assert tup.dtype == torch.uint8
     _eq(tup, jup)
     np.testing.assert_array_equal(tup.numpy(), j_obmc.upsample_frame_np(p))
+
+
+@pytest.mark.parametrize("shape", [(64, 128), (33, 20), (1, 1)])
+def test_upsample_frame_np_matches_jax(shape):
+    """The host half-pel upsample: the port's numpy helper equals the JAX
+    package's, value and dtype."""
+    rng = np.random.default_rng(4)
+    p = rng.integers(0, 256, shape).astype(np.uint8)
+    got, want = t_obmc.upsample_frame_np(p), j_obmc.upsample_frame_np(p)
+    assert got.dtype == want.dtype == np.uint8
+    np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("depth", [1, 2, 3])
+@pytest.mark.parametrize("dtype", [np.int16, np.int32])
+def test_interleaved_to_pyramid_matches_jax(depth, dtype):
+    """The reference's in-place layout to the pyramid: numpy in, numpy
+    out as the JAX helper gives it; a tensor in gives the same bands."""
+    rng = np.random.default_rng(20 + depth)
+    x = rng.integers(-30000, 30000, (2, 32, 48)).astype(dtype)
+    want = j_wv.interleaved_to_pyramid(x, depth)
+    for arr in (x, torch.from_numpy(x)):
+        got = t_wv.interleaved_to_pyramid(arr, depth)
+        assert len(got["levels"]) == depth
+        bands = [("ll", got["ll"], want["ll"])] + [
+            (f"{k}{i}", g[k], w[k])
+            for i, (g, w) in enumerate(zip(got["levels"], want["levels"]))
+            for k in ("hl", "lh", "hh")]
+        for name, g, w in bands:
+            assert type(g) is type(arr), name
+            np.testing.assert_array_equal(np.asarray(g), np.asarray(w),
+                                          err_msg=name)
+    # and back: the tensor pyramid to the JAX helper's interleaved array
+    back = t_wv.pyramid_to_interleaved(
+        t_wv.interleaved_to_pyramid(torch.from_numpy(x), depth))
+    _eq(back, j_wv.pyramid_to_interleaved(want))
+    np.testing.assert_array_equal(back.numpy(), x)
 
 
 def test_extract_patches_clamps_like_dynamic_slice():

@@ -13,6 +13,7 @@ import numpy as np
 import pytest
 import torch
 
+from tests import jax_cache  # noqa: F401 (turns the disk cache on)
 from schroedinger_tpu.decoder import pipeline as j_pipe
 from schroedinger_tpu.encoder import gop as j_gop
 from schroedinger_tpu_torch import bitstream as bs

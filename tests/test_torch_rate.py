@@ -10,6 +10,7 @@ import torch
 
 import jax.numpy as jnp
 
+from tests import jax_cache  # noqa: F401 (turns the disk cache on)
 from schroedinger_tpu.decoder import core as j_core
 from schroedinger_tpu.encoder import gop as j_gop
 from schroedinger_tpu.encoder import inter as j_inter

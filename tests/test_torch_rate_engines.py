@@ -33,6 +33,7 @@ import numpy as np
 import pytest
 import torch
 
+from tests import jax_cache  # noqa: F401 (turns the disk cache on)
 from schroedinger_tpu import api as j_api
 from schroedinger_tpu import config as j_config
 from schroedinger_tpu.decoder import core as j_core

@@ -20,6 +20,7 @@ import numpy as np
 import pytest
 import torch
 
+from tests import jax_cache  # noqa: F401 (turns the disk cache on)
 from schroedinger_tpu.decoder import core as j_core
 from schroedinger_tpu.decoder import intra as j_dintra
 from schroedinger_tpu.encoder import gop as j_gop

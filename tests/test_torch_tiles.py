@@ -16,6 +16,7 @@ import jax
 import jax.numpy as jnp
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
+from tests import jax_cache  # noqa: F401 (turns the disk cache on)
 from schroedinger_tpu.ops import obmc as j_obmc
 from schroedinger_tpu.ops import wavelet as j_wv
 from schroedinger_tpu.parallel import tiles as j_tiles
