@@ -378,12 +378,12 @@ def phase_whole_me(card):
     with count_calls(me_mod, "_dense_scan", "block_sads_at") as c_me, \
             count_calls(pr, "me_search_plain", "patch_refine_plain",
                         "extract_ref_patches") as c_pr:
-        before = pr.LAUNCHES
+        before = pr.launches()
         t0 = time.perf_counter()
         got = body(cur, ref)
         torch.cuda.synchronize()
         t_kernel = time.perf_counter() - t0
-        launches = pr.LAUNCHES - before
+        launches = pr.launches() - before
     if c_me.calls or c_pr.calls:
         raise AssertionError(f"phase2 ME pass on the card called plain "
                              f"pieces {c_me.calls + c_pr.calls} times")
@@ -485,9 +485,9 @@ def phase_probe(card):
     torch.cuda.synchronize()
     max_err = assert_equal_outputs(got, want, "probe variant full")
     plain_ms = time_ms(pr.me_search_plain, args)
-    pr.PROBE_LAUNCHES = 0
+    probes0 = pr.probe_launches()
     times, device_times = probe_tool.probe(shape, dev)
-    launches = pr.PROBE_LAUNCHES
+    launches = pr.probe_launches() - probes0
     if launches == 0:
         raise AssertionError("the probe launched no kernel")
     b_ms, by = refine_bound_ms(args)
@@ -552,9 +552,9 @@ def phase_backref(card):
     GopEncoder(vf, device="cuda", **CONFIG).encode_stream(frames[:2])
     torch.cuda.synchronize()
 
-    pr.LAUNCHES = 0
+    launches0 = pr.launches()
     enc, stream, dec, out, t_enc, t_dec = run_on_card(vf, CONFIG, frames)
-    launches = pr.LAUNCHES
+    launches = pr.launches() - launches0
 
     n_p = sum(1 for f in enc.stats.frames if not f["intra"])
     print(f"phase3 coded {N - n_p} I + {n_p} P pictures "
@@ -650,10 +650,10 @@ def phase_flagship(card):
     torch.cuda.synchronize()
     phase_draining(card, vf, frames[:9])
 
-    pr.LAUNCHES = 0
+    launches0 = pr.launches()
     enc, stream, dec, out, t_enc, t_dec = run_on_card(vf, CONFIG_FLAGSHIP,
                                                       frames)
-    launches = pr.LAUNCHES
+    launches = pr.launches() - launches0
 
     for f in enc.stats.frames:
         kind = "I" if f["intra"] else "B" if f.get("b_picture") else "P"
@@ -726,9 +726,9 @@ def phase_batch_kernel(card):
     shapes = []
     for seed, shape in enumerate(probe_tool.REFINE_SHAPES):
         args3 = batch_args(shape, dev, seed)
-        before = pr.LAUNCHES
+        before = pr.launches()
         got = pr.me_search(*args3)
-        if pr.LAUNCHES != before + 1:
+        if pr.launches() != before + 1:
             raise AssertionError("phase6: a batch made more than one launch")
         want = pr.me_search_plain(*args3)
         torch.cuda.synchronize()
@@ -770,10 +770,10 @@ def phase_batch_kernel(card):
                                coarse_radius=probe_tool.COARSE_RADIUS)
     body(cur, ref)                       # warm-up
     torch.cuda.synchronize()
-    before = pr.LAUNCHES
+    before = pr.launches()
     got = body(cur, ref)
     torch.cuda.synchronize()
-    launches = pr.LAUNCHES - before
+    launches = pr.launches() - before
     if launches != LAUNCHES_PER_REF:
         raise AssertionError(f"phase6 batched ME pass: {launches} launches,"
                              f" expected {LAUNCHES_PER_REF}")
@@ -851,13 +851,13 @@ def phase_bench_headline(card):
     seen = record_batches(enc)
     made = record_refs(enc)
     ticks = []
-    pr.LAUNCHES = 0
+    launches0 = pr.launches()
     t0 = time.perf_counter()
     stream = enc.encode_stream(frames, progress=lambda i, n: ticks.append(
         (i, n)))
     torch.cuda.synchronize()
     t_enc = time.perf_counter() - t0
-    launches = pr.LAUNCHES
+    launches = pr.launches() - launches0
 
     n_i, n_p, n_b = picture_mix(stream)
     batches = [s for s in seen if s[1]]
@@ -905,12 +905,12 @@ def phase_api_default(card):
     enc = api.Encoder(vf, EncoderConfig())
     seen = record_batches(enc._gop)
     made = record_refs(enc._gop)
-    pr.LAUNCHES = 0
+    launches0 = pr.launches()
     t0 = time.perf_counter()
     stream = enc.encode_stream(frames)
     torch.cuda.synchronize()
     t_enc = time.perf_counter() - t0
-    launches = pr.LAUNCHES
+    launches = pr.launches() - launches0
     n_i, n_p, n_b = picture_mix(stream)
     vals, fps_pipe, fps_base = check_two_decoders(stream, frames, made, card,
                                                   "phase9")
@@ -1152,12 +1152,12 @@ def phase_bench_noarith(card):
     enc = GopEncoder(vf, **cfg)
     seen = record_batches(enc)
     made = record_refs(enc)
-    pr.LAUNCHES = 0
+    launches0 = pr.launches()
     t0 = time.perf_counter()
     stream = enc.encode_stream(frames)
     torch.cuda.synchronize()
     t_enc = time.perf_counter() - t0
-    launches = pr.LAUNCHES
+    launches = pr.launches() - launches0
     kinds = picture_kinds(stream)
     batched = sum(len(s[0]) for s in seen if s[1])
     refs_p = sum(r for _, r, ref in kinds if r and ref)
@@ -1223,12 +1223,12 @@ def run_rate_phase(card, tag, name, make, frames, encode=None,
     gop = getattr(enc, "_gop", enc)
     seen = record_batches(gop)
     made = record_refs(gop)
-    pr.LAUNCHES = 0
+    launches0 = pr.launches()
     t0 = time.perf_counter()
     stream = encode(enc)
     torch.cuda.synchronize()
     t_enc = time.perf_counter() - t0
-    launches = pr.LAUNCHES
+    launches = pr.launches() - launches0
     per_ref = per_ref or LAUNCHES_PER_REF
     expect = expected_searches(stream, seen, per_ref)
     if launches != expect:
@@ -1780,12 +1780,12 @@ def run_field_phase(card, tag, name, make, frames, done, seed, bitrate,
     seen = record_batches(gop)
     made = record_refs(gop)
     with record_searches() as searches:
-        pr.LAUNCHES = 0
+        launches0 = pr.launches()
         t0 = time.perf_counter()
         stream = enc.encode_stream(frames)
         torch.cuda.synchronize()
         t_enc = time.perf_counter() - t0
-        launches = pr.LAUNCHES
+        launches = pr.launches() - launches0
     expect = expected_searches(stream, seen, LAUNCHES_PER_REF)
     if launches != expect:
         raise AssertionError(f"{tag}: {launches} launches, expected "
@@ -2150,8 +2150,8 @@ def phase_gop_sharded(card):
         enc = mw.make_encoder(SHARD_SIZE)
         seens.append(record_batches(enc))
         return enc
-    # serial and sharded in turns; the count is set to 0 just before each
-    # sharded encode and read just after
+    # serial and sharded in turns; the count is read just before each
+    # sharded encode and again just after
     runs = {"serial": [], "sharded": []}
     for name in ("serial", "sharded", "sharded", "serial"):
         if name == "serial":
@@ -2159,10 +2159,10 @@ def phase_gop_sharded(card):
                 lambda: mw.make_encoder(SHARD_SIZE).encode_stream(frames))
         else:
             seens.clear()
-            pr.LAUNCHES = 0
+            launches0 = pr.launches()
             threaded, t = timed_encode(lambda: gops.encode_gops_sharded(
                 frames, bench, n_shards=2, exact=False))
-            launches = pr.LAUNCHES
+            launches = pr.launches() - launches0
         runs[name].append(round(n / t, 3))
     sequential = gops.encode_gops_sharded(
         frames, lambda: mw.make_encoder(SHARD_SIZE), n_shards=2,
@@ -2281,17 +2281,17 @@ RD_RATES = (500_000, 1_000_000)
 
 def run_bench_leg(card, tag, name, make, frames, bitrate, warm):
     """One leg's encode on the card through the bench's own functions:
-    a warm-up of the first `warm` frames, the count set to 0, the timed
-    encode, the count read, then the leg's gates (bench.quality: both
+    a warm-up of the first `warm` frames, the count read, the timed
+    encode, the count read again, then the leg's gates (bench.quality: both
     decoders, every reference picture, PSNR, the bytes, the searches the
     picture mix implies, each one a launch).  Returns (launches, report,
     the encode)."""
     dev = torch.device(CARD)
     make().encode_stream(frames[:warm])                     # warm-up
     torch.cuda.synchronize()
-    pr.LAUNCHES = 0
+    launches0 = pr.launches()
     run = bench.timed_encode(make, frames, dev, warm=0, tag=tag)
-    launches = pr.LAUNCHES
+    launches = pr.launches() - launches0
     rep = bench.quality(run, frames, tag, bitrate)
     if launches != rep["searches"] or launches == 0:
         raise AssertionError(f"{tag}: {launches} launches of kernel #1 for "
@@ -2402,9 +2402,9 @@ def phase_rd(card):
     W, H = FULL
     args = argparse.Namespace(size=(W, H), frames=LEG_FRAMES["rd"],
                               bitrates=list(RD_RATES), device=CARD)
-    pr.LAUNCHES = 0
+    launches0 = pr.launches()
     rep = bench_rd.leg_rd(args)
-    launches = pr.LAUNCHES
+    launches = pr.launches() - launches0
     lo, hi = rep["points"]
     coded = [p["bytes"] - p["padding_bytes"] for p in (lo, hi)]
     print(f"phase35 smoke-1080p-rd x{rep['frames']} (zoomrot, noise 1): "
@@ -2486,37 +2486,37 @@ def main() -> int:
     entry["launches_flagship"] = phase_flagship(card)
     phase_small_card_vs_cpu(card)
     # this slice's main path: bench.py's headline encode; each count is
-    # set to 0 just before its path and read just after
+    # read just before its path and again just after
     entry.update(phase_bench_headline(card))
     entry["launches_api_default"] = phase_api_default(card)
-    # the VC-2 profiles and no-arith long GOP; the count is set to 0 just
-    # before the no-arith path and read just after
+    # the VC-2 profiles and no-arith long GOP; the count is read just
+    # before the no-arith path and again just after
     entry["launches_bench_noarith"] = phases_vc2(card)
-    # the long-GOP rate controls; each count is set to 0 just before its
-    # path and read just after
+    # the long-GOP rate controls; each count is read just before its
+    # path and again just after
     entry.update(phases_rate(card))
     t_rate = time.perf_counter()
-    # the long-GOP encoder's remaining settings; each count is set to 0
-    # just before its path and read just after
+    # the long-GOP encoder's remaining settings; each count is read just
+    # before its path and again just after
     settings, worst = phases_settings(card)
     entry.update(settings)
     entry["max_abs_err"] = max(entry["max_abs_err"], worst)
     t_settings = time.perf_counter()
     # interlaced coding at 1080i25 and 576i25, the streaming decoder,
-    # telemetry and the stream tools; each count is set to 0 just before
-    # its path and read just after
+    # telemetry and the stream tools; each count is read just before
+    # its path and again just after
     fields, worst = phases_interlaced(card)
     entry.update(fields)
     entry["max_abs_err"] = max(entry["max_abs_err"], worst)
     t_fields = time.perf_counter()
-    # the multi-device paths: each count is set to 0 just before its path
-    # and read just after (in the ranks and workers for 27 and 30)
+    # the multi-device paths: each count is read just before its path
+    # and again just after (in the ranks and workers for 27 and 30)
     dist_counts, worst = phases_distributed(card)
     entry.update(dist_counts)
     entry["max_abs_err"] = max(entry["max_abs_err"], worst)
     t_dist = time.perf_counter()
-    # the bench entry points: each count is set to 0 just before its path
-    # and read just after
+    # the bench entry points: each count is read just before its path
+    # and again just after
     legs, worst = phases_bench(card)
     entry.update(legs)
     entry["max_abs_err"] = max(entry["max_abs_err"], worst)

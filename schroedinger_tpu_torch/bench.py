@@ -175,10 +175,10 @@ def record_batches(enc):
     orig = enc._start_b_batch
 
     def wrapped(bs_):
-        before = pr.LAUNCHES
+        before = pr.launches()
         out = orig(bs_)
         seen.append(([b[0] for b in bs_], out is not None,
-                     pr.LAUNCHES - before))
+                     pr.launches() - before))
         return out
     enc._start_b_batch = wrapped
     return seen
@@ -199,7 +199,7 @@ class record_searches:
 
     def __enter__(self):
         self.saved = me_mod.me_search
-        self.launches0 = pr.LAUNCHES
+        self.launches0 = pr.launches()
 
         def recording(*args):
             cur, _, _, scale, bs_y, bs_x, rad = args[:7]
@@ -214,7 +214,7 @@ class record_searches:
 
     def __exit__(self, *exc):
         me_mod.me_search = self.saved
-        self.launches = pr.LAUNCHES - self.launches0
+        self.launches = pr.launches() - self.launches0
 
 
 def picture_kinds(stream):

@@ -70,7 +70,7 @@ from schroedinger_tpu_torch.frontends import split_fields
 from schroedinger_tpu_torch.ops.filters import apply_prefilter
 from schroedinger_tpu_torch.ops.metrics import ssim_frame
 from schroedinger_tpu_torch.params import Params, subband_count
-from schroedinger_tpu_torch.pipeline import planes_to_device
+from schroedinger_tpu_torch.pipeline import to_host, upload_picture
 from schroedinger_tpu_torch.utils.telemetry import FrameStats
 from schroedinger_tpu_torch.video_format import VideoFormat
 from schroedinger_tpu_torch.wavelets import MAX_DEPTH_S16, Wavelet
@@ -339,7 +339,7 @@ class GopEncoder:
         if recon is None or planes is None or not self._want_metrics():
             return out
         with record_function("quality_metrics"):
-            rec = recon[0].cpu().numpy().astype(np.float64)
+            rec = to_host(recon[0]).astype(np.float64)
             src = np.asarray(planes[0], np.float64)
             if self.enable_psnr:
                 mse = np.mean((rec - src) ** 2)
@@ -353,15 +353,16 @@ class GopEncoder:
     def _scene_change_score(self, planes) -> float:
         """MAD vs previous input, downsampled 4x (schroencoder.c:1909
         calculate_sc_score analog): score = mad / running mad."""
-        y = np.asarray(planes[0], np.int32)[::4, ::4]
-        score = 0.0
-        if self._prev_input is not None:
-            mad = float(np.abs(y - self._prev_input).mean())
-            base = self._prev_mad if self._prev_mad else max(mad, 1e-3)
-            score = mad / max(base, 1e-3)
-            self._prev_mad = (0.7 * (self._prev_mad or mad) + 0.3 * mad)
-        self._prev_input = y
-        return score
+        with record_function("scene_change"):
+            y = np.asarray(planes[0], np.int32)[::4, ::4]
+            score = 0.0
+            if self._prev_input is not None:
+                mad = float(np.abs(y - self._prev_input).mean())
+                base = self._prev_mad if self._prev_mad else max(mad, 1e-3)
+                score = mad / max(base, 1e-3)
+                self._prev_mad = (0.7 * (self._prev_mad or mad) + 0.3 * mad)
+            self._prev_input = y
+            return score
 
     def _is_intra(self, num, planes):
         """backref: (intra?, scene-change score) for picture num."""
@@ -387,30 +388,32 @@ class GopEncoder:
         b'' while it buffers a subgroup.  Under interlaced coding the
         frame's two fields are coded back to back; the second field
         predicts from the first."""
-        planes = self._prefilter(planes)
-        out = bytearray()
-        for pic in self._pictures(planes):
-            num = self.frame_number
-            if self.gop_structure == "biref":
-                self.frame_number += 1
-                sc = (self._scene_change_score(pic)
-                      if self.enable_scene_change else 0.0)
-                self._queue.append((num, pic, sc))
-                out += self._drain_subgroups(final=False)
-            else:
-                is_intra, sc = self._is_intra(num, pic)
-                out += self._encode_ref(pic, num, is_intra, sc)
-        return bytes(out)
+        with record_function("gop_drive"):
+            planes = self._prefilter(planes)
+            out = bytearray()
+            for pic in self._pictures(planes):
+                num = self.frame_number
+                if self.gop_structure == "biref":
+                    self.frame_number += 1
+                    sc = (self._scene_change_score(pic)
+                          if self.enable_scene_change else 0.0)
+                    self._queue.append((num, pic, sc))
+                    out += self._drain_subgroups(final=False)
+                else:
+                    is_intra, sc = self._is_intra(num, pic)
+                    out += self._encode_ref(pic, num, is_intra, sc)
+            return bytes(out)
 
     def flush(self) -> bytes:
         """Code what the biref engine still buffers and finish its pending
         pictures (the backref engine holds nothing back)."""
-        out = bytearray()
-        if self.gop_structure == "biref":
-            out += self._drain_subgroups(final=True)
-            while self._pends2:
-                out += self._finish_pending2(self._pends2.popleft())
-        return bytes(out)
+        with record_function("gop_drive"):
+            out = bytearray()
+            if self.gop_structure == "biref":
+                out += self._drain_subgroups(final=True)
+                while self._pends2:
+                    out += self._finish_pending2(self._pends2.popleft())
+            return bytes(out)
 
     def encode_stream(self, frames, progress=None) -> bytes:
         """Encode a sequence with device/host pipelining: the inter step of
@@ -440,42 +443,48 @@ class GopEncoder:
         pictures = (pic for planes in frames
                     for pic in self._pictures(self._prefilter(planes)))
         for planes in pictures:
-            num = self.frame_number
-            is_intra, sc = self._is_intra(num, planes)
-            if is_intra or self.last_ref is None:
-                while pends:
-                    out += self._finish_pending(pends.popleft())
-                out += self._encode_ref(planes, num, True, sc)
-                continue
+            with record_function("gop_drive"):
+                num = self.frame_number
+                is_intra, sc = self._is_intra(num, planes)
+                if is_intra or self.last_ref is None:
+                    while pends:
+                        out += self._finish_pending(pends.popleft())
+                    out += self._encode_ref(planes, num, True, sc)
+                    continue
 
-            qargs = self._quant_args("P")
-            if (qargs.get("want_stats")
-                    and qargs.get("qi_bands_override") is None and pends):
-                # a host-pick engine with no stat tables yet (stream
-                # start): finish the oldest picture in flight, whose
-                # tables the engine then picks from
-                out += self._finish_pending(pends.popleft())
                 qargs = self._quant_args("P")
-            meta = (num, self.last_ref, self.prev_ref, sc,
-                    planes if self._want_metrics() else None)
-            pending = ei_inter.start_inter_picture(
-                planes, self._params(1), self.ref_frames[self.last_ref],
-                base_qi=self.base_qi_inter, **self._step_kw(), **qargs)
-            # the new recon tensors become the reference at once; the
-            # device stream orders the dependency
-            if self.prev_ref is not None:
-                self.ref_frames.pop(self.prev_ref, None)
-            self.ref_frames[num] = RefFrame(tuple(pending["recon"]))
-            self.prev_ref = self.last_ref
-            self.last_ref = num
-            self.frame_number += 1
-            pends.append((pending, meta))
-            if len(pends) > self.pipeline_depth:
-                out += self._finish_pending(pends.popleft())
+                if (qargs.get("want_stats")
+                        and qargs.get("qi_bands_override") is None
+                        and pends):
+                    # a host-pick engine with no stat tables yet (stream
+                    # start): finish the oldest picture in flight, whose
+                    # tables the engine then picks from
+                    out += self._finish_pending(pends.popleft())
+                    qargs = self._quant_args("P")
+                meta = (num, self.last_ref, self.prev_ref, sc,
+                        planes if self._want_metrics() else None)
+                with record_function("p_picture_step"):
+                    pending = ei_inter.start_inter_picture(
+                        planes, self._params(1),
+                        self.ref_frames[self.last_ref],
+                        base_qi=self.base_qi_inter, **self._step_kw(),
+                        **qargs)
+                # the new recon tensors become the reference at once; the
+                # device stream orders the dependency
+                if self.prev_ref is not None:
+                    self.ref_frames.pop(self.prev_ref, None)
+                self.ref_frames[num] = RefFrame(tuple(pending["recon"]))
+                self.prev_ref = self.last_ref
+                self.last_ref = num
+                self.frame_number += 1
+                pends.append((pending, meta))
+                if len(pends) > self.pipeline_depth:
+                    out += self._finish_pending(pends.popleft())
             if progress is not None:
                 progress(num, len(out))
-        while pends:
-            out += self._finish_pending(pends.popleft())
+        with record_function("gop_drive"):
+            while pends:
+                out += self._finish_pending(pends.popleft())
         out += self._chain.add([bs.make_eos_unit()], final_eos=True)
         return bytes(out)
 
@@ -522,61 +531,62 @@ class GopEncoder:
         constant_error / constant_noise_threshold engines and the
         allocation controller, against the newest tables the host has.
         Without either, nothing (fixed base indices)."""
-        # the on-device RD argmin computes bits + lam*err; scaling the bit
-        # estimates by the arith-correction ratio c gives the reference's
-        # corrected cost c*bits + lam*err (schroquantiser.c:706-725)
-        corr = np.maximum(self.acorr.inter, 1e-3)
-        if self.qengine is not None:
-            if self.qengine.mode == "constant_lambda":
-                return {"lam_bands": (self.qengine.lam
-                                      * self.qengine.band_scales),
+        with record_function("rate_control"):
+            # the on-device RD argmin computes bits + lam*err; scaling the bit
+            # estimates by the arith-correction ratio c gives the reference's
+            # corrected cost c*bits + lam*err (schroquantiser.c:706-725)
+            corr = np.maximum(self.acorr.inter, 1e-3)
+            if self.qengine is not None:
+                if self.qengine.mode == "constant_lambda":
+                    return {"lam_bands": (self.qengine.lam
+                                          * self.qengine.band_scales),
+                            "corr_bands": corr,
+                            "me_lam": self._me_lam()}
+                return {"qi_bands_override": self.qengine.pick(),
+                        "want_stats": True}
+            if self.rc is None:
+                return {}
+            if self._tm5:
+                alloc = {"I": self.rc.I_frame_alloc,
+                         "P": self.rc.P_frame_alloc,
+                         "B": self.rc.B_frame_alloc}[kind]
+                oh = self._oh_inter or 0.0
+                # buffer-aware cap, not a hard per-frame budget: a full
+                # reservoir lets pictures spend up to ~3x their complexity
+                # allocation (quality rides the buffer, like the reference's
+                # get_alloc curve, schroengine.c:552-637), a draining one
+                # tightens toward 1x
+                occ = max(self.rc.buffer_level / self.rc.buffer_size, 0.0)
+                if occ > 0.7:
+                    # reservoir healthy: the buffer is the CBR contract, so
+                    # the TM5 stable-quality spend rides it
+                    target = 0.0
+                else:
+                    cap = alloc * (1.0 + 2.0 * occ)
+                    target = max(cap - oh, 0.25 * alloc)
+                return {"lam_bands": (self.rc.frame_lambda(kind)
+                                      * self._band_scales3(False)),
                         "corr_bands": corr,
+                        "target_bits": target,
                         "me_lam": self._me_lam()}
-            return {"qi_bands_override": self.qengine.pick(),
-                    "want_stats": True}
-        if self.rc is None:
-            return {}
-        if self._tm5:
-            alloc = {"I": self.rc.I_frame_alloc,
-                     "P": self.rc.P_frame_alloc,
-                     "B": self.rc.B_frame_alloc}[kind]
-            oh = self._oh_inter or 0.0
-            # buffer-aware cap, not a hard per-frame budget: a full
-            # reservoir lets pictures spend up to ~3x their complexity
-            # allocation (quality rides the buffer, like the reference's
-            # get_alloc curve, schroengine.c:552-637), a draining one
-            # tightens toward 1x
-            occ = max(self.rc.buffer_level / self.rc.buffer_size, 0.0)
-            if occ > 0.7:
-                # reservoir healthy: the buffer is the CBR contract, so
-                # the TM5 stable-quality spend rides it
-                target = 0.0
-            else:
-                cap = alloc * (1.0 + 2.0 * occ)
-                target = max(cap - oh, 0.25 * alloc)
-            return {"lam_bands": (self.rc.frame_lambda(kind)
-                                  * self._band_scales3(False)),
-                    "corr_bands": corr,
-                    "target_bits": target,
-                    "me_lam": self._me_lam()}
-        # the allocation controller: a host pick against the newest stat
-        # tables, in the JAX encoder's order of preference
-        stats = (self._last_stats or self._stats_by_kind.get(kind)
-                 or self._stats_by_kind.get("P")
-                 or self._stats_by_kind.get("B"))
-        qi = None
-        if stats is not None:
-            # badblock-weighted allocation (schroengine.c:610-617; the
-            # ratio is the newest finished picture's)
-            mult = self.magic["badblock_multiplier_nonref" if kind == "B"
-                              else "badblock_multiplier_ref"]
-            extra = self._last_badblock * mult
-            qi = pick_bands_rdo(stats,
-                                self.rc.frame_target(kind=kind,
-                                                     extra_weight=extra),
-                                band_scales=self._band_scales3(False),
-                                correction=corr)
-        return {"qi_bands_override": qi, "want_stats": True}
+            # the allocation controller: a host pick against the newest stat
+            # tables, in the JAX encoder's order of preference
+            stats = (self._last_stats or self._stats_by_kind.get(kind)
+                     or self._stats_by_kind.get("P")
+                     or self._stats_by_kind.get("B"))
+            qi = None
+            if stats is not None:
+                # badblock-weighted allocation (schroengine.c:610-617; the
+                # ratio is the newest finished picture's)
+                mult = self.magic["badblock_multiplier_nonref" if kind == "B"
+                                  else "badblock_multiplier_ref"]
+                extra = self._last_badblock * mult
+                qi = pick_bands_rdo(stats,
+                                    self.rc.frame_target(kind=kind,
+                                                         extra_weight=extra),
+                                    band_scales=self._band_scales3(False),
+                                    correction=corr)
+            return {"qi_bands_override": qi, "want_stats": True}
 
     def _rc_update(self, kind: str, bits: int, num: int,
                    est: Optional[float] = None) -> bytes:
@@ -741,11 +751,13 @@ class GopEncoder:
         retire = self._pick_retire()
         ref0, ref1 = self._pick_refs(num)
         refs = [ref0] if ref1 is None else [ref0, ref1]
-        pending = ei_inter.start_inter_picture(
-            planes, self._params(len(refs)), self.ref_frames[ref0],
-            base_qi=self.base_qi_inter,
-            ref2=(self.ref_frames[ref1] if ref1 is not None else None),
-            want_recon=True, **self._step_kw(), **self._quant_args("P"))
+        qargs = self._quant_args("P")
+        with record_function("p_picture_step"):
+            pending = ei_inter.start_inter_picture(
+                planes, self._params(len(refs)), self.ref_frames[ref0],
+                base_qi=self.base_qi_inter,
+                ref2=(self.ref_frames[ref1] if ref1 is not None else None),
+                want_recon=True, **self._step_kw(), **qargs)
         meta = (num, refs, retire, True, "P", sc,
                 planes if self._want_metrics() else None)
         self.ref_frames[num] = RefFrame(tuple(pending["recon"]))
@@ -846,38 +858,40 @@ class GopEncoder:
 
     def _finish_pending2(self, pend) -> bytes:
         pending, (num, refs, retired, is_ref, kind, sc, keep) = pend
-        unit, stats = ei_inter.finish_inter_picture(
-            pending, num, refs[0], is_ref=is_ref, retired=retired,
-            ref2_num=refs[1] if len(refs) > 1 else None)
-        if self.qengine is not None:
-            self.qengine.update(stats)
-        if stats is not None:
-            self._stats_by_kind[kind] = stats
-        self._acorr_update(pending, len(unit) * 8)
-        self._last_badblock = pending["badblock_ratio"]
-        if kind != "B":
-            self._last_max_qi = int(np.max(
-                pending["qi_bands"][:pending["nb"]]))
-        pad_unit = self._rc_update(kind, len(unit) * 8, num,
-                                   self._estimate(stats, pending))
-        units = []
-        if self.enable_md5 and pending["recon"] is not None:
-            units.append(self._md5_unit(pending["recon"]))
-        units.append(unit)
-        self.stats.record(frame=num, intra=False, b_picture=(kind == "B"),
-                          bits=len(unit) * 8, sc_score=round(sc, 3),
-                          dc_ratio=round(pending["dc_ratio"], 3),
-                          badblock=round(pending["badblock_ratio"], 3),
-                          qi_bands=pending["qi_bands"].tolist(),
-                          target_bits=pending["target_bits"],
-                          lam_scale=pending["lam_scale"],
-                          buffer_level=(self.rc.buffer_level if self.rc
-                                        else None),
-                          base_lambda=getattr(self.rc, "base_lambda", None),
-                          **self._quality_metrics(pending["recon"], keep))
-        if pad_unit:
-            units.append(pad_unit)
-        return self._chain.add(units)
+        with record_function("picture_finish"):
+            unit, stats = ei_inter.finish_inter_picture(
+                pending, num, refs[0], is_ref=is_ref, retired=retired,
+                ref2_num=refs[1] if len(refs) > 1 else None)
+            with record_function("rate_control"):
+                if self.qengine is not None:
+                    self.qengine.update(stats)
+                if stats is not None:
+                    self._stats_by_kind[kind] = stats
+                self._acorr_update(pending, len(unit) * 8)
+                self._last_badblock = pending["badblock_ratio"]
+                if kind != "B":
+                    self._last_max_qi = int(np.max(
+                        pending["qi_bands"][:pending["nb"]]))
+                pad_unit = self._rc_update(kind, len(unit) * 8, num,
+                                           self._estimate(stats, pending))
+            units = []
+            if self.enable_md5 and pending["recon"] is not None:
+                units.append(self._md5_unit(pending["recon"]))
+            units.append(unit)
+            self.stats.record(
+                frame=num, intra=False, b_picture=(kind == "B"),
+                bits=len(unit) * 8, sc_score=round(sc, 3),
+                dc_ratio=round(pending["dc_ratio"], 3),
+                badblock=round(pending["badblock_ratio"], 3),
+                qi_bands=pending["qi_bands"].tolist(),
+                target_bits=pending["target_bits"],
+                lam_scale=pending["lam_scale"],
+                buffer_level=(self.rc.buffer_level if self.rc else None),
+                base_lambda=getattr(self.rc, "base_lambda", None),
+                **self._quality_metrics(pending["recon"], keep))
+            if pad_unit:
+                units.append(pad_unit)
+            return self._chain.add(units)
 
     @staticmethod
     def _estimate(stats, pending) -> Optional[float]:
@@ -890,7 +904,7 @@ class GopEncoder:
     # ---- reference pictures ---------------------------------------------
 
     def _md5_unit(self, recon) -> bytes:
-        planes = tuple(pl.cpu().numpy() for pl in recon)
+        planes = tuple(to_host(pl) for pl in recon)
         with record_function("frame_md5"):
             md5 = _native.frame_md5(planes)
         return bs.make_aux_unit(bs.AUX_MD5_CHECKSUM, md5)
@@ -900,32 +914,35 @@ class GopEncoder:
         stat-table, arith-correction, badblock, ME-lambda and rate-model
         updates the JAX encoder commits here."""
         pending, (num, ref_num, retired, sc, keep) = pend
-        unit, stats = ei_inter.finish_inter_picture(
-            pending, num, ref_num, is_ref=True, retired=retired)
-        if self.qengine is not None:
-            self.qengine.update(stats)
-        if stats is not None:
-            self._last_stats = stats
-        self._acorr_update(pending, len(unit) * 8)
-        self._last_badblock = pending["badblock_ratio"]
-        self._last_max_qi = int(np.max(pending["qi_bands"][:pending["nb"]]))
-        pad_unit = self._rc_update("P", len(unit) * 8, num,
-                                   self._estimate(stats, pending))
-        units = []
-        if self.enable_md5:
-            units.append(self._md5_unit(pending["recon"]))
-        units.append(unit)
-        self.stats.record(frame=num, intra=False, bits=len(unit) * 8,
-                          sc_score=round(sc, 3),
-                          dc_ratio=round(pending["dc_ratio"], 3),
-                          badblock=round(pending["badblock_ratio"], 3),
-                          qi_bands=pending["qi_bands"].tolist(),
-                          buffer_level=(self.rc.buffer_level if self.rc
-                                        else None),
-                          **self._quality_metrics(pending["recon"], keep))
-        if pad_unit:
-            units.append(pad_unit)
-        return self._chain.add(units)
+        with record_function("picture_finish"):
+            unit, stats = ei_inter.finish_inter_picture(
+                pending, num, ref_num, is_ref=True, retired=retired)
+            with record_function("rate_control"):
+                if self.qengine is not None:
+                    self.qengine.update(stats)
+                if stats is not None:
+                    self._last_stats = stats
+                self._acorr_update(pending, len(unit) * 8)
+                self._last_badblock = pending["badblock_ratio"]
+                self._last_max_qi = int(np.max(
+                    pending["qi_bands"][:pending["nb"]]))
+                pad_unit = self._rc_update("P", len(unit) * 8, num,
+                                           self._estimate(stats, pending))
+            units = []
+            if self.enable_md5:
+                units.append(self._md5_unit(pending["recon"]))
+            units.append(unit)
+            self.stats.record(
+                frame=num, intra=False, bits=len(unit) * 8,
+                sc_score=round(sc, 3),
+                dc_ratio=round(pending["dc_ratio"], 3),
+                badblock=round(pending["badblock_ratio"], 3),
+                qi_bands=pending["qi_bands"].tolist(),
+                buffer_level=(self.rc.buffer_level if self.rc else None),
+                **self._quality_metrics(pending["recon"], keep))
+            if pad_unit:
+                units.append(pad_unit)
+            return self._chain.add(units)
 
     def _seed_rc_from_intra(self, planes, p) -> None:
         """Calibrate the TM5 base lambda against this content before the
@@ -934,33 +951,35 @@ class GopEncoder:
         the I-frame allocation (lambda_for_bits: the reference's
         entropy_to_lambda bisection, schroquantiser.c:887-960, applied
         once at stream start)."""
-        stats = self._intra_stats(planes, p)
-        corr_i = np.maximum(self.acorr.intra, 1e-3)
-        bits_c = np.asarray(stats[0], np.float64) * corr_i
-        # only seed when the allocation is binding: if even the finest
-        # pick (row 0) costs less than the target, the content is cheaper
-        # than the budget and the default quality-level lambda is the
-        # right regime.  Reservoir-aware first-I target: the intra may
-        # borrow deeply from the buffer (high-quality refs are what make
-        # the cheap B's work), so fit to ~0.3 buffer rather than the
-        # pro-rata allocation
-        target = max(self.rc.I_frame_alloc, 0.3 * self.rc.buffer_size)
-        max_bits = float(bits_c[0].sum())
-        if target >= 0.9 * max_bits:
-            return
-        lam = lambda_for_bits(bits_c, stats[1], target,
-                              band_scales=self._band_scales3(True))
-        if np.isfinite(lam) and lam > 0:
-            # base_lambda is the I-level lambda; P/B derive via the magic
-            # scales; never seed finer than the default quality level
-            self.rc.base_lambda = float(min(lam, self.rc.base_lambda))
+        with record_function("rc_seed"):
+            stats = self._intra_stats(planes, p)
+            corr_i = np.maximum(self.acorr.intra, 1e-3)
+            bits_c = np.asarray(stats[0], np.float64) * corr_i
+            # only seed when the allocation is binding: if even the finest
+            # pick (row 0) costs less than the target, the content is
+            # cheaper than the budget and the default quality-level lambda
+            # is the right regime.  Reservoir-aware first-I target: the
+            # intra may borrow deeply from the buffer (high-quality refs
+            # are what make the cheap B's work), so fit to ~0.3 buffer
+            # rather than the pro-rata allocation
+            target = max(self.rc.I_frame_alloc, 0.3 * self.rc.buffer_size)
+            max_bits = float(bits_c[0].sum())
+            if target >= 0.9 * max_bits:
+                return
+            lam = lambda_for_bits(bits_c, stats[1], target,
+                                  band_scales=self._band_scales3(True))
+            if np.isfinite(lam) and lam > 0:
+                # base_lambda is the I-level lambda; P/B derive via the
+                # magic scales; never seed finer than the default quality
+                # level
+                self.rc.base_lambda = float(min(lam, self.rc.base_lambda))
 
     def _intra_stats(self, planes, p):
         """The exact (61, 3nb) intra stat tables of a frame: forward
         transform on the device, `ratecontrol.stats_tables`."""
         band_lists = []
         for plane, (oh, ow) in zip(
-                planes_to_device(planes, 8, self.device),
+                upload_picture(planes, 8, self.device),
                 ((p.iwt_luma_height, p.iwt_luma_width),
                  (p.iwt_chroma_height, p.iwt_chroma_width),
                  (p.iwt_chroma_height, p.iwt_chroma_width))):
@@ -1037,32 +1056,40 @@ class GopEncoder:
                     # first intra: seed the TM5 base lambda by fitting
                     # this frame's exact stat tables to its allocation
                     self._seed_rc_from_intra(planes, p)
-                intra_lambda = self.rc.frame_lambda("I")
+                with record_function("rate_control"):
+                    intra_lambda = self.rc.frame_lambda("I")
             # the host-pick engines code the intra pictures at the base
             # index; the allocation controller picks them on the host
             if intra_lambda is not None or self.rc is not None:
-                if (intra_lambda is None or self.enable_noarith
-                        or p.codeblock_mode_index != 0):
-                    # the fused step codes arith pictures of codeblock
-                    # mode 0 at a lambda only
-                    unit, recon, qi_bands = self._encode_intra_rd(
-                        planes, p, num, retired, intra_lambda)
-                else:
-                    # fused intra path: transform, stats, RD pick and
-                    # quantisation on the device, host entropy coding and
-                    # serial DC-predict band 0, device reconstruction
-                    (unit, recon, qi_bands, _stats, bb_act,
-                     bb_est) = ei_intra.encode_picture_fused(
-                        planes, p, num,
-                        intra_lambda * self._band_scales3(True),
-                        is_ref=True, retired=retired, corr=self.acorr.intra,
-                        error_power=self.magic["error_power"],
-                        device=self.device)
-                    self.acorr.update(True, bb_act, bb_est)
-                    oh = max(len(unit) * 8 - float(np.sum(bb_act)), 0.0)
-                    self._oh_intra = (oh if self._oh_intra is None
-                                      else 0.8 * self._oh_intra + 0.2 * oh)
-                pad_unit = self._rc_update("I", len(unit) * 8, num)
+                bb_act = None
+                with record_function("i_picture"):
+                    if (intra_lambda is None or self.enable_noarith
+                            or p.codeblock_mode_index != 0):
+                        # the fused step codes arith pictures of codeblock
+                        # mode 0 at a lambda only
+                        unit, recon, qi_bands = self._encode_intra_rd(
+                            planes, p, num, retired, intra_lambda)
+                    else:
+                        # fused intra path: transform, stats, RD pick and
+                        # quantisation on the device, host entropy coding
+                        # and serial DC-predict band 0, device
+                        # reconstruction
+                        (unit, recon, qi_bands, _stats, bb_act,
+                         bb_est) = ei_intra.encode_picture_fused(
+                            planes, p, num,
+                            intra_lambda * self._band_scales3(True),
+                            is_ref=True, retired=retired,
+                            corr=self.acorr.intra,
+                            error_power=self.magic["error_power"],
+                            device=self.device)
+                with record_function("rate_control"):
+                    if bb_act is not None:
+                        self.acorr.update(True, bb_act, bb_est)
+                        oh = max(len(unit) * 8 - float(np.sum(bb_act)), 0.0)
+                        self._oh_intra = (
+                            oh if self._oh_intra is None
+                            else 0.8 * self._oh_intra + 0.2 * oh)
+                    pad_unit = self._rc_update("I", len(unit) * 8, num)
             else:
                 nb = subband_count(p.transform_depth)
                 qm = np.asarray(p.quant_matrix[:nb], np.int32)
@@ -1075,17 +1102,22 @@ class GopEncoder:
                         qis[(comp, i)] = np.full(
                             (vcb, hcb), int(qi_bands[comp * nb + i]),
                             np.int32)
-                unit, recon = ei_intra.encode_picture(
-                    planes, p, num, quant_indices=qis, is_ref=True,
-                    retired=retired, return_recon=True, device=self.device)
+                with record_function("i_picture"):
+                    unit, recon = ei_intra.encode_picture(
+                        planes, p, num, quant_indices=qis, is_ref=True,
+                        retired=retired, return_recon=True,
+                        device=self.device)
         else:
-            (unit, recon, _, stats, _, dc_ratio,
-             ipend) = ei_inter.encode_inter_picture(
-                planes, self._params(1), num, self.last_ref,
-                self.ref_frames[self.last_ref],
-                base_qi=self.base_qi_inter, is_ref=True, retired=retired,
-                **self._step_kw(), **self._quant_args("P"))
-            if dc_ratio > self.magic["me_bailout_limit"]:
+            qargs = self._quant_args("P")
+            with record_function("p_picture_step"):
+                ipend = ei_inter.start_inter_picture(
+                    planes, self._params(1), self.ref_frames[self.last_ref],
+                    base_qi=self.base_qi_inter, **self._step_kw(), **qargs)
+            with record_function("picture_finish"):
+                unit, stats = ei_inter.finish_inter_picture(
+                    ipend, num, self.last_ref, is_ref=True, retired=retired)
+            recon = ipend["recon"]
+            if ipend["dc_ratio"] > self.magic["me_bailout_limit"]:
                 # intra bailout (schroencoder.c:2373-2384): motion
                 # compensation failed for most blocks -> code this
                 # picture as intra instead (same number/retire)
@@ -1097,12 +1129,13 @@ class GopEncoder:
             # takes no bit estimate (the JAX encoder's _encode_ref; the
             # badblock ratio and the ME lambda stay where encode_stream
             # left them)
-            if self.qengine is not None:
-                self.qengine.update(stats)
-            if stats is not None:
-                self._last_stats = stats
-            self._acorr_update(ipend, len(unit) * 8)
-            pad_unit = self._rc_update("P", len(unit) * 8, num)
+            with record_function("rate_control"):
+                if self.qengine is not None:
+                    self.qengine.update(stats)
+                if stats is not None:
+                    self._last_stats = stats
+                self._acorr_update(ipend, len(unit) * 8)
+                pad_unit = self._rc_update("P", len(unit) * 8, num)
         if self.enable_md5:
             units.append(self._md5_unit(recon))
         units.append(unit)

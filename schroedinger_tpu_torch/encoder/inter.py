@@ -62,6 +62,7 @@ from schroedinger_tpu_torch.decoder.lowdelay import _inverse
 from schroedinger_tpu_torch.ops import obmc
 from schroedinger_tpu_torch.ops import quant as q
 from schroedinger_tpu_torch.ops.patch_refine import extract_ref_patches
+from schroedinger_tpu_torch.pipeline import to_host, upload_picture
 
 _P_FIELD_ORDER = ("split", "pred_mode", "using_global", "dx1", "dy1",
                   "dx2", "dy2", "dc0", "dc1", "dc2")
@@ -84,7 +85,7 @@ def _phasecorr_candidates(p: Params, cur_y, ref_y):
         if fn is None:
             fn = _PHASECORR_FNS[(pw, ph)] = pcm.make_phasecorr_fn(ph, pw)
     vecs = fn(cur_y, ref_y)
-    return pcm.pick_candidates(vecs.cpu().numpy(), n=N_PHASECORR_CANDS)
+    return pcm.pick_candidates(to_host(vecs), n=N_PHASECORR_CANDS)
 
 
 def _estimation(estimation, me_levels: int, scan_distance: float):
@@ -956,12 +957,6 @@ def write_prediction_parameters(w: BitWriter, p: Params) -> None:
             w.write_sint(p.picture_weight_2)
 
 
-def _to_device_planes(planes_u8, device):
-    return tuple(pl.to(device) if torch.is_tensor(pl)
-                 else torch.tensor(np.asarray(pl, np.uint8), device=device)
-                 for pl in planes_u8)
-
-
 def _check_refs(p: Params, ref1, ref2, dev):
     if (ref2 is None) != (p.num_refs == 1):
         raise ValueError(f"p.num_refs={p.num_refs} does not match the "
@@ -994,7 +989,7 @@ def _run_step(planes_list, p: Params, ref1: RefFrame, ref2, want_recon,
     n = len(planes_list)
     nb = subband_count(p.transform_depth)
     y, u, v = (torch.stack(c) for c in zip(
-        *(_to_device_planes(pl, dev) for pl in planes_list)))
+        *(upload_picture(pl, 8, dev) for pl in planes_list)))
     extra = None
     if use_phasecorr:
         if n != 1:
@@ -1146,10 +1141,10 @@ def _fetch_batch(shared) -> None:
     with record_function("p_transfer"):
         f16 = shared["fields"]
         n = f16.shape[0]
-        shared["wire"] = torch.cat(
+        shared["wire"] = to_host(torch.cat(
             [f16.reshape(n, -1), shared["qi_dev"].to(torch.int16),
              *(m.to(torch.int16) for m in shared["mq"]),
-             *shared["qflats"]], 1).cpu().numpy()
+             *shared["qflats"]], 1))
         parts = []
         if shared["rc_bits"] is not None:
             parts.append(shared["rc_bits"].reshape(n, -1))
@@ -1158,7 +1153,7 @@ def _fetch_batch(shared) -> None:
         parts.append(shared["badblock"][:, None])
         if shared["rdo"]:
             parts.append(shared["lam_scale"][:, None])
-        shared["fwire"] = torch.cat(parts, 1).cpu().numpy()
+        shared["fwire"] = to_host(torch.cat(parts, 1))
 
 
 def finish_inter_picture(pending: dict, frame_number: int, ref1_num: int,
@@ -1228,27 +1223,6 @@ def finish_inter_picture(pending: dict, frame_number: int, ref1_num: int,
         if rc0 is not None and rc0.any() else None)
     stats = (rc0.copy(), err.copy()) if pending["want_stats"] else None
     return unit, stats
-
-
-def encode_inter_picture(planes_u8, p: Params, frame_number: int,
-                         ref1_num: int, ref1: RefFrame,
-                         base_qi: int = 20, is_ref: bool = True,
-                         retired: Optional[int] = None, me_levels: int = 5,
-                         scan_distance: float = 4.0, device=None, **quant):
-    """Encode one P picture (start + finish).  `quant` passes on to
-    start_inter_picture (qi_bands_override, want_stats, lam_bands,
-    corr_bands, target_bits, me_lam, block_search_threshold,
-    error_power, use_phasecorr, estimation).  Returns the JAX function's tuple (parse_unit_bytes,
-    recon_planes, base_qi, stats, None, dc_ratio, pending): stats as
-    finish_inter_picture gives them; the JAX package's upsampled planes
-    have no counterpart (a RefFrame upsamples its planes itself)."""
-    pend = start_inter_picture(planes_u8, p, ref1, base_qi=base_qi,
-                               me_levels=me_levels,
-                               scan_distance=scan_distance, device=device,
-                               **quant)
-    unit, stats = finish_inter_picture(pend, frame_number, ref1_num,
-                                       is_ref=is_ref, retired=retired)
-    return unit, pend["recon"], base_qi, stats, None, pend["dc_ratio"], pend
 
 
 def _write_motion_part(p: Params, frame_number: int, refs, is_ref: bool,

@@ -34,7 +34,7 @@ from schroedinger_tpu_torch.encoder.lowdelay import _forward, _prep_plane
 from schroedinger_tpu_torch.encoder.ratecontrol import band_tables, rd_pick
 from schroedinger_tpu_torch.ops import quant as q
 from schroedinger_tpu_torch.ops.pad import pad_edge
-from schroedinger_tpu_torch.pipeline import planes_to_device
+from schroedinger_tpu_torch.pipeline import to_host, upload_picture
 
 
 def _prep_plane_deep(plane, out_h: int, out_w: int):
@@ -93,12 +93,13 @@ def encode_picture(planes_u8, p: Params, frame_number: int,
     band_bits = np.zeros(3 * nb, np.float64)
     recon_planes = []
     for comp, (plane, (oh, ow)) in enumerate(zip(
-            planes_to_device(planes_u8, bit_depth, device), iwt_dims)):
+            upload_picture(planes_u8, bit_depth, device), iwt_dims)):
         prepped = (_prep_plane_deep(plane, oh, ow) if bit_depth > 8
                    else _prep_plane(plane, oh, ow))
         pyr = _forward(prepped, depth, p.wavelet_filter_index)
-        bands = [b.cpu().numpy().astype(np.int64)
-                 for b in sl.subband_arrays(pyr, depth)]
+        with record_function("i_transfer"):
+            bands = [to_host(b).astype(np.int64)
+                     for b in sl.subband_arrays(pyr, depth)]
 
         deq_bands = [None] * nb
         for index in range(nb):
@@ -293,15 +294,14 @@ def encode_picture_fused(planes_u8, p: Params, frame_number: int,
     lam = np.asarray(lam_bands, np.float64)
     cb = (np.ones(lam.size) if corr is None
           else np.maximum(np.asarray(corr, np.float64), 1e-3))
-    planes = tuple(pl.to(dev) if torch.is_tensor(pl) else
-                   torch.tensor(np.asarray(pl, np.uint8), device=dev)
-                   for pl in planes_u8)
-    outs = step1(planes, torch.as_tensor(lam.astype(np.float32), device=dev),
+    outs = step1(upload_picture(planes_u8, 8, dev),
+                 torch.as_tensor(lam.astype(np.float32), device=dev),
                  float(np.float32(target_bits or 0.0)),
                  torch.as_tensor(cb.astype(np.float32), device=dev))
-    stats = torch.stack([outs["rc_bits"], outs["rc_err"]]).cpu().numpy()
-    wire = torch.cat([outs["qi_bands"].to(torch.int16), *outs["qflats"],
-                      *outs["raw0"]]).cpu().numpy()
+    with record_function("i_transfer"):
+        stats = to_host(torch.stack([outs["rc_bits"], outs["rc_err"]]))
+        wire = to_host(torch.cat([outs["qi_bands"].to(torch.int16),
+                                  *outs["qflats"], *outs["raw0"]]))
     qi_bands = wire[:3 * nb].astype(np.int32)
     off = 3 * nb
     host_q = []

@@ -24,6 +24,7 @@ import torch
 
 from schroedinger_tpu_torch import tables
 from schroedinger_tpu_torch.params import Params, subband_count
+from schroedinger_tpu_torch.pipeline import to_host
 
 # base indices per pass of the table loop: a pass holds a few int32 and
 # float32 temporaries of (chunk, n) elements, so the chunk shrinks as the
@@ -178,7 +179,7 @@ def stats_tables(band_lists, p: Params, intra: bool,
             off += arr.numel()
     bits61, err61 = band_tables(torch.cat(flats), bounds,
                                 len(band_lists) * nb, intra, error_power)
-    return bits61.cpu().numpy(), err61.cpu().numpy()
+    return to_host(bits61), to_host(err61)
 
 
 def rd_pick(rc_bits, rc_err, lam_bands, corr_bands, target_bits=0.0,

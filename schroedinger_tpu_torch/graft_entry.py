@@ -176,16 +176,17 @@ def frames_in_gop(rank, world, dev, stage):
     while the other ranks wait (None on the CPU)}."""
     W, H, blen, bsep = FRAMES_IN_GOP[stage]
     frames, step = frames_in_gop_step(stage, world, dev)
-    pr.LAUNCHES = 0
+    launches0 = pr.launches()
     wire, fwire, pend = step([frames[rank + 1]])
-    launches = group.allgather(np.asarray([pr.LAUNCHES], np.int64))
+    launches = group.allgather(np.asarray([pr.launches() - launches0],
+                                          np.int64))
     got, got_f = group.allgather(wire[0]), group.allgather(fwire[0])
     report = {"launches": [int(n) for n in launches[:, 0]]}
     dist.barrier()
     if rank == 0:
-        pr.LAUNCHES = 0
+        launches0 = pr.launches()
         want, want_f, _ = step(frames[1:world + 1])
-        report["batch_launches"] = pr.LAUNCHES
+        report["batch_launches"] = pr.launches() - launches0
         parts, fparts = _wire_parts(pend)
         for k in range(world):
             if not np.array_equal(got[k], want[k]):

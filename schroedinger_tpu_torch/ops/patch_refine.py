@@ -27,11 +27,13 @@ with fields (N, hy, hx, 2) searches one shared reference in one launch
   median SAD     scale 1, rad 0, the median field (sad_at(med))
   zero SAD       scale 0, rad 0                  (sad_zero)
 
-LAUNCHES counts kernel launches (and nothing else), so a run can show
-that its ME went through the kernel.  `me_search_probe` launches one of
-the kernel's four compile-time cost variants (the port of the TPU probe
+The counter `me_search_launches` (`utils.telemetry.counters`) counts
+kernel launches (and nothing else), so a run can show that its ME went
+through the kernel.  `me_search_probe` launches one of the kernel's four
+compile-time cost variants (the port of the TPU probe
 `tools/profile_pk_parts.py:113`; see the source's head and
-`tools/profile_patch_refine.py`); PROBE_LAUNCHES counts those launches.
+`tools/profile_patch_refine.py`); `me_probe_launches` counts those
+launches.
 """
 from __future__ import annotations
 
@@ -47,6 +49,7 @@ import torch
 
 from schroedinger_tpu_torch.ops.obmc import _round8, extract_patches
 from schroedinger_tpu_torch.ops.pad import pad_edge
+from schroedinger_tpu_torch.utils.telemetry import counters
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 _PKG = os.path.dirname(_HERE)
@@ -57,8 +60,6 @@ BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build",
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-O3",
               "-std=c++17", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
-LAUNCHES = 0        # kernel launches since import (or the last reset)
-PROBE_LAUNCHES = 0  # launches of the cost probe's variants, likewise
 # the probe's variants, by their number in the source; only "full" gives
 # right answers
 PROBE_VARIANTS = ("full", "nostage", "nosad", "onewindow")
@@ -66,8 +67,8 @@ BUILD_LOG = ""      # nvcc's output of the last build (ptxas usage lines)
 LIBRARY = None      # path of the built library, set by build()
 
 _lib = None
-# guards the build and load of the library and the launch counts: the ME
-# runs on several threads when GOP shards encode at once
+# guards the build and load of the library: the ME runs on several
+# threads when GOP shards encode at once
 _LOCK = threading.Lock()
 
 
@@ -293,12 +294,10 @@ def me_search(cur, ref, field, scale, bs_y, bs_x, rad, bound, margin):
 
     CUDA tensors launch the kernel, once for the whole batch (no plain
     fallback); CPU tensors run me_search_plain."""
-    global LAUNCHES
     if cur.device.type == "cuda":
         outs = _launch(0, cur, ref, field, scale, bs_y, bs_x, rad, bound,
                        margin)
-        with _LOCK:
-            LAUNCHES += 1
+        counters.add("me_search_launches")
         return outs
     if cur.device.type != "cpu":
         raise ValueError(f"me_search: unsupported device {cur.device}")
@@ -306,14 +305,24 @@ def me_search(cur, ref, field, scale, bs_y, bs_x, rad, bound, margin):
                            margin)
 
 
+def launches() -> int:
+    """me_search's kernel launches so far in this process (the counter
+    `me_search_launches`)."""
+    return counters.snapshot().get("me_search_launches", 0)
+
+
+def probe_launches() -> int:
+    """me_search_probe's launches so far in this process (the counter
+    `me_probe_launches`)."""
+    return counters.snapshot().get("me_probe_launches", 0)
+
+
 def me_search_probe(variant: str, cur, ref, field, scale, bs_y, bs_x, rad,
                     bound, margin):
     """Launch one cost variant of the kernel (PROBE_VARIANTS) on CUDA
     tensors.  Same arguments and outputs as me_search; only "full"
     computes the search, the others exist to be timed."""
-    global PROBE_LAUNCHES
     outs = _launch(PROBE_VARIANTS.index(variant), cur, ref, field, scale,
                    bs_y, bs_x, rad, bound, margin)
-    with _LOCK:
-        PROBE_LAUNCHES += 1
+    counters.add("me_probe_launches")
     return outs

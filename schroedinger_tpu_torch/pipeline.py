@@ -20,6 +20,7 @@ from __future__ import annotations
 
 import numpy as np
 import torch
+from torch.profiler import record_function
 
 from schroedinger_tpu_torch import tables
 from schroedinger_tpu_torch.coding import slices as sl
@@ -27,6 +28,7 @@ from schroedinger_tpu_torch.ops import wavelet as wv
 from schroedinger_tpu_torch.ops.pad import pad_edge
 from schroedinger_tpu_torch.ops.quant import wrap32
 from schroedinger_tpu_torch.params import Params, subband_count
+from schroedinger_tpu_torch.utils.telemetry import counters
 
 # elements of one (bases, slices, positions) temporary per pass of the
 # 61-base loop: 1080p 4:2:2 luma goes in 4 passes, each chroma plane in 2
@@ -65,6 +67,30 @@ def planes_to_device(planes, bit_depth: int, device):
             out.append(torch.tensor(h16, device=device).to(torch.int32)
                        & 0xFFFF)
     return tuple(out)
+
+
+def upload_picture(planes, bit_depth: int, device):
+    """The long-GOP encoder's copy of a source picture to `device`
+    (`planes_to_device`), in the span `picture_upload`; the bytes copied
+    count in `upload_bytes`."""
+    with record_function("picture_upload"):
+        out = planes_to_device(planes, bit_depth, device)
+    moved = 0
+    for pl, t in zip(planes, out):
+        if not torch.is_tensor(pl):
+            moved += np.asarray(pl).size * (1 if bit_depth <= 8 else 2)
+        elif pl.device != t.device:
+            moved += pl.numel() * pl.element_size()
+    counters.add("upload_bytes", moved)
+    return out
+
+
+def to_host(t) -> np.ndarray:
+    """The long-GOP encoder's fetch of a tensor to a host array; the
+    bytes count in `fetch_bytes`."""
+    out = t.cpu().numpy()
+    counters.add("fetch_bytes", out.nbytes)
+    return out
 
 
 def _prep(plane, oh: int, ow: int, bit_depth: int):

@@ -32,11 +32,19 @@ quarter-pel, bottom field first: the format's default), whose decode
 counts field pictures.
 Prints, per run: wall time,
 the device's busy time (union of kernel intervals) and idle share, the
-host time in the entropy-coding calls and in the encoder's stage spans
-(each ME pass, the RD split, the render, the stat tables, the RD pick,
-quantise + reconstruction, the fetch; and around them the step of a
-batch of B pictures or of one B picture) with the device events each
-launched, and the top kernels (not aten ops) by device time.  Writes a Chrome trace of the encode to DIR.
+host time in the entropy-coding calls, in the GOP driver's host spans
+(the driver itself, the scene-change score, rate control, the source
+picture's upload, the intra fetch, an inter picture's finish) and in the
+encoder's stage spans (each ME pass, the RD split, the render, the stat
+tables, the RD pick, quantise + reconstruction, the fetch; and around
+them the step of a batch of B pictures, of one B or P picture, of an
+intra picture, and the rate controller's first calibration) with the
+device events each launched, and the top kernels (not aten ops) by device time.  For
+the encode it also prints the device's idle time by the innermost span
+open on the host (`profile.encode_stream`: no span of the port), and per
+frame the bytes copied to and from the card (the counters `upload_bytes`
+and `fetch_bytes`) and kernel #1's launches.  Writes a Chrome trace of
+the encode to DIR.
 """
 from __future__ import annotations
 
@@ -47,7 +55,7 @@ import subprocess
 import time
 
 import torch
-from torch.profiler import ProfilerActivity, profile
+from torch.profiler import ProfilerActivity, profile, record_function
 
 from schroedinger_tpu_torch import api
 from schroedinger_tpu_torch.config import EncoderConfig
@@ -59,6 +67,7 @@ from schroedinger_tpu_torch.slice_config import (CONFIG, CONFIG_BENCH,
                                                  CONFIG_FLAGSHIP_DRAINING,
                                                  make_frames, video_format)
 from schroedinger_tpu_torch.tools.schro_tpu import encoder_config
+from schroedinger_tpu_torch.utils.telemetry import counters
 from schroedinger_tpu_torch.video_format import ChromaFormat
 
 # name -> (encoder options, frames, warm-up frames); "lowdelay" runs
@@ -78,18 +87,25 @@ API_CONFIGS = {"backref-quality": dict(gop_structure="backref"),
                "interlaced-cbr": dict(rate_control="constant_bitrate",
                                       bitrate=8_000_000, interlaced_coding=1,
                                       mv_precision=2)}
-# record_function spans of the port: host entropy coding, then the inter
-# and intra steps' stages (host time of a stage = its enqueue, not the
+# record_function spans of the port: host entropy coding and the GOP
+# driver's host work (the driver, scene change, rate control, the copies
+# to and from the card, an inter picture's host half), then the inter and
+# intra steps' stages (host time of a stage = its enqueue, not the
 # device's work)
 HOST_SPANS = ("encode_subband_arith", "decode_subband_arith",
               "encode_subband_noarith", "decode_subband_noarith",
               "motion_encode", "motion_decode", "frame_md5", "ld_pack",
-              "ld_decode")
+              "ld_decode", "gop_drive", "scene_change", "rate_control",
+              "picture_upload", "i_transfer", "picture_finish")
 STAGE_SPANS = ("me_pass", "phasecorr", "rd_split", "render", "stat_tables",
                "rd_pick", "multiquant", "quantise_recon", "p_transfer",
-               "b_batch_step", "b_picture_step", "prefilter",
-               "quality_metrics", "ld_analysis", "ld_inverse")
+               "b_batch_step", "b_picture_step", "p_picture_step",
+               "i_picture", "rc_seed", "prefilter", "quality_metrics",
+               "ld_analysis", "ld_inverse")
 
+# the tool's own span around the profiled encode: device idle inside it
+# that no span of the port covers is put down to it
+ENCODE_SPAN = "profile.encode_stream"
 
 _CUDA = torch.autograd.DeviceType.CUDA
 # the port's own kernels (csrc/patch_refine.cu)
@@ -131,6 +147,45 @@ def _events_under(prof, names):
                               - bisect.bisect_left(starts,
                                                    e.time_range.start))
     return counts
+
+
+def _idle_by_span(prof, outer):
+    """[(name, us)] of the device's idle time inside the host span
+    `outer`, by the innermost of the port's spans open on the host at the
+    time (`outer` where none of them is: host work no program span
+    names), the largest first."""
+    names = set(HOST_SPANS + STAGE_SPANS) | {outer}
+    host = sorted((e.time_range.start, e.time_range.end, e.name)
+                  for e in prof.events()
+                  if e.device_type != _CUDA and e.name in names)
+    t0, t1 = next((s, e) for s, e, n in host if n == outer)
+    busy = sorted((e.time_range.start, e.time_range.end)
+                  for e in prof.events()
+                  if e.device_type == _CUDA and not e.is_user_annotation)
+    gaps, cur = [], t0
+    for s, e in busy:
+        if s >= t1:
+            break
+        if s > cur:
+            gaps.append((cur, s))
+        cur = max(cur, e)
+    if cur < t1:
+        gaps.append((cur, t1))
+    # each gap's pieces go to the span opened last among those open
+    bounds = sorted({t for s, e, _ in host for t in (s, e)}
+                    | {t for g in gaps for t in g})
+    by, k, open_, g = {}, 0, [], 0
+    for a, b in zip(bounds, bounds[1:]):
+        while k < len(host) and host[k][0] <= a:
+            open_.append(host[k])
+            k += 1
+        open_ = [sp for sp in open_ if sp[1] > a]
+        while g < len(gaps) and gaps[g][1] <= a:
+            g += 1
+        if open_ and g < len(gaps) and gaps[g][0] <= a:
+            name = max(open_, key=lambda sp: sp[0])[2]
+            by[name] = by.get(name, 0.0) + (b - a)
+    return sorted(by.items(), key=lambda r: -r[1])
 
 
 def _report(tag, prof, wall_s, n_frames):
@@ -209,13 +264,29 @@ def main() -> int:
     torch.cuda.synchronize()
 
     enc = new_encoder()
+    before = counters.snapshot()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        stream = enc.encode_stream(frames)
-        torch.cuda.synchronize()
+        with record_function(ENCODE_SPAN):
+            stream = enc.encode_stream(frames)
+            torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+    after = counters.snapshot()
     _report("encode", prof, wall, len(frames))
+    idle = _idle_by_span(prof, ENCODE_SPAN)
+    total = sum(us for _, us in idle)
+    print("encode: device idle " + f"{total / 1e3:.1f} ms by innermost "
+          "span: " + ", ".join(f"{n} {us / 1e3:.1f} ms "
+                               f"({us / (total or 1):.4f})"
+                               for n, us in idle), flush=True)
+    counted = {k: after[k] - before.get(k, 0) for k in after}
+    print(f"encode: per frame: uploaded "
+          f"{counted.get('upload_bytes', 0) / 1e6 / len(frames):.4f} MB, "
+          f"fetched {counted.get('fetch_bytes', 0) / 1e6 / len(frames):.4f}"
+          f" MB, kernel #1 launched "
+          f"{counted.get('me_search_launches', 0) / len(frames):.2f} times",
+          flush=True)
     if a.config == "lowdelay":
         # the fetch and the packing run on the encoder's worker thread,
         # whose spans the profiler does not record

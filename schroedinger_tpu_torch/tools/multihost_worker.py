@@ -10,7 +10,7 @@ own, gloo otherwise), encodes its GOP-aligned chunk of a deterministic
 clip with per-chunk rate control (exact=False), gathers every chunk's
 payload and writes the merged stream to <out>; its last line of output
 is a JSON object of its rank, device, merged bytes and the ME kernel's
-launches (`ops/patch_refine.LAUNCHES`).  The stream is the same
+launches (`ops/patch_refine.launches()`).  The stream is the same
 on every rank and equals the single-process
 `gops.encode_gops_sharded(make_frames(size), make_encoder, n_shards=n_proc,
 sequential=True, exact=False)`.
@@ -90,7 +90,7 @@ def main(argv=None) -> None:
     with open(args.out, "wb") as f:
         f.write(merged)
     print(json.dumps({"rank": args.rank, "device": str(dev),
-                      "bytes": len(merged), "launches": pr.LAUNCHES}),
+                      "bytes": len(merged), "launches": pr.launches()}),
           flush=True)
 
 

@@ -1,23 +1,24 @@
-"""Telemetry: frame stats, per-topic dump streams, stage timers.
+"""Telemetry: frame stats, per-topic dump streams, event counters.
 
-Mirrors the reference's three observability mechanisms:
+Mirrors two of the reference's observability mechanisms:
   - frame stats API (21 per-frame metrics, schroencoder.c:1234-1258)
     -> FrameStats JSONL
   - SCHRO_DUMP per-topic data files (schrodebug.h:24-37, the dump
     dispatcher schrodebug.c:78-96) -> dump(topic, ...) writing
     schro_tpu_dump_<topic>.log, gated by SCHRO_TPU_DUMP ("all", "1",
     or a comma list of topic names); SCHRO_TPU_DUMP_DIR picks the dir.
-  - orc-profile style timing (testsuite/perf) -> Timers accumulating
-    wall time per named stage, used by tools/profile_* and the
-    entropy-share measurement (PROFILE.md).
 
-Whole copy of `schroedinger_tpu/utils/telemetry.py`: the port imports nothing of
-the JAX package, and later slices find their entry points here.
+and adds the port's event counters (`counters`), which the profiler's
+spans do not give: counts of bytes and launches, read before and after
+a run.  The frame stats and dumps are copies of
+`schroedinger_tpu/utils/telemetry.py`'s: the port imports nothing of the
+JAX package.
 """
 from __future__ import annotations
 
 import json
 import os
+import threading
 import time
 from typing import Dict, Optional
 
@@ -112,46 +113,34 @@ def reset_dumps() -> None:
     _dumps.reset()
 
 
-class Timers:
-    """Accumulating wall-clock timers keyed by stage name.
+class Counters:
+    """Process-wide event counts by name: the bytes the long-GOP encoder
+    copies to and from the card and kernel #1's launches.  Always on;
+    each event is one add under the lock, since GOP shards encode on
+    several threads.
 
-    with timers.span("entropy"): ...    accumulates into totals["entropy"]
+    counters.add("upload_bytes", n)      adds n to the count
+    counters.snapshot()                  {name: count}, a copy
     """
 
     def __init__(self):
-        self.totals: Dict[str, float] = {}
-        self.counts: Dict[str, int] = {}
+        self._lock = threading.Lock()
+        self._counts: Dict[str, int] = {}
 
-    def add(self, name: str, seconds: float) -> None:
-        self.totals[name] = self.totals.get(name, 0.0) + seconds
-        self.counts[name] = self.counts.get(name, 0) + 1
+    def add(self, name: str, n: int = 1) -> None:
+        with self._lock:
+            self._counts[name] = self._counts.get(name, 0) + n
 
-    def span(self, name: str):
-        return _Span(self, name)
-
-    def reset(self) -> None:
-        self.totals.clear()
-        self.counts.clear()
-
-    def report(self) -> str:
-        return " ".join("%s=%.3fs/%d" % (k, v, self.counts[k])
-                        for k, v in sorted(self.totals.items()))
+    def snapshot(self) -> Dict[str, int]:
+        with self._lock:
+            return dict(self._counts)
 
 
-class _Span:
-    def __init__(self, timers: Timers, name: str):
-        self._t = timers
-        self._name = name
-
-    def __enter__(self):
-        self._t0 = time.perf_counter()
-        return self
-
-    def __exit__(self, *exc):
-        self._t.add(self._name, time.perf_counter() - self._t0)
-        return False
-
-
-# process-wide stage timers used by the encoder hot path; cheap enough to
-# stay always-on (two perf_counter calls per frame per stage)
-timers = Timers()
+# upload_bytes: the long-GOP encoder's source pictures copied to the card
+# (`pipeline.upload_picture`); fetch_bytes: what its coding fetches back
+# (`pipeline.to_host`: the coded wire, the stat tables, the MD5 and PSNR
+# pictures); the prefilter's round trip is not counted.  Read by
+# `profile_slice`, which prints both and me_search_launches per frame;
+# me_search_launches and me_probe_launches (`ops/patch_refine`) also by
+# chip_smoke's and bench.py's launch gates.
+counters = Counters()

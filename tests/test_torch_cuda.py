@@ -60,9 +60,9 @@ def _case(rad, bs, flat, dev, nby=5, nbx=7, bound=24, scale=1,
 
 
 def _assert_kernel_equals_plain(args):
-    before = pr.LAUNCHES
+    before = pr.launches()
     got = pr.me_search(*args)
-    assert pr.LAUNCHES == before + 1
+    assert pr.launches() == before + 1
     want = pr.me_search_plain(*args)
     torch.cuda.synchronize()
     for g, w in zip(got, want):
@@ -162,10 +162,10 @@ def test_patch_refine_rejects_bad_inputs(cuda_device):
 def test_small_stream_on_card_equals_cpu(cuda_device):
     frames = make_frames(4, 128, 64)
     vf = video_format(128, 64)
-    before = pr.LAUNCHES
+    before = pr.launches()
     s_gpu = GopEncoder(vf, device=cuda_device,
                        **CONFIG).encode_stream(frames)
-    assert pr.LAUNCHES > before
+    assert pr.launches() > before
     s_cpu = GopEncoder(vf, device="cpu", **CONFIG).encode_stream(frames)
     assert s_gpu == s_cpu
     dec = StreamDecoder(device=cuda_device)
@@ -179,14 +179,14 @@ def test_probe_full_variant_matches_plain(cuda_device, bs):
     """Of the probe's four variants only `full` computes the search: it
     equals the plain version; the others launch and are counted."""
     args = _case(2, bs, False, cuda_device, scale=2, parent=(3, 4))
-    before = pr.PROBE_LAUNCHES
+    before = pr.probe_launches()
     got = pr.me_search_probe("full", *args)
     want = pr.me_search_plain(*args)
     for variant in pr.PROBE_VARIANTS[1:]:
         outs = pr.me_search_probe(variant, *args)
         assert all(o.shape == w.shape for o, w in zip(outs, want))
     torch.cuda.synchronize()
-    assert pr.PROBE_LAUNCHES == before + 4
+    assert pr.probe_launches() == before + 4
     for g, w in zip(got, want):
         assert torch.equal(g, w)
     with pytest.raises(ValueError):
@@ -215,14 +215,14 @@ def test_small_flagship_stream_on_card_within_bands_of_cpu(
     frames = make_frames(9, w, h)
     vf = video_format(w, h)
     cfg = dict(CONFIG_FLAGSHIP, bitrate=rate, buffer_level=level)
-    before = pr.LAUNCHES
+    before = pr.launches()
     e_gpu = GopEncoder(vf, **cfg)                            # device=None
     s_gpu = e_gpu.encode_stream(frames)
     # I, one-reference P, 3 B, two-reference P, 3 B; 128x64 has a
     # 3-level pyramid, so levels + 2 = 5 searches per reference
-    assert pr.LAUNCHES > before
+    assert pr.launches() > before
     if launches is not None:
-        assert pr.LAUNCHES - before == launches
+        assert pr.launches() - before == launches
     e_cpu = GopEncoder(vf, device="cpu", **cfg)
     s_cpu = e_cpu.encode_stream(frames)
     for enc in (e_gpu, e_cpu):
@@ -251,11 +251,11 @@ def test_small_b_batch_stream_on_card_within_bands_of_cpu(cuda_device):
     frames = make_frames(9, 128, 64)
     vf = video_format(128, 64)
     cfg = dict(CONFIG_BENCH, bitrate=500_000)
-    before = pr.LAUNCHES
+    before = pr.launches()
     s_gpu = GopEncoder(vf, **cfg).encode_stream(frames)
     # I, one-reference P, a batch of 3 B, two-reference P, a batch of 3 B;
     # 5 searches per reference at 128x64
-    assert pr.LAUNCHES - before == 5 * (1 + 2 + 2 + 2)
+    assert pr.launches() - before == 5 * (1 + 2 + 2 + 2)
     s_cpu = GopEncoder(vf, device="cpu", **cfg).encode_stream(frames)
     psnrs = []
     for stream, device in ((s_gpu, None), (s_cpu, "cpu")):

@@ -77,10 +77,10 @@ def test_patch_refine_plain_matches_jax_and_pallas(rad, bs, flat):
 
     # the hints as a field at the block grid's own size, scale 1
     field = torch.as_tensor(np.stack([mv_y, mv_x], -1))
-    before = pr.LAUNCHES
+    before = pr.launches()
     mv, ts = pr.me_search(torch.as_tensor(cur), torch.as_tensor(ref), field,
                           1, bs, bs, rad, bound, margin)
-    assert pr.LAUNCHES == before          # CPU tensors: plain version
+    assert pr.launches() == before          # CPU tensors: plain version
     ty, tx = mv[..., 0], mv[..., 1]
     for t, e, g, name in ((ts, es, gs, "sad"), (ty, ey, gy, "dy"),
                           (tx, ex, gx, "dx")):
@@ -218,11 +218,11 @@ def test_me_search_modes_match_jax(mode, flat):
     the JAX ME it replaces; the refine also equals the Pallas kernel."""
     cur, ref, field, scale, nby, nbx, bs, rad, bound, margin = _mode_case(
         mode, flat)
-    before = pr.LAUNCHES
+    before = pr.launches()
     mv, sad = pr.me_search(torch.as_tensor(cur), torch.as_tensor(ref),
                            None if field is None else torch.as_tensor(field),
                            scale, bs, bs, rad, bound, margin)
-    assert pr.LAUNCHES == before          # CPU tensors: plain version
+    assert pr.launches() == before          # CPU tensors: plain version
     jc, jr = jnp.asarray(cur), jnp.asarray(ref)
     jcb = j_me._to_blocks(jc.astype(jnp.int32), nby, bs, nbx, bs)
     jP = j_me._pad_ref(jr, margin)
@@ -283,10 +283,10 @@ def test_me_body_whole(levels, w, h):
     # the JAX side runs eagerly: compiling it costs more than it saves here
     jfn = j_me.make_me_body(h, w, BSEP, BSEP, xnb, ynb, levels=levels)
     tfn = t_me.make_me_body(h, w, BSEP, BSEP, xnb, ynb, levels=levels)
-    before = pr.LAUNCHES
+    before = pr.launches()
     jy, jx, js = jfn(jnp.asarray(cur), jnp.asarray(ref))
     ty, tx, ts = tfn(torch.as_tensor(cur), torch.as_tensor(ref))
-    assert pr.LAUNCHES == before          # CPU tensors: plain version
+    assert pr.launches() == before          # CPU tensors: plain version
     _eq(ty, jy)
     _eq(tx, jx)
     _eq(ts, js)

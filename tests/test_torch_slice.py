@@ -217,9 +217,10 @@ def test_e_convert_roundtrip_seeds_inter_step(frames):
     p = enc._params(1)
     ju, jrec, *_ = j_inter.encode_inter_picture(frames[1], p, 1, 0, jref,
                                                 base_qi=20, retired=0)
-    tu, trec, *_ = t_inter.encode_inter_picture(frames[1], p, 1, 0, tref,
-                                                base_qi=20, retired=0,
-                                                device="cpu")
+    pend = t_inter.start_inter_picture(frames[1], p, tref, base_qi=20,
+                                       device="cpu")
+    tu, _ = t_inter.finish_inter_picture(pend, 1, 0, retired=0)
+    trec = pend["recon"]
     assert tu == ju
     for a, b in zip(trec, jrec):
         np.testing.assert_array_equal(a.numpy(), np.asarray(b))
