@@ -5,8 +5,9 @@
 Phases (each prints lines; any failure ends the run with a non-zero exit
 and no result line):
   0. the card's name and power limit (nvidia-smi); no CUDA -> fail
-  1. build the ME search kernel (with its probe variants) from csrc/ with
-     nvcc, and the C++ entropy coder with g++
+  1. build the kernel library from csrc/ with nvcc (the ME search kernel
+     with its probe variants, the stat tables kernel), and the C++
+     entropy coder with g++
   2. kernel == plain version (torch.equal) at the seven 1080p launch
      shapes of one reference (coarse scan, four hint refines, median and
      zero SAD), on random planes, on a flat all-tie plane, with hints at
@@ -55,8 +56,11 @@ and no result line):
      batches unless a scene cut fires); api.Decoder (pipelined) and
      StreamDecoder give equal planes, every I and P picture decodes to the
      encoder's reconstruction (torch.equal), luma PSNR >= 30 dB on every
-     frame, bytes within 0.1x-4x of the pro-rata 2,000,000; encode and
-     both decoders' frames/s
+     frame, bytes within 0.1x-4x of the pro-rata 2,000,000; the stat
+     tables kernel launched once per call of the tables the clip implies
+     (each I picture, the TM5 seed, each P picture, each batch of B
+     pictures and each B picture coded alone); encode and both decoders'
+     frames/s
   9. smoke-1080p-api-default: api.Encoder(vf, EncoderConfig()) (constant
      quality, pipeline depth 8, full-pel MVs, DD9,7 inter) on 13 frames,
      api.Decoder, with the checks of phase 8 but the byte range
@@ -220,10 +224,18 @@ luma PSNR >= 30 dB, bytes within 0.1x-4x of the pro-rata share, kernel
      tests/test_torch_wavelet_settings.py (96x80, 3 frames each on the
      backref engine, all seven wavelets) and its main intra stream, each
      on the card equal to the CPU encode byte for byte
+ 37. the stat tables kernel (run after phase 6): at the 1080p 4:2:0
+     shapes of the main path, an inter picture and a batch of three
+     (int16) and an intra picture's estimate (int32), the kernel's magnitude bits and nonzero counts equal the plain sums on
+     the card, its error sums within 1e-12 relative, two launches the
+     same bits, one launch counted per call; each timed on the device
+     alone (CUDA-graph replay) and from Python, the plain version from
+     Python, beside the least time the card could take
 The last two lines are the nvidia-smi line and
 {"ok": true, "device": {...}}; the kernel summary JSON comes before them
-(with the launches of phases 23, 24, 27-30 and 32-35 and the field and
-2160p launch shapes).
+(with the launches of phases 23, 24, 27-30 and 32-35, the field and
+2160p launch shapes, phase 37's times and the stat tables kernel's
+launches in phase 8's encode, `stat_table_launches`).
 """
 import argparse
 import dataclasses
@@ -256,7 +268,9 @@ from schroedinger_tpu_torch.encoder import gop as gop_mod
 from schroedinger_tpu_torch.encoder import me as me_mod
 from schroedinger_tpu_torch.encoder.gop import GopEncoder
 from schroedinger_tpu_torch.frontends import weave_fields
+from schroedinger_tpu_torch.ops import cuda_build
 from schroedinger_tpu_torch.ops import patch_refine as pr
+from schroedinger_tpu_torch.ops import stat_tables as st
 from schroedinger_tpu_torch.parallel import gops, group
 from schroedinger_tpu_torch.pipeline import planes_to_device
 from schroedinger_tpu_torch.tools.schro_tpu import encoder_config
@@ -271,18 +285,13 @@ from schroedinger_tpu_torch.slice_config import (CONFIG, CONFIG_BENCH,
 from schroedinger_tpu_torch.tools import bench_4k, bench_breadth, bench_rd
 from schroedinger_tpu_torch.tools import multihost_worker as mw
 from schroedinger_tpu_torch.tools import profile_patch_refine as probe_tool
-from schroedinger_tpu_torch.tools.profile_patch_refine import (gpu_line,
-                                                               graph_ms,
-                                                               time_ms)
+from schroedinger_tpu_torch.tools import profile_stat_tables as pst
+from schroedinger_tpu_torch.tools.profile_patch_refine import (
+    ALU_OPS_PER_S, HBM_BYTES_PER_S, gpu_line, graph_ms, time_ms)
 
 # searches per reference of a 1080p inter picture: the coarse scan, four
 # hint refines (5-level pyramid), the median and the zero SAD
 LAUNCHES_PER_REF = 5 + 2
-# the card's published peaks (NVIDIA H100 SXM data sheet): device memory
-# rate, and the float32 rate outside the tensor cores, which stands in for
-# the integer units' rate (the data sheet gives none; theirs is not higher)
-HBM_BYTES_PER_S = 3.35e12
-ALU_OPS_PER_S = 67e12
 
 
 def refine_bound_ms(args):
@@ -790,6 +799,18 @@ def phase_batch_kernel(card):
             "bound_ms_n3": b3, "batch_shapes": shapes}
 
 
+def phase_stat_tables(card):
+    """Phase 37: the stat tables kernel == plain at the main path's 1080p
+    shapes (inter N = 1 and N = 3, intra), each timed beside its bound;
+    returns
+    {shape: {"device_ms", "python_ms", "plain_ms", "bound_ms", "rel"}}."""
+    dev = torch.device("cuda")
+    out = {}
+    for name in pst.MAIN_SHAPES:
+        out[name] = pst.profile_shape(name, dev, card)
+    return out
+
+
 def check_two_decoders(stream, frames, made, card, what, peak=255.0):
     """api.Decoder (pipelined) and StreamDecoder on the card, timed in
     turns (pipelined, per-picture, per-picture, pipelined), held to the
@@ -850,14 +871,23 @@ def phase_bench_headline(card):
     enc = GopEncoder(vf, **CONFIG_BENCH)
     seen = record_batches(enc)
     made = record_refs(enc)
+    seeds = []
+    seed_rc = enc._seed_rc_from_intra
+
+    def counted_seed(*args):
+        seeds.append(args)
+        return seed_rc(*args)
+    enc._seed_rc_from_intra = counted_seed
     ticks = []
     launches0 = pr.launches()
+    tables0 = st.launches()
     t0 = time.perf_counter()
     stream = enc.encode_stream(frames, progress=lambda i, n: ticks.append(
         (i, n)))
     torch.cuda.synchronize()
     t_enc = time.perf_counter() - t0
     launches = pr.launches() - launches0
+    tables = st.launches() - tables0
 
     n_i, n_p, n_b = picture_mix(stream)
     batches = [s for s in seen if s[1]]
@@ -877,6 +907,17 @@ def phase_bench_headline(card):
                              f"{2 * LAUNCHES_PER_REF} launches")
     if len(ticks) != N or ticks[-1][0] != N - 1:
         raise AssertionError(f"phase8: progress called {len(ticks)} times")
+    # one call of the stat tables per I picture and TM5 seed, per P
+    # picture, per batch of B pictures and per B picture coded alone
+    n_batched = sum(len(s[0]) for s in batches)
+    want_tables = n_i + len(seeds) + n_p + len(batches) + n_b - n_batched
+    print(f"phase8 stat tables kernel launches {tables}, calls implied "
+          f"{want_tables} ({n_i} I + {len(seeds)} seed + {n_p} P + "
+          f"{len(batches)} batches + {n_b - n_batched} B alone)", flush=True)
+    if tables != want_tables:
+        raise AssertionError(f"phase8: the stat tables kernel launched "
+                             f"{tables} times, the clip implies "
+                             f"{want_tables}")
     vals, fps_pipe, fps_base = check_two_decoders(stream, frames, made, card,
                                                   "phase8")
     share = N * CONFIG_BENCH["bitrate"] / CONFIG_BENCH["fps"] / 8
@@ -892,7 +933,7 @@ def phase_bench_headline(card):
           f"[{card}]", flush=True)
     return {"launches": launches,
             "batch_launches": sum(s[2] for s in batches),
-            "batches": len(batches)}
+            "batches": len(batches), "stat_table_launches": tables}
 
 
 def phase_api_default(card):
@@ -2472,15 +2513,17 @@ def main() -> int:
           f"device {torch.cuda.get_device_name(0)}", flush=True)
 
     t_start = time.perf_counter()
-    secs = pr.build()
-    print(f"phase1 built {pr.LIBRARY} in {secs:.2f} s", flush=True)
-    for line in pr.BUILD_LOG.splitlines():
-        if "registers" in line or "spill" in line or "smem" in line:
+    secs = cuda_build.build()
+    print(f"phase1 built {cuda_build.LIBRARY} in {secs:.2f} s", flush=True)
+    for line in cuda_build.BUILD_LOG.splitlines():
+        if ("registers" in line or "spill" in line or "smem" in line
+                or "Compiling entry" in line):
             print(f"phase1 ptxas: {line.strip()}", flush=True)
     print(f"phase1 built {coder.build()}", flush=True)
 
     entry = phase_kernel(card)
     entry.update(phase_batch_kernel(card))
+    entry["stat_tables"] = phase_stat_tables(card)
     entry["launches_backref"] = phase_backref(card)
     probe_entry = phase_probe(card)
     entry["launches_flagship"] = phase_flagship(card)

@@ -2,7 +2,9 @@
 
 Port of `schroedinger_tpu/encoder/ratecontrol.py`.  The 61-way
 per-(component, band) (bits, error) tables and the RD pick with its lambda
-fit are torch and run on the device of their input; `CbrControllerTM5`,
+fit run on the device of their input: the tables' sums in a hand-written
+kernel on the card (`ops/stat_tables.py`), in plain torch on the CPU
+(`band_counts_plain`); `CbrControllerTM5`,
 `CbrController` (the allocation controller of `rdo_cbr=False`),
 `ArithCorrection`, the host picks and `QuantiserEngine` are numpy code
 copied line for line, so that the same bit counts give the same float64
@@ -23,6 +25,7 @@ import numpy as np
 import torch
 
 from schroedinger_tpu_torch import tables
+from schroedinger_tpu_torch.ops import stat_tables
 from schroedinger_tpu_torch.params import Params, subband_count
 from schroedinger_tpu_torch.pipeline import to_host
 
@@ -40,13 +43,20 @@ def _sint_bits(v):
     return 2 * n - 1 + (m != 0).to(torch.int32)
 
 
+def integral_power(error_power: float):
+    """The integral power 1-16 that error_metric multiplies out, or None
+    for a power it raises with `**`."""
+    ip = int(round(error_power))
+    return ip if abs(error_power - ip) < 1e-9 and 1 <= ip <= 16 else None
+
+
 def error_metric(ad, error_power: float):
     """|orig - dequant| ** error_power (error_pow, schroquantiser.c:477-507;
     default power 4) as a square-and-multiply chain for integral powers,
     in the order the JAX package multiplies, so the float32 terms are the
     same bits."""
-    ip = int(round(error_power))
-    if abs(error_power - ip) < 1e-9 and 1 <= ip <= 16:
+    ip = integral_power(error_power)
+    if ip is not None:
         out = None
         sq = ad
         n = ip
@@ -104,14 +114,27 @@ def band_counts(allflat, bounds, ncol: int, intra: bool,
     exact), nonzero count (int64, exact) and error (float64 sum of the
     float32 terms |orig - dequant| ** error_power).
 
-    allflat: flat int32 coefficient vector, or (N, n) for N pictures,
-    which gives (N, 61, ncol) sums, each row summed as its picture alone
-    would be; bounds: [(column, lo, hi)] static slices of it.  The pass
-    over the quant indices holds about _TABLE_ELEMS elements per picture
-    and temporary."""
+    allflat: flat int coefficient vector, or (N, n) for N pictures, which
+    gives (N, 61, ncol) sums, each row summed as its picture alone would
+    be; bounds: [(column, lo, hi)] static slices of it.  A CUDA tensor
+    (int16 or int32) goes to the hand-written kernel
+    (`ops/stat_tables.py`), which launches or raises; any other tensor to
+    band_counts_plain."""
     if allflat.ndim == 1:
         return tuple(t[0] for t in band_counts(allflat[None], bounds, ncol,
                                                  intra, error_power))
+    if allflat.device.type == "cuda":
+        return stat_tables.band_counts(allflat, bounds, ncol, intra,
+                                       error_power,
+                                       integral_power(error_power))
+    return band_counts_plain(allflat, bounds, ncol, intra, error_power)
+
+
+def band_counts_plain(allflat, bounds, ncol: int, intra: bool,
+                      error_power: float = 4.0):
+    """band_counts of an (N, n) tensor in plain PyTorch, on any device:
+    the reference of the kernel.  The pass over the quant indices holds
+    about _TABLE_ELEMS elements per picture and temporary."""
     dev = allflat.device
     N, n = allflat.shape
     QF, QO = _quant_tables(dev, intra)
@@ -146,10 +169,7 @@ def band_tables(allflat, bounds, ncol: int, intra: bool,
     zero/nonzero flags of the whole column cost their first-order binary
     entropy."""
     mag, nz, err = band_counts(allflat, bounds, ncol, intra, error_power)
-    nvec = np.zeros(ncol, np.float32)
-    for col, lo, hi in bounds:
-        nvec[col] += hi - lo
-    nvec = torch.as_tensor(nvec, device=allflat.device)
+    nvec = stat_tables.column_sizes(bounds, ncol, allflat.device)
     nzf = nz.to(torch.float32)
     p1 = (nzf / nvec).clamp(1e-6, 1.0 - 1e-6)
     flag = -(nzf * torch.log2(p1) + (nvec - nzf) * torch.log2(1.0 - p1))

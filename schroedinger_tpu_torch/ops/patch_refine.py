@@ -3,7 +3,8 @@
 `me_search` is the entry point.  On CUDA tensors it launches the
 hand-written kernel `csrc/patch_refine.cu` (the port of the Pallas kernel
 `schroedinger_tpu/ops/pallas_me.py:71 make_patch_refine`), built with nvcc
-at first use into `build/schroedinger_tpu_torch/` and bound with ctypes.
+at first use into `build/schroedinger_tpu_torch/` and bound with ctypes
+(`ops/cuda_build.py`).
 On CPU tensors it runs `me_search_plain`, the plain PyTorch version,
 composed of the hint upsample, the block split, the edge-padded reference
 and `patch_refine_plain` (the port of `schroedinger_tpu/encoder/me.py
@@ -37,103 +38,20 @@ launches.
 """
 from __future__ import annotations
 
-import ctypes
-import hashlib
 import os
-import shutil
-import subprocess
-import threading
-import time
 
 import torch
 
+from schroedinger_tpu_torch.ops import cuda_build
 from schroedinger_tpu_torch.ops.obmc import _round8, extract_patches
 from schroedinger_tpu_torch.ops.pad import pad_edge
 from schroedinger_tpu_torch.utils.telemetry import counters
 
-_HERE = os.path.dirname(os.path.abspath(__file__))
-_PKG = os.path.dirname(_HERE)
-CSRC = os.path.join(_PKG, "csrc")
-SOURCE = os.path.join(CSRC, "patch_refine.cu")
-BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build",
-                         "schroedinger_tpu_torch")
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-O3",
-              "-std=c++17", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+SOURCE = os.path.join(cuda_build.CSRC, "patch_refine.cu")
 
 # the probe's variants, by their number in the source; only "full" gives
 # right answers
 PROBE_VARIANTS = ("full", "nostage", "nosad", "onewindow")
-BUILD_LOG = ""      # nvcc's output of the last build (ptxas usage lines)
-LIBRARY = None      # path of the built library, set by build()
-
-_lib = None
-# guards the build and load of the library: the ME runs on several
-# threads when GOP shards encode at once
-_LOCK = threading.Lock()
-
-
-def _nvcc():
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    default = "/usr/local/cuda/bin/nvcc"
-    if os.path.exists(default):
-        return default
-    raise RuntimeError("nvcc not found: the ME search kernel is built "
-                       "with the CUDA toolkit")
-
-
-def _sources():
-    """Every file the build compiles or includes: the .cu and the headers
-    beside it in csrc/, sorted by name."""
-    return sorted(os.path.join(CSRC, n) for n in os.listdir(CSRC)
-                  if n.endswith((".cu", ".cuh", ".h")))
-
-
-def build() -> float:
-    """Compile the kernel library unless it is built already.  The file
-    name carries a hash of every source and header in csrc/, NVCC_FLAGS
-    and nvcc's version, so a change to any of them builds anew.  Sets
-    LIBRARY; returns the seconds spent compiling (0.0 when up to date)."""
-    global BUILD_LOG, LIBRARY
-    nvcc = _nvcc()
-    version = subprocess.run([nvcc, "--version"], capture_output=True,
-                             text=True, check=True).stdout
-    key = hashlib.sha256()
-    for path in _sources():
-        key.update(os.path.basename(path).encode() + b"\0")
-        with open(path, "rb") as f:
-            key.update(f.read())
-    key.update("\0".join([*NVCC_FLAGS, version]).encode())
-    LIBRARY = os.path.join(BUILD_DIR,
-                           f"libpatch_refine-{key.hexdigest()[:16]}.so")
-    if os.path.exists(LIBRARY):
-        return 0.0
-    os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{LIBRARY}.{os.getpid()}.tmp"
-    t0 = time.perf_counter()
-    res = subprocess.run([nvcc, *NVCC_FLAGS, "-o", tmp, SOURCE],
-                         capture_output=True, text=True)
-    BUILD_LOG = res.stdout + res.stderr
-    if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed on {SOURCE}:\n{BUILD_LOG}")
-    os.replace(tmp, LIBRARY)
-    return time.perf_counter() - t0
-
-
-def _load():
-    global _lib
-    if _lib is None:                  # checked again under the lock
-        with _LOCK:
-            if _lib is None:
-                build()
-                lib = ctypes.CDLL(LIBRARY)
-                vp, ci = ctypes.c_void_p, ctypes.c_int
-                lib.me_search_launch.argtypes = ([ci, ci] + [vp] * 4
-                                                 + [ci] * 10 + [vp])
-                lib.me_search_launch.restype = ci
-                _lib = lib
-    return _lib
 
 
 def to_blocks(c, nby, bs_y, nbx, bs_x):
@@ -276,7 +194,7 @@ def _launch(variant, cur, ref, field, scale, bs_y, bs_x, rad, bound,
     nby, nbx = h // bs_y, w // bs_x
     nb = nby * nbx
     out = torch.empty(3 * n * nb, dtype=torch.int32, device=dev)
-    err = _load().me_search_launch(
+    err = cuda_build.load().me_search_launch(
         variant, n, cur.data_ptr(), ref.data_ptr(),
         None if field is None else field.data_ptr(), out.data_ptr(), h, w,
         hy, hx, scale, bs_y, bs_x, rad, bound, margin,

@@ -43,8 +43,9 @@ device events each launched, and the top kernels (not aten ops) by device time. 
 the encode it also prints the device's idle time by the innermost span
 open on the host (`profile.encode_stream`: no span of the port), and per
 frame the bytes copied to and from the card (the counters `upload_bytes`
-and `fetch_bytes`) and kernel #1's launches.  Writes a Chrome trace of
-the encode to DIR.
+and `fetch_bytes`) and kernel #1's launches, and the stat tables
+kernel's launches (`stat_table_launches`) beside the `stat_tables` spans
+entered.  Writes a Chrome trace of the encode to DIR.
 """
 from __future__ import annotations
 
@@ -108,8 +109,9 @@ STAGE_SPANS = ("me_pass", "phasecorr", "rd_split", "render", "stat_tables",
 ENCODE_SPAN = "profile.encode_stream"
 
 _CUDA = torch.autograd.DeviceType.CUDA
-# the port's own kernels (csrc/patch_refine.cu)
-OWN_KERNELS = ("me_rows_kernel", "me_cands_kernel")
+# the port's own kernels (csrc/patch_refine.cu, csrc/stat_tables.cu)
+OWN_KERNELS = ("me_rows_kernel", "me_cands_kernel", "stat_tables_partials",
+               "stat_tables_reduce")
 
 
 def _device_busy_us(prof):
@@ -287,6 +289,12 @@ def main() -> int:
           f" MB, kernel #1 launched "
           f"{counted.get('me_search_launches', 0) / len(frames):.2f} times",
           flush=True)
+    spans = sum(k.count for k in prof.key_averages()
+                if k.key == "stat_tables" and k.device_type != _CUDA)
+    print(f"encode: the stat tables kernel launched "
+          f"{counted.get('stat_table_launches', 0)} times "
+          f"({counted.get('stat_table_launches', 0) / len(frames):.2f} per "
+          f"frame) under {spans} stat_tables spans", flush=True)
     if a.config == "lowdelay":
         # the fetch and the packing run on the encoder's worker thread,
         # whose spans the profiler does not record

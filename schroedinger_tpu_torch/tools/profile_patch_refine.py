@@ -33,6 +33,7 @@ import numpy as np
 import torch
 
 from schroedinger_tpu_torch.encoder import me as me_mod
+from schroedinger_tpu_torch.ops import cuda_build
 from schroedinger_tpu_torch.ops import patch_refine as pr
 
 COARSE_RADIUS = 8                           # make_me_body's at 1080p
@@ -52,6 +53,11 @@ REFINE_SHAPES = [
     ("level 0 zero", 68, 120, 16, 0, 0, None)]
 HINT_BOUND = 120
 ITERS, WARMUPS = 20, 3
+# the card's published peaks (NVIDIA H100 SXM data sheet): device memory
+# rate, and the float32 rate outside the tensor cores, which stands in for
+# the integer units' rate (the data sheet gives none; theirs is not higher)
+HBM_BYTES_PER_S = 3.35e12
+ALU_OPS_PER_S = 67e12
 
 
 def gpu_line() -> str:
@@ -191,7 +197,7 @@ def main() -> int:
         raise RuntimeError("the ME search cost probe needs an NVIDIA GPU")
     card = gpu_line()
     dev = torch.device("cuda")
-    pr.build()
+    cuda_build.build()
     for shape in [PROBE_SHAPE] + REFINE_SHAPES:
         eager, device = probe(shape, dev)
         for v in pr.PROBE_VARIANTS:

@@ -115,9 +115,9 @@ def reset_dumps() -> None:
 
 class Counters:
     """Process-wide event counts by name: the bytes the long-GOP encoder
-    copies to and from the card and kernel #1's launches.  Always on;
-    each event is one add under the lock, since GOP shards encode on
-    several threads.
+    copies to and from the card and the hand-written kernels' launches.
+    Always on; each event is one add under the lock, since GOP shards
+    encode on several threads.
 
     counters.add("upload_bytes", n)      adds n to the count
     counters.snapshot()                  {name: count}, a copy
@@ -142,5 +142,8 @@ class Counters:
 # pictures); the prefilter's round trip is not counted.  Read by
 # `profile_slice`, which prints both and me_search_launches per frame;
 # me_search_launches and me_probe_launches (`ops/patch_refine`) also by
-# chip_smoke's and bench.py's launch gates.
+# chip_smoke's and bench.py's launch gates.  stat_table_launches: the
+# calls of the stat tables kernel (`ops/stat_tables`), which
+# `profile_slice` prints beside the `stat_tables` spans and chip_smoke
+# reports.
 counters = Counters()

@@ -2,7 +2,9 @@
 
 The ME search CUDA kernel (every shape and mode the ME launches, one
 picture and a batch) and its cost probe against the plain PyTorch
-version, small streams of the slices encoded on the card against the CPU
+version, the stat tables kernel against the plain sums (the main path's
+shapes, every error power, its determinism, its counter and its
+refusals), small streams of the slices encoded on the card against the CPU
 encode (every long-GOP rate control among them), the multiquant sums'
 float32 order on the card against the CPU, the pipelined decoder against
 the per-picture one, interlaced streams and the telemetry overlay on the
@@ -13,6 +15,8 @@ imports no JAX, so it also runs where only PyTorch is installed:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py -q
 """
+from types import SimpleNamespace
+
 import numpy as np
 import pytest
 import torch
@@ -21,11 +25,14 @@ from schroedinger_tpu_torch import api
 from schroedinger_tpu_torch.decoder.core import StreamDecoder
 from schroedinger_tpu_torch.decoder.pipeline import PipelinedStreamDecoder
 from schroedinger_tpu_torch.encoder import me as me_mod
+from schroedinger_tpu_torch.encoder import ratecontrol as rc
 from schroedinger_tpu_torch.encoder.gop import GopEncoder
 from schroedinger_tpu_torch.ops import patch_refine as pr
+from schroedinger_tpu_torch.ops import stat_tables as st
 from schroedinger_tpu_torch.slice_config import (CONFIG, CONFIG_BENCH,
                                                  CONFIG_FLAGSHIP,
                                                  make_frames, video_format)
+from schroedinger_tpu_torch.tools import profile_stat_tables as pst
 
 
 @pytest.fixture
@@ -156,6 +163,107 @@ def test_patch_refine_rejects_bad_inputs(cuda_device):
     bad_align[0] = buf[8:8 + args[0].numel()].view(args[0].shape)
     with pytest.raises(ValueError):                 # not 16-byte aligned
         pr.me_search(*bad_align)
+
+
+def _stat_case(name, dev, seed=0, peak=None, dtype=None):
+    planes, depth, N, dt, intra = pst.SHAPES[name]
+    bounds, n, ncol = pst.band_bounds(planes, depth)
+    flat = pst.make_coeffs(bounds, depth, n, N, seed, dtype or dt, intra,
+                           peak)
+    return flat.to(dev), bounds, ncol, intra
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["1080p inter N=1", "1080p inter N=3",
+                                  "1080p intra", "1080i field N=3"])
+def test_stat_tables_kernel_matches_plain(cuda_device, name):
+    """The kernel at the main path's shapes (a 1080p inter picture, a
+    batch of three, the intra picture with band 0 as first differences,
+    a batch of three 1080i fields): magnitude bits and nonzero counts
+    equal to the plain sums on the card, the error within 1e-12
+    relative (float64 order), two launches the same bits, one launch
+    counted per call (`pst.check`)."""
+    flat, bounds, ncol, intra = _stat_case(name, cuda_device, seed=5)
+    pst.check(flat, bounds, ncol, intra)
+
+
+@pytest.mark.cuda
+def test_stat_tables_kernel_deep_intra_and_odd_slices(cuda_device):
+    """Deep intra coefficients (int32 up to 2^20, 10-bit 720p 4:2:2), a
+    flat vector of one picture, and overlapping and repeated slices
+    whose starts are not 16-byte aligned: the kernel equals the plain
+    sums."""
+    planes = ((720, 1280), (720, 640), (720, 640))
+    bounds, n, ncol = pst.band_bounds(planes, 3)
+    flat = pst.make_coeffs(bounds, 3, n, 1, 9, torch.int32, True,
+                           peak=(1 << 20) - 1).to(cuda_device)
+    pst.check(flat[0], bounds, ncol, True)
+    odd = [(0, 0, 1000), (1, 1000, 1500), (2, 1500, 6000), (1, 0, 10),
+           (2, 3, 4100), (0, 4097, 4097), (3, 77, n - 5), (3, 1, 2)]
+    for dtype in (torch.int16, torch.int32):
+        pst.check(flat.clamp(-30000, 30000).to(dtype).repeat(2, 1), odd, 5,
+                  False)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("power", [1.0, 2.0, 4.0, 5.0, 2.5])
+def test_stat_tables_kernel_error_powers(cuda_device, power):
+    """Every error power: integral powers 1-16 make error_metric's float32
+    terms bit for bit, so the sums agree to 1e-12 (float64 order);
+    2.5 goes through powf in the kernel and PyTorch's pow in the plain
+    version, which may differ in a term's last float32 bit: 1e-6."""
+    flat, bounds, ncol, intra = _stat_case("1080p inter N=1", cuda_device,
+                                           seed=7)
+    rtol = pst.ERR_RTOL if rc.integral_power(power) else 1e-6
+    pst.check(flat, bounds, ncol, intra, power, rtol)
+    pst.check(flat.to(torch.int32), bounds, ncol, True, power, rtol)
+
+
+@pytest.mark.cuda
+def test_stat_tables_counter_counts_the_launches(cuda_device):
+    """stat_table_launches counts each call that launched the kernel (the
+    tables, the stats tables of a frame) and nothing else: not the plain
+    version, not a refused call."""
+    flat, bounds, ncol, intra = _stat_case("1080i field N=3", cuda_device)
+    before = st.launches()
+    rc.band_tables(flat, bounds, ncol, intra)
+    rc.band_counts(flat[0], bounds, ncol, intra)
+    rc.band_counts_plain(flat, bounds, ncol, intra)
+    with pytest.raises(TypeError):
+        rc.band_counts(flat.float(), bounds, ncol, intra)
+    lists = [[torch.ones((8, 8), dtype=torch.int16, device=cuda_device)
+              for _ in range(10)] for _ in range(3)]
+    rc.stats_tables(lists, SimpleNamespace(transform_depth=3), intra=True)
+    torch.cuda.synchronize()
+    assert st.launches() == before + 3
+
+
+@pytest.mark.cuda
+def test_stat_tables_kernel_refuses_bad_input(cuda_device):
+    """The wrapper raises on what the kernel does not take (types,
+    layout, device, shape, slices) and a CUDA tensor never reaches the
+    plain version."""
+    flat, bounds, ncol, intra = _stat_case("1080i field N=3", cuda_device)
+    before = st.launches()
+    for dtype in (torch.uint8, torch.int64, torch.float32):
+        with pytest.raises(TypeError):
+            rc.band_counts(flat.to(dtype), bounds, ncol, intra)
+    with pytest.raises(ValueError):                 # not contiguous
+        rc.band_counts(flat.t().contiguous().t(), bounds, ncol, intra)
+    buf = torch.zeros(flat.numel() + 8, dtype=flat.dtype,
+                      device=cuda_device)
+    with pytest.raises(ValueError):                 # not 16-byte aligned
+        rc.band_counts(buf[1:1 + flat.numel()].view(flat.shape), bounds,
+                       ncol, intra)
+    with pytest.raises(ValueError):                 # on the CPU
+        st.band_counts(flat.cpu(), bounds, ncol, intra, 4.0, 4)
+    with pytest.raises(ValueError):                 # (1, N, n)
+        st.band_counts(flat[None], bounds, ncol, intra, 4.0, 4)
+    n = flat.shape[1]
+    for bad in ([(0, 0, n + 1)], [(ncol, 0, 1)], [(0, 5, 4)], [(-1, 0, 1)]):
+        with pytest.raises(ValueError):
+            rc.band_counts(flat, bad, ncol, intra)
+    assert st.launches() == before
 
 
 @pytest.mark.cuda

@@ -29,7 +29,7 @@ from schroedinger_tpu_torch.coding import native
 from schroedinger_tpu_torch.decoder.core import StreamDecoder
 from schroedinger_tpu_torch.encoder import inter
 from schroedinger_tpu_torch.encoder.gop import GopEncoder
-from schroedinger_tpu_torch.ops import patch_refine as pr
+from schroedinger_tpu_torch.ops import cuda_build
 from schroedinger_tpu_torch.parallel import gops
 from schroedinger_tpu_torch.slice_config import video_format
 
@@ -244,12 +244,14 @@ def test_step_cache_builds_once_under_threads(monkeypatch):
 
 
 def test_kernel_loader_builds_and_loads_once_under_threads(monkeypatch):
-    """The ME kernel's library is built and loaded once however many
-    threads reach the loader first (nvcc and the library stand in)."""
+    """The kernel library (the ME search and the stat tables) is built and
+    loaded once however many threads reach the loader first (nvcc and the
+    library stand in), with every entry point's argument types set."""
     builds, loads = [], []
 
     class FakeLibrary:
         me_search_launch = type("Fn", (), {})()
+        stat_tables_launch = type("Fn", (), {})()
 
     def build():
         builds.append(1)
@@ -259,10 +261,12 @@ def test_kernel_loader_builds_and_loads_once_under_threads(monkeypatch):
     def load(path):
         loads.append(path)
         return FakeLibrary()
-    monkeypatch.setattr(pr, "_lib", None)
-    monkeypatch.setattr(pr, "build", build)
-    monkeypatch.setattr(pr, "LIBRARY", "libpatch_refine-test.so")
+    monkeypatch.setattr(cuda_build, "_lib", None)
+    monkeypatch.setattr(cuda_build, "build", build)
+    monkeypatch.setattr(cuda_build, "LIBRARY", "libkernels-test.so")
     monkeypatch.setattr(ctypes, "CDLL", load)
-    out = _hammer(pr._load)
-    assert len(builds) == 1 and loads == ["libpatch_refine-test.so"]
+    out = _hammer(cuda_build.load)
+    assert len(builds) == 1 and loads == ["libkernels-test.so"]
+    for name in cuda_build.SIGNATURES:
+        assert getattr(out[0], name).argtypes == cuda_build.SIGNATURES[name]
     assert all(o is out[0] for o in out)

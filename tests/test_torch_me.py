@@ -21,6 +21,7 @@ from schroedinger_tpu.encoder import me as j_me
 from schroedinger_tpu.ops import obmc as j_obmc
 from schroedinger_tpu.ops import pallas_me
 from schroedinger_tpu_torch.encoder import me as t_me
+from schroedinger_tpu_torch.ops import cuda_build
 from schroedinger_tpu_torch.ops import obmc as t_obmc
 from schroedinger_tpu_torch.ops import patch_refine as pr
 from schroedinger_tpu_torch.tools import profile_patch_refine as ppr
@@ -126,33 +127,33 @@ def test_patch_refine_rejects_other_devices():
 
 def test_kernel_build_keys_on_flags_and_toolkit(tmp_path, monkeypatch):
     """build() reuses a library only if sources, headers, flags and nvcc
-    match."""
+    match; it compiles every .cu file of csrc/ into the one library."""
     csrc = tmp_path / "csrc"
     csrc.mkdir()
     shutil.copy(pr.SOURCE, csrc)
-    monkeypatch.setattr(pr, "CSRC", str(csrc))
-    monkeypatch.setattr(pr, "SOURCE",
-                        str(csrc / os.path.basename(pr.SOURCE)))
+    monkeypatch.setattr(cuda_build, "CSRC", str(csrc))
     nvcc = tmp_path / "nvcc"
     calls = tmp_path / "calls"
     nvcc.write_text('#!/bin/sh\nif [ "$1" = --version ]; then '
                     'cat "$(dirname "$0")/version"; exit 0; fi\n'
                     'echo x >> "$(dirname "$0")/calls"\n'
-                    'while [ "$1" != -o ]; do shift; done; touch "$2"\n')
+                    'while [ "$1" != -o ]; do shift; done; touch "$2"\n'
+                    'shift 2; echo "$@" > "$(dirname "$0")/units"\n')
     nvcc.chmod(0o755)
     (tmp_path / "version").write_text("release 12.4\n")
-    monkeypatch.setattr(pr, "_nvcc", lambda: str(nvcc))
-    monkeypatch.setattr(pr, "BUILD_DIR", str(tmp_path / "build"))
-    monkeypatch.setattr(pr, "LIBRARY", None)
+    monkeypatch.setattr(cuda_build, "_nvcc", lambda: str(nvcc))
+    monkeypatch.setattr(cuda_build, "BUILD_DIR", str(tmp_path / "build"))
+    monkeypatch.setattr(cuda_build, "LIBRARY", None)
 
     def builds():
-        pr.build()
-        return pr.LIBRARY, len(calls.read_text().split())
+        cuda_build.build()
+        return cuda_build.LIBRARY, len(calls.read_text().split())
 
     first, n = builds()
     assert n == 1 and os.path.exists(first)
     assert builds() == (first, 1)                      # up to date
-    monkeypatch.setattr(pr, "NVCC_FLAGS", pr.NVCC_FLAGS + ["-lineinfo"])
+    monkeypatch.setattr(cuda_build, "NVCC_FLAGS",
+                        cuda_build.NVCC_FLAGS + ["-lineinfo"])
     second, n = builds()
     assert n == 2 and second != first
     (tmp_path / "version").write_text("release 12.8\n")
@@ -166,6 +167,12 @@ def test_kernel_build_keys_on_flags_and_toolkit(tmp_path, monkeypatch):
     (csrc / "search.cuh").write_text("// v2\n")
     fifth, n = builds()
     assert n == 5 and fifth not in (first, second, third, fourth)
+    # a second kernel's source goes into the same library, headers not
+    (csrc / "other.cu").write_text("// v1\n")
+    sixth, n = builds()
+    assert n == 6 and sixth not in (first, second, third, fourth, fifth)
+    assert (tmp_path / "units").read_text().split() == [
+        str(csrc / "other.cu"), str(csrc / "patch_refine.cu")]
 
 
 def test_dense_scan_matches_jax_and_refine_around_zero():

@@ -2,7 +2,9 @@
 with numpy-seeded inputs: the 61-way stat tables (integer parts exact, the
 float32 tables within a stated tolerance), the RD pick and lambda fit
 (exact on the JAX tables), the controllers and the host picks (exact: they
-are float64 numpy in both packages).
+are float64 numpy in both packages).  And the host side of the stat
+tables kernel (`ops/stat_tables.py`): its division constants, its tiles,
+and a numpy model of its arithmetic against the plain sums.
 """
 import numpy as np
 import pytest
@@ -23,6 +25,7 @@ from schroedinger_tpu_torch.encoder import gop as t_gop
 from schroedinger_tpu_torch.encoder import inter as t_inter
 from schroedinger_tpu_torch.encoder import intra as t_intra
 from schroedinger_tpu_torch.encoder import ratecontrol as t_rc
+from schroedinger_tpu_torch.ops import stat_tables as t_st
 from schroedinger_tpu_torch.slice_config import (CONFIG_FLAGSHIP,
                                                  make_frames, video_format)
 
@@ -146,6 +149,161 @@ def test_table_integer_parts_are_exact(intra):
     want = j_rc.bits_per_base(jnp.asarray(flat),
                               jnp.zeros(6000, jnp.int32), jnp.asarray(intra))
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+@pytest.mark.parametrize("intra", [True, False])
+def test_stat_table_division_constants_are_exact(intra):
+    """The kernel's magic multiplier and shift give floor((4|v| - qo +
+    qf/2) / qf) at every quant index for every |v| < 2^24 with 4|v| >= qo
+    (the rest are masked), checked by the remainder of every one; and
+    the sufficient condition of the constants holds for every numerator
+    below 2^27."""
+    tab = t_st.quant_constants(intra).astype(np.int64)
+    qf, qo, m, s = tab.T
+    np.testing.assert_array_equal(qf, j_tables.QUANT_FACTOR)
+    np.testing.assert_array_equal(qo, j_tables.QUANT_OFFSET_1_2 if intra
+                                  else j_tables.QUANT_OFFSET_3_8)
+    k = 32 + s
+    assert (m < 2 ** 31).all() and (m > 0).all()
+    assert ((m * qf - (1 << k)) >= 0).all()
+    assert (((1 << t_st.NUMERATOR_BITS) - 1) * (m * qf - (1 << k))
+            < (1 << k)).all()
+    chunk = 1 << 18
+    base = np.arange(chunk, dtype=np.int64) << 2
+    num = np.empty(chunk, np.int64)
+    rem = np.empty(chunk, np.int64)
+    for start in range(0, 1 << 24, chunk):
+        x = base + (start << 2)
+        for i in range(t_st.N_QUANT):
+            np.add(x, qf[i] // 2 - qo[i], out=num)
+            np.multiply(num, m[i], out=rem)
+            np.right_shift(rem, k[i], out=rem)
+            np.multiply(rem, qf[i], out=rem)
+            np.subtract(num, rem, out=rem)
+            r = rem[x >= qo[i]] if start == 0 else rem
+            assert num.max() < (1 << t_st.NUMERATOR_BITS)
+            assert r.min() >= 0 and r.max() < qf[i], (i, start)
+
+
+_SLICE_CASES = {
+    "bands": [(0, 0, 5000), (1, 5000, 5200), (2, 5200, 9999)],
+    "overlap_repeat": [(0, 0, 1000), (1, 1000, 1500), (2, 1500, 6000),
+                       (1, 0, 10), (2, 3, 4100), (0, 4096, 4096)],
+    "empty_column": [(2, 7, 2055), (0, 2055, 2055)],
+}
+
+
+@pytest.mark.parametrize("case", sorted(_SLICE_CASES))
+@pytest.mark.parametrize("vec", [4, 8])
+@pytest.mark.parametrize("n", [9999, 10003])
+def test_stat_table_tiles_cover_each_slice_once(case, vec, n):
+    """Every slice of every picture is covered exactly once by its tiles'
+    windows (16-byte aligned, TILE long, cut to the slice), whatever the
+    alignment of the picture's row; each column lists its slices in
+    bounds order, and every tile belongs to one slice."""
+    bounds = _SLICE_CASES[case]
+    ncol = 3
+    tiles, col_ptr, col_segs = t_st.layout(bounds, ncol, n, vec)
+    assert tiles.dtype == col_ptr.dtype == col_segs.dtype == np.int32
+    owned = np.zeros(len(tiles), np.int64)
+    for c in range(ncol):
+        mine = [b for b in bounds if b[0] == c]
+        rows = col_segs[col_ptr[c]:col_ptr[c + 1]]
+        assert len(rows) == len(mine)
+        for (_, lo, hi), (first, end) in zip(mine, rows):
+            owned[first:end] += 1
+            assert [tuple(t) for t in tiles[first:end]] == [
+                (lo, hi, k) for k in range(end - first)]
+            for p in range(vec):
+                row = p * n
+                seen = np.zeros(hi - lo, np.int64)
+                for k in range(end - first):
+                    g0 = (row + lo) // vec * vec + k * t_st.TILE
+                    a, b = max(g0, row + lo), min(g0 + t_st.TILE, row + hi)
+                    if b > a:
+                        seen[a - row - lo:b - row - lo] += 1
+                assert (seen == 1).all(), (c, lo, hi, p)
+    assert (owned == 1).all()
+    with pytest.raises(ValueError):
+        t_st.layout([(0, 0, n + 1)], ncol, n, vec)
+    with pytest.raises(ValueError):
+        t_st.layout([(3, 0, 1)], ncol, n, vec)
+
+
+def _kernel_model(flat, bounds, ncol, intra, power):
+    """The kernel's arithmetic in numpy, tile by tile and column by
+    column: magic division, dequantisation, bits as 63 - 2 clz(mag + 1),
+    error terms in float32 by error_metric's order, sums per tile."""
+    N, n = flat.shape
+    tab = t_st.quant_constants(intra).astype(np.int64)
+    tiles, col_ptr, col_segs = t_st.layout(bounds, ncol, n, 8)
+    mag = np.zeros((N, 61, ncol), np.int64)
+    nz = np.zeros((N, 61, ncol), np.int64)
+    err = np.zeros((N, 61, ncol), np.float64)
+    g = flat.reshape(-1).astype(np.int64)
+    for p in range(N):
+        for c in range(ncol):
+            for f, e in col_segs[col_ptr[c]:col_ptr[c + 1]]:
+                for lo, hi, k in tiles[f:e]:
+                    g0 = (p * n + lo) // 8 * 8 + k * t_st.TILE
+                    a = np.abs(g[max(g0, p * n + lo):
+                                 min(g0 + t_st.TILE, p * n + hi)])
+                    x = (a << 2)[None, :]
+                    qf, qo, m, s = (col_[:, None] for col_ in tab.T)
+                    q = ((x + qf // 2 - qo) * m) >> (32 + s)
+                    q = np.where(x < qo, 0, q)
+                    dq = np.where(q != 0, (q * qf + qo + 2) >> 2, 0)
+                    bl = np.frexp((q + 1).astype(np.float64))[1]
+                    bits = np.where(q != 0, 2 * bl - 1, 0)
+                    ad = torch.tensor(np.abs(a[None, :] - dq).astype(
+                        np.float32))
+                    t = t_rc.error_metric(ad, power).numpy()
+                    mag[p, :, c] += bits.sum(1)
+                    nz[p, :, c] += (q != 0).sum(1)
+                    err[p, :, c] += t.astype(np.float64).sum(1)
+    return mag, nz, err
+
+
+@pytest.mark.parametrize("intra,power", [(True, 4.0), (False, 4.0),
+                                         (False, 2.5), (True, 5.0)])
+def test_stat_table_kernel_model_matches_plain(intra, power):
+    """The numpy model of the kernel (its constants, tiles and
+    arithmetic) against band_counts_plain: integer sums exact, the error
+    sums to float64 rounding (a power that `**` raises: to 1e-6, since
+    PyTorch's vectorised and scalar pow may differ in a float32 term's
+    last bit); two pictures whose rows are not 16-byte aligned,
+    overlapping and repeated slices, values up to 2^20."""
+    rng = np.random.default_rng(21 + intra)
+    n = 6003
+    flat = np.round(rng.laplace(0, 40, (2, n))).astype(np.int32)
+    flat[:, :50] = rng.integers(-(1 << 20), 1 << 20, (2, 50))
+    flat[1, 60:70] = 0
+    bounds = [(0, 0, 1000), (1, 1000, 1500), (2, 1500, 6003), (1, 0, 10),
+              (0, 2040, 4100)]
+    want = t_rc.band_counts_plain(torch.tensor(flat), bounds, 3, intra,
+                                  power)
+    got = _kernel_model(flat, bounds, 3, intra, power)
+    np.testing.assert_array_equal(got[0], want[0].numpy())
+    np.testing.assert_array_equal(got[1], want[1].numpy())
+    rtol = 1e-12 if t_rc.integral_power(power) else 1e-6
+    np.testing.assert_allclose(got[2], want[2].numpy(), rtol=rtol)
+
+
+def test_band_counts_takes_the_kernel_only_on_the_card(monkeypatch):
+    """A CPU tensor runs band_counts_plain and never the kernel's
+    wrapper; the wrapper refuses a CPU tensor."""
+    calls = []
+    monkeypatch.setattr(t_st, "band_counts",
+                        lambda *a, **k: calls.append(a))
+    flat = torch.arange(-50, 50, dtype=torch.int32)
+    got = t_rc.band_counts(flat, [(0, 0, 100)], 1, False)
+    want = t_rc.band_counts_plain(flat[None], [(0, 0, 100)], 1, False)
+    assert calls == []
+    for a, b in zip(got, want):
+        assert torch.equal(a, b[0])
+    monkeypatch.undo()
+    with pytest.raises(ValueError):
+        t_st.band_counts(flat[None], [(0, 0, 100)], 1, False, 4.0, 4)
 
 
 def _two_ref_pictures(frames, refs, encoders, lam, target, corr):
