@@ -13,8 +13,8 @@ pass of the window's own loop; then the window runs for `--seconds`
 `torch.profiler` and the cell's per-layer metrics
 (`benchmark/metrics/<metric>.py`) read the reduced trace; with
 `--trace 0` the end-to-end metrics are reported.  After the window the
-outputs are judged against the reference (`harness/check.py`) and the
-limits of `benchmark/limits/<cell>.json`.  The last lines on standard
+outputs are judged by the configuration's check (`harness/check.py`) and
+the limits of `benchmark/limits/<cell>.json`.  The last lines on standard
 error are the numbers compared with their limits; the last line on
 standard output is the result as one JSON object.
 
@@ -125,9 +125,13 @@ def run(workload, seed, seconds, trace, device, size=None, control=False,
     cell, cfg, traffic, limits, per_layer, end_to_end = load_cell(workload)
     fmt = cfg["format"] = dict(cfg["format"])
     if size is not None:
-        # the bit rate scales with the pictures' area
+        # the bit rate, and a low-delay picture's budget, scale with the
+        # pictures' area
+        area, full = size[0] * size[1], fmt["width"] * fmt["height"]
         cfg["encoder"] = dict(cfg["encoder"], bitrate=cfg["encoder"][
-            "bitrate"] * size[0] * size[1] // (fmt["width"] * fmt["height"]))
+            "bitrate"] * area // full)
+        if "budget_bytes" in fmt:
+            fmt["budget_bytes"] = fmt["budget_bytes"] * area // full
         fmt["width"], fmt["height"] = size
     if frames is not None:
         traffic["frames"] = frames
@@ -190,8 +194,8 @@ def run(workload, seed, seconds, trace, device, size=None, control=False,
     k = min(int(traffic.get("check_passes", 1)), len(outputs))
     rest = np.random.default_rng(seed).permutation(len(outputs) - 1)
     sample = sorted(rest[:k - 1].tolist() + [len(outputs) - 1])
-    nums, attempted, failed = check.check_encode(cfg, clips, outputs,
-                                                 device, sample)
+    nums, attempted, failed = check.CHECKS[cfg.get("check", "longgop")](
+        cfg, clips, outputs, device, sample, traffic, seed)
     print(f"check of {len(sample)} of {len(outputs)} streams "
           f"{time.perf_counter() - t_check:.3f} s", file=sys.stderr)
     compared = [(k, nums[k], limits[k]) for k in nums]

@@ -1,10 +1,16 @@
 """Faults planted in the program's outputs where they are produced, for
 the tests that see `correct` come out false and for the readings of the
-numbers they move (`read_limits.py`): a token altered ("token"), a step
-that returns its state unchanged ("stale": each pass gives the previous
-pass's stream again) and half of a batch left out ("half": every other B
-picture dropped).  `plant` wraps the harness's factory of the program's
-encoders."""
+numbers they move (`read_limits.py`, `read_lowdelay.py`): a token altered
+("token"), a step that returns its state unchanged ("stale": each pass
+gives the previous pass's stream again) and half of a batch left out
+("half": every other B picture dropped).  In a low-delay stream: a byte of
+the middle slice of every picture altered ("slice"), the middle picture
+dropped ("drop"), 16 bytes more after the middle picture's slices ("pad",
+past the budget) and the encoder at a transform depth of 3 ("depth3").
+`plant` wraps the harness's factory of the program's encoders."""
+import copy
+
+import vc2spec
 from harness import codec as hc
 
 
@@ -44,6 +50,40 @@ def _drop_b_half(stream):
     return bytes(b)
 
 
+def _flip_slices(stream):
+    """The low-delay stream with a byte of each picture's middle slice
+    altered (the fourth, after the slice's quantiser and length)."""
+    b = bytearray(stream)
+    for pos, size, _ in _picture_units(stream):
+        _, tp, off = vc2spec.picture_parameters(stream[pos + 13:pos + size])
+        nb = vc2spec.slice_bytes(tp)
+        b[pos + 13 + off + int(nb[:len(nb) // 2].sum()) + 3] ^= 0x5A
+    return bytes(b)
+
+
+def _middle_picture(stream):
+    units = _picture_units(stream)
+    return units[len(units) // 2][:2]
+
+
+def _drop_picture(stream):
+    """The low-delay stream without its middle picture; the unit before
+    it, a sequence header, then leads to the one after it."""
+    pos, size = _middle_picture(stream)
+    return stream[:pos] + stream[pos + size:]
+
+
+def _pad_picture(stream, extra=16):
+    """The low-delay stream with `extra` bytes after the middle picture's
+    slices, its parse info's offsets moved to match."""
+    pos, size = _middle_picture(stream)
+    b = bytearray(stream[:pos + size] + bytes(extra) + stream[pos + size:])
+    b[pos + 5:pos + 9] = (size + extra).to_bytes(4, "big")
+    nxt = pos + size + extra
+    b[nxt + 9:nxt + 13] = (size + extra).to_bytes(4, "big")
+    return bytes(b)
+
+
 class _Encoder:
     def __init__(self, enc, fault, state):
         self._enc, self._fault, self._state = enc, fault, state
@@ -54,6 +94,12 @@ class _Encoder:
             return _flip(s)
         if self._fault == "half":
             return _drop_b_half(s)
+        if self._fault == "slice":
+            return _flip_slices(s)
+        if self._fault == "drop":
+            return _drop_picture(s)
+        if self._fault == "pad":
+            return _pad_picture(s)
         if self._fault == "stale":
             last, self._state["last"] = self._state.get("last"), s
             return last or s
@@ -61,7 +107,9 @@ class _Encoder:
 
 
 FAULTS = {"dirac-longgop-1080p25-cbr8m.encode-pan": (
-    "token", "half", "stale")}
+    "token", "half", "stale"),
+    "vc2-lowdelay-1080p25-422p10.encode-file": (
+    "slice", "stale", "drop", "pad", "depth3")}
 
 
 def plant(fault, cell, setattr_=setattr):
@@ -70,5 +118,12 @@ def plant(fault, cell, setattr_=setattr):
     assert fault in FAULTS[cell], (fault, cell)
     make = hc.Codec.new_encoder
     state = {}
+    if fault == "depth3":
+        def at_depth3(codec):
+            codec = copy.copy(codec)
+            codec.settings = dict(codec.settings, transform_depth=3)
+            return codec
+        setattr_(hc.Codec, "new_encoder", lambda self: make(at_depth3(self)))
+        return
     setattr_(hc.Codec, "new_encoder",
              lambda self: _Encoder(make(self), fault, state))

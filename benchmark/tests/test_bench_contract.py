@@ -64,3 +64,17 @@ def test_every_name_has_its_files():
     names = [x["name"] for k in ("configs", "workloads", "end_to_end",
                                  "per_layer") for x in spec[k]]
     assert len(names) == len(set(names))
+
+
+def test_every_configuration_names_a_check():
+    """A configuration's `check` (the long-GOP one where it names none)
+    is one the harness has, and the checks import nothing of the
+    program."""
+    from harness import check
+    configs = os.path.join(BENCH, "configs")
+    for f in sorted(os.listdir(configs)):
+        cfg = json.load(open(os.path.join(configs, f)))
+        assert cfg.get("check", "longgop") in check.CHECKS, f
+    names = set(_top_level_imports(os.path.join(BENCH, "harness",
+                                                "check.py")))
+    assert not names & (FORBIDDEN | {PROGRAM}), names
