@@ -2,13 +2,14 @@
 configuration file.  This is the only module of the benchmark that
 imports the program (`schroedinger_tpu_torch`); what it hands the
 program are the source frames the benchmark made, and what it takes back
-are bytes and pictures.
+are bytes and pictures, and the program's event counters.
 """
 from __future__ import annotations
 
 from schroedinger_tpu_torch import api
 from schroedinger_tpu_torch.config import EncoderConfig
 from schroedinger_tpu_torch.decoder.streaming import StreamingDecoder
+from schroedinger_tpu_torch.utils import telemetry
 from schroedinger_tpu_torch.video_format import ChromaFormat, VideoFormat
 
 CHROMA = {"444": ChromaFormat.C444, "422": ChromaFormat.C422,
@@ -51,3 +52,8 @@ class Codec:
 
     def new_streaming_decoder(self):
         return StreamingDecoder(coded_order=True, device=self.device)
+
+    def counters(self):
+        """The program's process-wide event counters ({name: count}: the
+        bytes copied to and from the card, the kernels' launches)."""
+        return telemetry.counters.snapshot()

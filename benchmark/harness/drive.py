@@ -21,8 +21,6 @@ import time
 import torch
 from torch.profiler import record_function
 
-HARNESS_SPANS = ("bench.encode_stream", "bench.push_frame", "bench.pull")
-
 
 def _sync(device):
     if torch.device(device).type == "cuda":

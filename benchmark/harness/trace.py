@@ -1,18 +1,21 @@
 """The traced run's reduction: from `torch.profiler` over the window to
-device busy time, per-span host and kernel time, the top device
-operations and the device's idle gaps by what the host was doing.
+device busy time, a row for every `record_function` span (the program's
+and the harness's `bench.*`), the top device operations by the span they
+ran under, and the device's idle time by what the host was doing.
 
 Frozen copy of `schroedinger_tpu_torch/profile_slice.py`'s arithmetic
-(`_device_busy_us`, `_events_under` and the span rows of `_report`): a
-span's host time is its time on the host clock; for a host span (entropy
-coding, packing, the native slice decode) that is real work, for a stage
-span it is only the enqueue, and the stage's work is the device time of
-the kernels launched under it.  The profiler's raw events are reduced in
-memory, without building its per-event Python objects; no timeline is
-written.
+(`_device_busy_us`, `_events_under`, `_idle_by_span` and the span rows of
+`_report`): a span's host time is its time on the host clock; for a host
+span (entropy coding, packing, the native slice decode, the GOP driver)
+that is real work, for a stage span it is only the enqueue, and the
+stage's work is the device time of the kernels launched under it.  A
+span's self time is its host time outside the spans opened inside it on
+the same thread.  The profiler's raw events are reduced in memory,
+without building its per-event Python objects; no timeline is written.
 """
 from __future__ import annotations
 
+import bisect
 import contextlib
 import time
 
@@ -22,17 +25,7 @@ from torch.profiler import ProfilerActivity, profile
 _CUDA = torch.autograd.DeviceType.CUDA
 TOP = 10        # entries of each breakdown list
 NAME = 160      # characters kept of a kernel's name
-# the port's record_function spans (profile_slice.HOST_SPANS and
-# STAGE_SPANS): host entropy coding and packing, then the encoder's and
-# decoders' device stages
-SPANS = ("encode_subband_arith", "decode_subband_arith",
-         "encode_subband_noarith", "decode_subband_noarith",
-         "motion_encode", "motion_decode", "frame_md5", "ld_pack",
-         "ld_decode",
-         "me_pass", "phasecorr", "rd_split", "render", "stat_tables",
-         "rd_pick", "multiquant", "quantise_recon", "p_transfer",
-         "b_batch_step", "b_picture_step", "prefilter",
-         "quality_metrics", "ld_analysis", "ld_inverse")
+NO_SPAN = "(no span)"
 
 
 @contextlib.contextmanager
@@ -88,9 +81,10 @@ def _overlap(a, b):
 
 
 def _innermost_segments(spans):
-    """[(start, end, name)] pieces of the host timeline, each labelled
-    with the innermost of the given spans open over it (the span opened
-    last among those still open)."""
+    """[(start, end, name)] pieces of a timeline (the host's, or the
+    device's for the spans' mirrors), each labelled with the innermost of
+    the given spans open over it (the span opened last among those still
+    open)."""
     bounds = sorted({t for s, e, _ in spans for t in (s, e)})
     opens = sorted(spans)
     segs, active, k = [], [], 0
@@ -104,11 +98,21 @@ def _innermost_segments(spans):
     return segs
 
 
+def _innermost_at(segs, t):
+    """The name of the segment of `_innermost_segments` that holds time
+    `t`, or NO_SPAN."""
+    k = bisect.bisect_right(segs, (t, float("inf"))) - 1
+    return segs[k][2] if k >= 0 and segs[k][1] > t else NO_SPAN
+
+
 def _gaps_by_span(busy, t0, t1, spans):
     """[name, seconds] of device idle time in [t0, t1] (nanoseconds), by
-    the innermost host span open at the time, the largest first."""
+    the innermost host span open at the time (NO_SPAN where none is),
+    the largest first."""
     gaps, cur = [], t0
     for s, e in busy:
+        if s >= t1:
+            break
         if s > cur:
             gaps.append((cur, min(s, t1)))
         cur = max(cur, e)
@@ -129,48 +133,95 @@ def _gaps_by_span(busy, t0, t1, spans):
                 covered += ov
             k += 1
         if ge - gs > covered:
-            by["(no span)"] = by.get("(no span)", 0) + (ge - gs - covered)
+            by[NO_SPAN] = by.get(NO_SPAN, 0) + (ge - gs - covered)
     return sorted(([n, v / 1e9] for n, v in by.items()),
-                  key=lambda r: -r[1])[:TOP]
+                  key=lambda r: -r[1])
 
 
-def reduce(prof, window_s, span_names):
+def _self_ns(occurrences):
+    """{name: nanoseconds} of each span's host time outside the spans
+    opened inside it on its own thread, summed over its occurrences
+    (thread, start, end, name)."""
+    # the spans open on the thread, innermost last: [thread, start, end,
+    # name, time inside them]
+    out, stack = {}, []
+
+    def close():
+        _, s, e, name, inner = stack.pop()
+        out[name] = out.get(name, 0) + (e - s) - inner
+    for tid, s, e, name in sorted(occurrences,
+                                  key=lambda o: (o[0], o[1], -o[2])):
+        while stack and (stack[-1][0] != tid or stack[-1][2] <= s):
+            close()
+        if stack:
+            stack[-1][4] += min(e, stack[-1][2]) - s
+        stack.append([tid, s, e, name, 0])
+    while stack:
+        close()
+    return out
+
+
+def host_union_s(trace, names):
+    """Seconds of host time in which any of the spans `names` is open, on
+    any thread."""
+    return sum(e - s for s, e in _union(
+        iv for n in names for iv in trace["host_intervals"].get(n, ()))) / 1e9
+
+
+def reduce(prof, window_s):
     """{busy_s, window_s, device_events, spans: {name: {count, host_s,
-    device_s}}, device_ops, idle_gaps} of one profiled window, read from
-    the profiler's raw events.
+    self_s, device_s}}, host_intervals, device_ops, idle_gaps,
+    idle_by_span} of one profiled window, read from the profiler's raw
+    events; every `record_function` span in the window has a row.
 
     Busy time is the union of the device's kernel and copy intervals.  A
-    span's host time is the union of its occurrences on the host clock;
-    its device time is the busy time inside its device-side mirrors (the
-    first to the last kernel launched under it, on the one stream), which
-    is the time of the kernels launched under it."""
-    dev, ops, host, mirror = [], {}, {}, {}
+    span's host time is the union of its occurrences on the host clock
+    (`host_intervals`, nanoseconds); its self time is the sum over its
+    occurrences of the time outside the spans opened inside it on the
+    same thread; its device time is the busy time inside its device-side
+    mirrors (the first to the last kernel launched under it, on the one
+    stream), which is the time of the kernels launched under it.  A
+    device operation is named with the innermost span whose mirror it
+    started under.  The idle time, between the first span's start and
+    the last one's end, goes to the innermost span open on the host
+    (`idle_by_span`, whole; `idle_gaps`, its top entries)."""
+    dev, occ, mirror = [], [], []
     for e in prof.profiler.kineto_results.events():
         cuda = e.device_type() == _CUDA
+        s = e.start_ns()
         if e.is_user_annotation():
-            name = e.name()
-            if name in span_names:
-                s = e.start_ns()
-                (mirror if cuda else host).setdefault(name, []).append(
-                    (s, s + e.duration_ns()))
+            if cuda:
+                mirror.append((s, s + e.duration_ns(), e.name()))
+            else:
+                occ.append((e.start_thread_id(), s, s + e.duration_ns(),
+                            e.name()))
         elif cuda:
-            s, d = e.start_ns(), e.duration_ns()
-            dev.append((s, s + d))
-            name = e.name()
-            ops[name] = ops.get(name, 0) + d
-    busy = _union(dev)
-    rows = {}
-    for name, occ in host.items():
-        rows[name] = {"count": len(occ),
-                      "host_s": sum(e - s for s, e in _union(occ)) / 1e9,
-                      "device_s": _overlap(busy, _union(mirror.get(name, [])))
-                      / 1e9}
-    spans = [(s, e, n) for n, occ in host.items() for s, e in occ]
+            dev.append((s, s + e.duration_ns(), e.name()))
+    busy = _union((s, e) for s, e, _ in dev)
+    host, mirrors = {}, {}
+    for _, s, e, n in occ:
+        host.setdefault(n, []).append((s, e))
+    for s, e, n in mirror:
+        mirrors.setdefault(n, []).append((s, e))
+    selfs = _self_ns(occ)
+    intervals = {n: _union(o) for n, o in host.items()}
+    rows = {n: {"count": len(host[n]),
+                "host_s": sum(e - s for s, e in iv) / 1e9,
+                "self_s": selfs[n] / 1e9,
+                "device_s": _overlap(busy, _union(mirrors.get(n, []))) / 1e9}
+            for n, iv in intervals.items()}
+    segs = _innermost_segments(mirror)
+    ops = {}
+    for s, e, n in dev:
+        key = f"{_innermost_at(segs, s)}: {n[:NAME]}"
+        ops[key] = ops.get(key, 0) + (e - s)
+    spans = [(s, e, n) for _, s, e, n in occ]
     t0 = min((s for s, _, _ in spans), default=0)
     t1 = max((e for _, e, _ in spans), default=0)
+    idle = _gaps_by_span(busy, t0, t1, spans)
     return {"busy_s": sum(e - s for s, e in busy) / 1e9,
             "window_s": window_s, "device_events": len(dev), "spans": rows,
-            "device_ops": sorted(([n[:NAME], v / 1e9]
-                                  for n, v in ops.items()),
+            "host_intervals": intervals,
+            "device_ops": sorted(([n, v / 1e9] for n, v in ops.items()),
                                  key=lambda r: -r[1])[:TOP],
-            "idle_gaps": _gaps_by_span(busy, t0, t1, spans)}
+            "idle_gaps": idle[:TOP], "idle_by_span": idle}

@@ -11,12 +11,14 @@ Set-up makes the clips from the seed on the card and runs one warm-up
 pass of the window's own loop; then the window runs for `--seconds`
 (`harness/drive.py`).  With `--trace 1` the window runs under
 `torch.profiler` and the cell's per-layer metrics
-(`benchmark/metrics/<metric>.py`) read the reduced trace; with
-`--trace 0` the end-to-end metrics are reported.  After the window the
-outputs are judged by the configuration's check (`harness/check.py`) and
-the limits of `benchmark/limits/<cell>.json`.  The last lines on standard
-error are the numbers compared with their limits; the last line on
-standard output is the result as one JSON object.
+(`benchmark/metrics/<metric>.py`) read the reduced trace, which has a
+row for every span, and the change of the program's counters over the
+window (`info["counters"]`); with `--trace 0` the end-to-end metrics are
+reported.  After the window the outputs are judged by the
+configuration's check (`harness/check.py`) and the limits of
+`benchmark/limits/<cell>.json`.  The last lines on standard error are the
+numbers compared with their limits; the last line on standard output is
+the result as one JSON object.
 
 Exits 2 without a result where there is no CUDA device, 3 where the
 process has loaded JAX or the JAX package.  `--control` runs
@@ -128,10 +130,19 @@ def run(workload, seed, seconds, trace, device, size=None, control=False,
         # the bit rate, and a low-delay picture's budget, scale with the
         # pictures' area
         area, full = size[0] * size[1], fmt["width"] * fmt["height"]
-        cfg["encoder"] = dict(cfg["encoder"], bitrate=cfg["encoder"][
-            "bitrate"] * area // full)
+
+        def scaled(enc):
+            return dict(enc, bitrate=enc["bitrate"] * area // full)
+        cfg["encoder"] = scaled(cfg["encoder"])
         if "budget_bytes" in fmt:
             fmt["budget_bytes"] = fmt["budget_bytes"] * area // full
+            # a low-delay control's rate is read against the budget, so
+            # it stays twice the scaled budget; a long-GOP control keeps
+            # its stated rate, since at 128x64 the encoder cannot come
+            # down to the scaled rate or to twice it (the same pictures)
+            if "bitrate" in cfg["control"]["encoder"]:
+                cfg["control"] = dict(cfg["control"], encoder=scaled(
+                    cfg["control"]["encoder"]))
         fmt["width"], fmt["height"] = size
     if frames is not None:
         traffic["frames"] = frames
@@ -152,8 +163,8 @@ def run(workload, seed, seconds, trace, device, size=None, control=False,
     if torch.device(device).type == "cuda":
         torch.cuda.synchronize()
     setup_s = time.perf_counter() - T_START
-    spans = tr.SPANS + drive.HARNESS_SPANS
     gcc = GcClock()
+    before = codec.counters()
     with tr.window_profile(trace) as win:
         gcc.on = True
         # two passes at least: each pass is judged against the one before
@@ -161,6 +172,8 @@ def run(workload, seed, seconds, trace, device, size=None, control=False,
                                              min_items=2 * len(clips[0]))
         gcc.on = False
     gcc.close()
+    # the program's counters over the window alone: set-up counts too
+    counted = {k: v - before.get(k, 0) for k, v in codec.counters().items()}
     print(f"window {window_s:.3f} s, {items} items, set-up {setup_s:.3f} s"
           + (f", item seconds min {min(lat):.4f} median "
              f"{float(np.median(lat)):.4f} max {max(lat):.4f} (item "
@@ -180,7 +193,7 @@ def run(workload, seed, seconds, trace, device, size=None, control=False,
                                  if cuda else 0)}
     reduced = None
     if win.prof is not None:
-        reduced = tr.reduce(win.prof, win.window_s, spans)
+        reduced = tr.reduce(win.prof, win.window_s)
         win.prof = None
         dev["busy_s"] = reduced["busy_s"]
         dev["window_s"] = reduced["window_s"]
@@ -207,7 +220,8 @@ def run(workload, seed, seconds, trace, device, size=None, control=False,
     metrics = {}
     if trace:
         info = dict(reduced, frames=items, direction="encode",
-                    refs_used=_refs_used(s for _, s in outputs))
+                    refs_used=_refs_used(s for _, s in outputs),
+                    counters=counted)
         for m in per_layer:
             v = load_reader(m["name"])(info)
             if v is not None:

@@ -6,9 +6,14 @@ gives the previous pass's stream again) and half of a batch left out
 ("half": every other B picture dropped).  In a low-delay stream: a byte of
 the middle slice of every picture altered ("slice"), the middle picture
 dropped ("drop"), 16 bytes more after the middle picture's slices ("pad",
-past the budget) and the encoder at a transform depth of 3 ("depth3").
-`plant` wraps the harness's factory of the program's encoders."""
+past the budget), the encoder at a transform depth of 3 ("depth3") and
+every source sample the encoder receives raised by a quarter of the
+range, 2^(bit depth - 2), clipped at the top ("offset": the check still
+compares against the clip as made).  `plant` wraps the harness's factory
+of the program's encoders."""
 import copy
+
+import numpy as np
 
 import vc2spec
 from harness import codec as hc
@@ -84,11 +89,22 @@ def _pad_picture(stream, extra=16):
     return bytes(b)
 
 
+def _raise_samples(frames, bit_depth):
+    """The frames with every sample raised by 2^(bit_depth - 2), clipped
+    at the top of the range."""
+    up, top = 1 << (bit_depth - 2), (1 << bit_depth) - 1
+    return [tuple(np.minimum(p.astype(np.int32) + up, top).astype(p.dtype)
+                  for p in f) for f in frames]
+
+
 class _Encoder:
-    def __init__(self, enc, fault, state):
+    def __init__(self, enc, fault, state, bit_depth):
         self._enc, self._fault, self._state = enc, fault, state
+        self._bit_depth = bit_depth
 
     def encode_stream(self, frames):
+        if self._fault == "offset":
+            frames = _raise_samples(frames, self._bit_depth)
         s = self._enc.encode_stream(frames)
         if self._fault == "token":
             return _flip(s)
@@ -109,7 +125,7 @@ class _Encoder:
 FAULTS = {"dirac-longgop-1080p25-cbr8m.encode-pan": (
     "token", "half", "stale"),
     "vc2-lowdelay-1080p25-422p10.encode-file": (
-    "slice", "stale", "drop", "pad", "depth3")}
+    "slice", "stale", "drop", "pad", "depth3", "offset")}
 
 
 def plant(fault, cell, setattr_=setattr):
@@ -126,4 +142,5 @@ def plant(fault, cell, setattr_=setattr):
         setattr_(hc.Codec, "new_encoder", lambda self: make(at_depth3(self)))
         return
     setattr_(hc.Codec, "new_encoder",
-             lambda self: _Encoder(make(self), fault, state))
+             lambda self: _Encoder(make(self), fault, state,
+                                   self.bit_depth))

@@ -1,10 +1,11 @@
 """The low-delay cell that waits on the program (PERF.md, Open questions),
 run through `run.run` before `BENCHMARK.json` names it:
-`vc2-lowdelay-1080p25-422p10.encode-file`, encode-pan's eight 50-frame
-pan + noise clips coded whole through `encode_stream`, two streams and
-`check_pictures` (4) pictures of each judged by the configuration's
-low-delay check.  At 8 bits the configuration's format takes its 8-bit
-form (full-range offsets), as the program's 8-bit path codes it."""
+`vc2-lowdelay-1080p25-422p10.encode-file`, the mix of
+`traffic/encode-file.json` (encode-pan's eight 50-frame pan + noise clips
+coded whole through `encode_stream`, two streams and `check_pictures`
+(4) pictures of each judged by the configuration's low-delay check).  At
+8 bits the configuration's format takes its 8-bit form (full-range
+offsets), as the program's 8-bit path codes it."""
 import json
 import os
 
@@ -14,7 +15,7 @@ CELL = "vc2-lowdelay-1080p25-422p10.encode-file"
 CONFIG = "vc2-lowdelay-1080p25-422p10"
 EIGHT_BIT = {"bit_depth": 8, "luma_offset": 0, "luma_excursion": 255,
              "chroma_offset": 128, "chroma_excursion": 255}
-CHECK_PICTURES = 4
+TRAFFIC = "encode-file"
 
 
 def load(bit_depth, limits):
@@ -24,10 +25,9 @@ def load(bit_depth, limits):
         cfg = json.load(f)
     if bit_depth == 8:
         cfg["format"] = dict(cfg["format"], **EIGHT_BIT)
-    with open(os.path.join(run.HERE, "traffic", "encode-pan.json")) as f:
-        traffic = dict(json.load(f), check_pictures=CHECK_PICTURES)
-    cell = {"name": CELL, "config": CONFIG, "traffic": "encode-file",
-            "chips": 1}
+    with open(os.path.join(run.HERE, "traffic", TRAFFIC + ".json")) as f:
+        traffic = json.load(f)
+    cell = {"name": CELL, "config": CONFIG, "traffic": TRAFFIC, "chips": 1}
     return cell, cfg, traffic, dict(limits), [], []
 
 

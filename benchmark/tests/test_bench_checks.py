@@ -2,9 +2,11 @@
 (`check.CHECKS`), on the CPU at 128x64:
 
 - the low-delay check through the cell that waits on the program
-  (`lowdelay_cell`): the program's 8-bit streams read as sound, its
-  10-bit streams read the known offset of 512, and each planted fault
-  moves its own number;
+  (`lowdelay_cell`): the program's 8-bit streams read as sound, the
+  configuration's control (twice the budget) is read by `budget_off`
+  alone, and each planted fault moves its own number (the offset of a
+  quarter of the range in the 10-bit path, whichever offset the
+  program's 10-bit path takes off);
 - the long-GOP check gives encode-pan's tiny run exactly the numbers it
   gave before the checks were dispatched (pinned from a run of the tree
   before the change, at one seed).
@@ -31,10 +33,10 @@ SOUND_TILE = (1.0, 40.0)
 LIMITS = {**{k: 0 for k in EXACT}, "tile_mse_worst": 2 * SOUND_TILE[1]}
 
 
-def lowdelay_run(bit_depth, monkeypatch, seed=SEED):
+def lowdelay_run(bit_depth, monkeypatch, seed=SEED, control=False):
     lc.install(bit_depth, LIMITS, monkeypatch.setattr)
     result, compared = run.run(lc.CELL, seed, 0.0, False, "cpu", size=SIZE,
-                               frames=FRAMES)
+                               frames=FRAMES, control=control)
     return result, {k: v for k, v, _ in compared}
 
 
@@ -47,13 +49,27 @@ def test_eight_bit_streams_are_correct(seed, monkeypatch):
     assert result["attempted"] == 2 * FRAMES
 
 
-def test_ten_bit_streams_read_the_offset(monkeypatch):
-    """The program's 10-bit pictures decode 512 high by the standard: in
-    range and number, but far from their source."""
+def test_offset_reads_in_the_tiles_alone(monkeypatch):
+    """Every source sample raised by 256 of the 10-bit range: streams
+    whole, in budget and in number, that decode 256 or more high by the
+    standard (65,536 in a tile's error, less what the top clip takes
+    off), far above a sound 10-bit tile (16x an 8-bit one's at most)."""
+    faults.plant("offset", lc.CELL, monkeypatch.setattr)
     result, nums = lowdelay_run(10, monkeypatch)
     assert all(nums[k] == 0 for k in EXACT), nums
-    assert nums["tile_mse_worst"] > 100_000, nums
-    assert not result["correct"]
+    assert nums["tile_mse_worst"] > 30 * 16 * SOUND_TILE[1], nums
+    assert not result["correct"] and result["failed"] == 0
+
+
+def test_control_is_read_by_the_budget_alone(monkeypatch):
+    """The configuration's control, the encoder at twice the stated
+    bit rate (scaled with the area, as the budget is): every picture of
+    the window is off the budget, and every other number is sound."""
+    result, nums = lowdelay_run(8, monkeypatch, control=True)
+    assert nums["budget_off"] == result["attempted"] == 2 * FRAMES, nums
+    assert all(nums[k] == 0 for k in EXACT if k != "budget_off"), nums
+    assert nums["tile_mse_worst"] <= SOUND_TILE[1], nums
+    assert not result["correct"] and result["failed"] == 0
 
 
 @pytest.mark.parametrize("fault,number", [

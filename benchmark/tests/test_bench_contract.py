@@ -78,3 +78,13 @@ def test_every_configuration_names_a_check():
     names = set(_top_level_imports(os.path.join(BENCH, "harness",
                                                 "check.py")))
     assert not names & (FORBIDDEN | {PROGRAM}), names
+
+
+def test_every_configuration_has_a_control():
+    """A control (encoder settings that break a guarantee the
+    configuration states) for every configuration, so that its cells'
+    control tests can run the moment a cell names it."""
+    configs = os.path.join(BENCH, "configs")
+    for f in sorted(os.listdir(configs)):
+        cfg = json.load(open(os.path.join(configs, f)))
+        assert isinstance(cfg.get("control", {}).get("encoder"), dict), f
