@@ -1,9 +1,9 @@
 """Build + ctypes bindings for the native coding layer.
 
-Compiles this package's own schro_coding.cpp with g++ at first use into
-`build/schroedinger_tpu_torch/` (the file name carries a hash of the source,
-the flags and the compiler's resolved target, so a change to any of them
-builds anew) and exposes the fast paths used by coding/subband.py and the
+Compiles this package's own schro_coding.cpp and arith_pool.cpp with g++
+at first use into `build/schroedinger_tpu_torch/` (the file name carries a
+hash of the sources, the flags and the compiler's resolved target, so a
+change to any of them builds anew) and exposes the fast paths used by coding/subband.py and the
 codec pipelines.  A failed build raises; there is no Python fallback.
 
 Whole copy of `schroedinger_tpu/coding/native/__init__.py` apart from the
@@ -20,12 +20,16 @@ import threading
 
 import numpy as np
 
+from schroedinger_tpu_torch.utils.telemetry import counters
+
 _DIR = os.path.dirname(os.path.abspath(__file__))
 _SRC = os.path.join(_DIR, "schro_coding.cpp")
+_POOL_SRC = os.path.join(_DIR, "arith_pool.cpp")
 _PKG = os.path.dirname(os.path.dirname(_DIR))
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build",
                          "schroedinger_tpu_torch")
-CXX_FLAGS = ["-O3", "-march=native", "-shared", "-fPIC", "-std=c++17"]
+CXX_FLAGS = ["-O3", "-march=native", "-shared", "-fPIC", "-std=c++17",
+             "-pthread"]
 LIBRARY = None      # path of the built library, set by build()
 # guards the build, the load and the late declarations of the library
 # (reentrant: a declaration reaches the library through _Library):
@@ -45,20 +49,36 @@ def build() -> str:
     target = subprocess.run(["g++", *CXX_FLAGS, "-Q", "--help=target"],
                             capture_output=True, text=True, check=True).stdout
     key = hashlib.sha256()
-    with open(_SRC, "rb") as f:
-        key.update(f.read())
+    for src in (_SRC, _POOL_SRC):
+        with open(src, "rb") as f:
+            key.update(f.read())
     key.update("\0".join([*CXX_FLAGS, target]).encode())
     LIBRARY = os.path.join(BUILD_DIR,
                            f"libschro_coding-{key.hexdigest()[:16]}.so")
     if not os.path.exists(LIBRARY):
         os.makedirs(BUILD_DIR, exist_ok=True)
         tmp = f"{LIBRARY}.{os.getpid()}.tmp"
-        res = subprocess.run(["g++", *CXX_FLAGS, "-o", tmp, _SRC],
+        res = subprocess.run(["g++", *CXX_FLAGS, "-o", tmp, _SRC, _POOL_SRC],
                              capture_output=True, text=True)
         if res.returncode != 0:
-            raise RuntimeError(f"g++ failed on {_SRC}:\n{res.stderr}")
+            raise RuntimeError(f"g++ failed on {_SRC}, {_POOL_SRC}:\n"
+                               f"{res.stderr}")
         os.replace(tmp, LIBRARY)
     return LIBRARY
+
+
+class _ArithBand(C.Structure):
+    """One band of `subband_encode_arith_batch` (arith_pool.cpp's
+    ArithBand, field for field)."""
+    _fields_ = [("data", C.c_void_p), ("parent", C.c_void_p),
+                ("quant_indices", C.c_void_p), ("out", C.c_void_p),
+                ("capacity", C.c_int64), ("n_bytes", C.c_int64),
+                ("h", C.c_int32), ("w", C.c_int32),
+                ("parent_h", C.c_int32), ("parent_w", C.c_int32),
+                ("elem", C.c_int32), ("parent_elem", C.c_int32),
+                ("position", C.c_int32), ("hcb", C.c_int32),
+                ("vcb", C.c_int32), ("have_quant_offset", C.c_int32),
+                ("first_qi", C.c_int32), ("on_worker", C.c_int32)]
 
 
 def _declare(lib) -> None:
@@ -85,6 +105,12 @@ def _declare(lib) -> None:
         _i32p, C.c_int, C.c_int, C.c_void_p, C.c_int,
         C.c_int, C.c_int, C.c_int, C.c_int, _i32p,
         _u8p, C.c_int64, C.POINTER(C.c_int32)]
+
+    lib.subband_encode_arith_batch.restype = None
+    lib.subband_encode_arith_batch.argtypes = [
+        C.POINTER(_ArithBand), C.c_int, C.c_int]
+    lib.arith_pool_cpus.restype = C.c_int
+    lib.arith_pool_cpus.argtypes = []
 
     lib.subband_decode_arith.restype = None
     lib.subband_decode_arith.argtypes = [
@@ -199,6 +225,99 @@ def encode_subband_arith(qdata, parent_deq, position, hcb, vcb,
         np.ascontiguousarray(quant_indices, np.int32),
         out, len(out), C.byref(first_qi))
     return out[:n].tobytes(), int(first_qi.value)
+
+
+# A picture's bands go to the coder's thread pool only from this many
+# coefficients on; below it they are coded on the calling thread, where
+# the pool's hand-off would cost more than it saves.  The crossover was
+# 5,120 to 19,584 coefficients on the hosts measured
+# (tools/profile_arith_pool.py; PERF.md, Findings).
+POOL_MIN_COEFFS = 1 << 16
+
+
+def _coder_array(a):
+    """a as C-contiguous int16 or int32, the element types the batch
+    reads; anything else becomes int32, as encode_subband_arith makes it."""
+    a = np.asarray(a)
+    if a.dtype != np.int16:
+        a = a.astype(np.int32, copy=False)
+    return np.ascontiguousarray(a)
+
+
+def _arith_jobs(bands):
+    """(jobs, keep, out, offsets, coeffs) of subband_encode_arith_batch
+    for `bands` (encode_subbands_arith's argument): the ctypes band array,
+    the arrays it points into, the payloads' buffer and each band's
+    offset in it, and the picture's coefficients."""
+    n = len(bands)
+    jobs = (_ArithBand * n)()
+    keep = []
+    offsets = [0] * (n + 1)
+    coeffs = 0
+    for k, (qdata, parent, position, hcb, vcb, have_qo, qi) in enumerate(
+            bands):
+        q = _coder_array(qdata)
+        h, w = q.shape
+        qi = np.ascontiguousarray(qi, np.int32)
+        if qi.shape != (vcb, hcb):
+            raise ValueError(f"quant indices {qi.shape} for ({vcb}, {hcb}) "
+                             "codeblocks")
+        job = jobs[k]
+        if position >= 4:
+            if parent is None:
+                raise ValueError(f"band at position {position} needs its "
+                                 "parent")
+            pa = _coder_array(parent)
+            if pa.shape[0] < (h + 1) // 2 or pa.shape[1] < (w + 1) // 2:
+                raise ValueError(f"parent {pa.shape} too small for {q.shape}")
+            job.parent = pa.ctypes.data
+            job.parent_h, job.parent_w = pa.shape
+            job.parent_elem = pa.itemsize
+            keep.append(pa)
+        keep += [q, qi]
+        job.data = q.ctypes.data
+        job.quant_indices = qi.ctypes.data
+        job.h, job.w, job.elem = h, w, q.itemsize
+        job.position, job.hcb, job.vcb = position, hcb, vcb
+        job.have_quant_offset = 1 if have_qo else 0
+        job.capacity = h * w * 8 + 1024
+        offsets[k + 1] = offsets[k] + job.capacity
+        coeffs += h * w
+    # uninitialised: the coder writes each byte before it reads it (a
+    # carry adds to a byte already written), and zeroing a 1080p
+    # picture's 25 MB costs milliseconds on the calling thread
+    out = np.empty(offsets[-1], dtype=np.uint8)
+    for k in range(n):
+        jobs[k].out = out.ctypes.data + offsets[k]
+    return jobs, keep, out, offsets, coeffs
+
+
+def encode_subbands_arith(bands):
+    """Arith-encode the non-empty subbands of one picture at once.
+
+    bands: [(qdata, parent, position, hcb, vcb, have_quant_offset,
+    quant_indices)], each as encode_subband_arith takes them (parent None
+    below position 4).  Returns [(payload, first_qi)] in the same order,
+    each equal to encode_subband_arith's for its band.  A picture of at
+    least POOL_MIN_COEFFS coefficients is coded on the library's thread
+    pool; `counters` count the bands that a pool thread coded
+    (arith_pool_bands) and those the calling thread coded
+    (arith_inline_bands)."""
+    jobs, keep, out, offsets, coeffs = _arith_jobs(bands)
+    _lib.subband_encode_arith_batch(jobs, len(jobs),
+                                    1 if coeffs >= POOL_MIN_COEFFS else 0)
+    del keep            # the library has returned: the inputs may go
+    pooled = sum(job.on_worker for job in jobs)
+    counters.add("arith_pool_bands", pooled)
+    counters.add("arith_inline_bands", len(jobs) - pooled)
+    return [(out[o:o + job.n_bytes].tobytes(), int(job.first_qi))
+            for o, job in zip(offsets, jobs)]
+
+
+def arith_pool_cpus() -> int:
+    """The CPUs the coder's thread pool may use (the process's affinity,
+    read once); with one, every band is coded on the calling thread."""
+    return _lib.arith_pool_cpus()
 
 
 def decode_subband_arith(payload, shape, quant_index, parent_deq, position,

@@ -41,7 +41,6 @@ from schroedinger_tpu_torch.bitstream import (BitWriter,
                                               write_parse_info,
                                               write_picture_header)
 from schroedinger_tpu_torch.coding import native as _native
-from schroedinger_tpu_torch.coding import subband as sb
 from schroedinger_tpu_torch.params import (Params, subband_count,
                                            subband_info, subband_position)
 from schroedinger_tpu_torch.coding import slices as sl
@@ -49,7 +48,8 @@ from schroedinger_tpu_torch.decoder.core import RefFrame
 from schroedinger_tpu_torch.devices import resolve_device
 from schroedinger_tpu_torch.encoder import me as me_mod
 from schroedinger_tpu_torch.encoder import phasecorr as pcm
-from schroedinger_tpu_torch.encoder.intra import _codeblock_counts
+from schroedinger_tpu_torch.encoder.intra import (_codeblock_counts,
+                                                  _write_bands)
 from schroedinger_tpu_torch.encoder.lowdelay import _forward
 from schroedinger_tpu_torch.encoder.me import _take
 from schroedinger_tpu_torch.encoder.ratecontrol import (_quant_dequant,
@@ -1308,41 +1308,30 @@ def _write_p_unit(p: Params, frame_number: int, refs, is_ref: bool,
         w.write_uint(p.codeblock_mode_index)
     w.sync()
 
-    band_bits = np.zeros(3 * nb, np.float64)
+    keys, jobs, first_qis = [], [], {}
+    have_qo = p.codeblock_mode_index == 1
     for comp in range(3):
         bands = sl.unflatten(host_q[comp], shapes3[comp])
         for index in range(nb):
+            qdata = bands[index]
+            if not np.any(qdata):
+                continue
             hcb, vcb = _codeblock_counts(p, index)
             position = subband_position(index)
             qi = int(qi_bands[comp * nb + index])
-            qdata = bands[index]
-            w.sync()
-            if not np.any(qdata):
-                w.write_uint(0)
-                continue
+            keys.append(comp * nb + index)
+            first_qis[comp * nb + index] = qi
             if p.is_noarith:
-                with record_function("encode_subband_noarith"):
-                    payload = _native.encode_subband_noarith(
-                        qdata, position, hcb, vcb,
-                        p.codeblock_mode_index == 1)
-                first_qi = qi
-            else:
-                # parent context is a zero-test, so quantised data is
-                # equivalent to the dequantised values the spec describes
-                parent_q = bands[index - 3] if position >= 4 else None
-                cbqi = (qi_cb or {}).get((comp, index))
-                if cbqi is None:
-                    cbqi = np.full((vcb, hcb), qi, np.int32)
-                with record_function("encode_subband_arith"):
-                    payload, first_qi = sb.encode_subband_arith(
-                        qdata, parent_q, position, hcb, vcb,
-                        p.codeblock_mode_index == 1, cbqi)
-            band_bits[comp * nb + index] = 8 * len(payload)
-            w.write_uint(len(payload))
-            if first_qi == -1:
-                first_qi = qi
-            w.write_uint(first_qi)
-            w.sync()
-            w.write_bytes(bytes(payload))
+                jobs.append((qdata, position, hcb, vcb, have_qo))
+                continue
+            # parent context is a zero-test, so quantised data is
+            # equivalent to the dequantised values the spec describes
+            parent_q = bands[index - 3] if position >= 4 else None
+            cbqi = (qi_cb or {}).get((comp, index))
+            if cbqi is None:
+                cbqi = np.full((vcb, hcb), qi, np.int32)
+            jobs.append((qdata, parent_q, position, hcb, vcb, have_qo, cbqi))
+    band_bits = _write_bands(w, nb, keys, jobs, first_qis, p.is_noarith,
+                             qi_if_empty=True)
     w.sync()
     return w.get_bytes(), band_bits

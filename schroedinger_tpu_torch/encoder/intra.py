@@ -55,6 +55,45 @@ def _codeblock_counts(p: Params, index: int):
     return p.horiz_codeblocks[level + 1], p.vert_codeblocks[level + 1]
 
 
+def _write_bands(w: BitWriter, nb: int, keys, jobs, first_qis,
+                 is_noarith: bool, qi_if_empty: bool = False) -> np.ndarray:
+    """Codes a picture's non-empty bands and writes all 3*nb of them in
+    stream order; returns the (3*nb,) coded payload bits.
+
+    keys: the non-empty bands' component-major indices; jobs: theirs, as
+    native.encode_subbands_arith takes them (encode_subband_noarith's
+    arguments under no-arith); first_qis: the quant index written for a
+    band whose coder reports none.  The arith bands are one batch, so
+    they are coded concurrently.  A band's quant index follows its length
+    when the payload is not empty, or always with qi_if_empty (the inter
+    writer's rule)."""
+    if is_noarith:
+        coded = []
+        for job in jobs:
+            with record_function("encode_subband_noarith"):
+                coded.append((_native.encode_subband_noarith(*job), -1))
+    else:
+        with record_function("encode_subband_arith"):
+            coded = _native.encode_subbands_arith(jobs)
+    coded = dict(zip(keys, coded))
+    band_bits = np.zeros(3 * nb, np.float64)
+    for k in range(3 * nb):
+        w.sync()
+        if k not in coded:
+            w.write_uint(0)
+            continue
+        payload, first_qi = coded[k]
+        band_bits[k] = 8 * len(payload)
+        w.write_uint(len(payload))
+        if first_qi == -1:
+            first_qi = first_qis[k]
+        if len(payload) > 0 or qi_if_empty:
+            w.write_uint(first_qi)
+            w.sync()
+            w.write_bytes(bytes(payload))
+    return band_bits
+
+
 def encode_picture(planes_u8, p: Params, frame_number: int,
                    quant_indices=None, is_ref: bool = False,
                    retired: int | None = None,
@@ -90,7 +129,8 @@ def encode_picture(planes_u8, p: Params, frame_number: int,
     write_transform_parameters(w, p)
     w.sync()
 
-    band_bits = np.zeros(3 * nb, np.float64)
+    have_qo = p.codeblock_mode_index == 1
+    keys, jobs, first_qis = [], [], {}
     recon_planes = []
     for comp, (plane, (oh, ow)) in enumerate(zip(
             upload_picture(planes_u8, bit_depth, device), iwt_dims)):
@@ -116,31 +156,16 @@ def encode_picture(planes_u8, p: Params, frame_number: int,
                 bands[index], qi_arr, position, hcb, vcb,
                 is_intra=(p.num_refs == 0), deep=bit_depth > 8)
             deq_bands[index] = deq
-
-            w.sync()
             if not np.any(qdata):
-                w.write_uint(0)
                 continue
-            have_qo = p.codeblock_mode_index == 1
+            keys.append(comp * nb + index)
+            first_qis[comp * nb + index] = int(qi_arr[0, 0])
             if p.is_noarith:
-                with record_function("encode_subband_noarith"):
-                    payload = _native.encode_subband_noarith(
-                        qdata, position, hcb, vcb, have_qo)
-                first_qi = int(qi_arr[0, 0])
+                jobs.append((qdata, position, hcb, vcb, have_qo))
             else:
                 parent_deq = deq_bands[index - 3] if position >= 4 else None
-                with record_function("encode_subband_arith"):
-                    payload, first_qi = sb.encode_subband_arith(
-                        qdata, parent_deq, position, hcb, vcb, have_qo,
-                        qi_arr)
-            band_bits[comp * nb + index] = 8 * len(payload)
-            w.write_uint(len(payload))
-            if first_qi == -1:
-                first_qi = int(qi_arr[0, 0])
-            if len(payload) > 0:
-                w.write_uint(first_qi)
-                w.sync()
-                w.write_bytes(bytes(payload))
+                jobs.append((qdata, parent_deq, position, hcb, vcb, have_qo,
+                             qi_arr))
         if return_recon:
             dt = np.int32 if bit_depth > 8 else np.int16
             rpyr = sl.arrays_to_pyramid(
@@ -151,6 +176,7 @@ def encode_picture(planes_u8, p: Params, frame_number: int,
             recon_planes.append(
                 _to_u16(rplane, h_pic, w_pic, bit_depth) if bit_depth > 8
                 else _to_u8(rplane, h_pic, w_pic))
+    band_bits = _write_bands(w, nb, keys, jobs, first_qis, p.is_noarith)
     w.sync()
     if band_bits_out is not None:
         band_bits_out.append(band_bits)
@@ -337,33 +363,24 @@ def encode_picture_fused(planes_u8, p: Params, frame_number: int,
     w.sync()
     write_transform_parameters(w, p)
     w.sync()
-    band_bits = np.zeros(3 * nb, np.float64)
+    keys, jobs, first_qis = [], [], {}
     for comp in range(3):
         bands = sl.unflatten(host_q[comp], lay["shapes3"][comp])
         bands[0] = qdata0[comp]
         for index in range(nb):
+            qdata = bands[index]
+            if not np.any(qdata):
+                continue
             hcb, vcb = _codeblock_counts(p, index)
             position = subband_position(index)
             qi = int(qi_bands[comp * nb + index])
-            qdata = bands[index]
-            w.sync()
-            if not np.any(qdata):
-                w.write_uint(0)
-                continue
+            keys.append(comp * nb + index)
+            first_qis[comp * nb + index] = qi
             # parent context is a zero test: quantised values suffice
             parent = bands[index - 3] if position >= 4 else None
-            with record_function("encode_subband_arith"):
-                payload, first_qi = sb.encode_subband_arith(
-                    qdata, parent, position, hcb, vcb, False,
-                    np.full((vcb, hcb), qi, np.int32))
-            band_bits[comp * nb + index] = 8 * len(payload)
-            w.write_uint(len(payload))
-            if first_qi == -1:
-                first_qi = qi
-            if len(payload) > 0:
-                w.write_uint(first_qi)
-                w.sync()
-                w.write_bytes(bytes(payload))
+            jobs.append((qdata, parent, position, hcb, vcb, False,
+                         np.full((vcb, hcb), qi, np.int32)))
+    band_bits = _write_bands(w, nb, keys, jobs, first_qis, False)
     w.sync()
     unit = w.get_bytes()
 

@@ -76,6 +76,61 @@ def test_subband_arith_bytes_and_round_trip(position, shape, hcb, vcb, scale):
         np.testing.assert_array_equal(back, qdata)
 
 
+def _batch_bands(rng, luma, depth, dtype, have_qo):
+    """The bands of a 4:2:0 picture at `depth` as encode_subbands_arith
+    takes them: dense Laplace coefficients of `dtype`, codeblocks 1x1 at
+    the lowest level and 1x1, 2x2 or 4x3 above it, random per-codeblock
+    quant indices."""
+    nb = t_params.subband_count(depth)
+    cbs = [(1, 1), (1, 1), (2, 2), (4, 3), (4, 3)]
+    out = []
+    for (h, w) in (luma, (luma[0] // 2, luma[1] // 2),
+                   (luma[0] // 2, luma[1] // 2)):
+        shapes = [(h >> depth, w >> depth)] + [
+            (h >> (depth - (i - 1) // 3), w >> (depth - (i - 1) // 3))
+            for i in range(1, nb)]
+        arrs = [np.round(rng.laplace(0, 3.0, s)).astype(dtype)
+                for s in shapes]
+        for i, a in enumerate(arrs):
+            position = t_params.subband_position(i)
+            hcb, vcb = cbs[0 if i == 0 else (i - 1) // 3 + 1]
+            qi = rng.integers(0, 61, (vcb, hcb)).astype(np.int32)
+            out.append((a, arrs[i - 3] if position >= 4 else None, position,
+                        hcb, vcb, have_qo, qi))
+    return out
+
+
+@pytest.mark.parametrize("dtype", [np.int16, np.int32, np.int64])
+@pytest.mark.parametrize("have_qo", [False, True])
+@pytest.mark.parametrize("luma", [(64, 96), (256, 320)],
+                         ids=["inline", "pooled"])
+def test_subband_batch_matches_per_band(dtype, have_qo, luma):
+    """Every band of a depth-4 picture (band indices 0-12: positions with
+    and without a parent) coded by the batch equals the per-band call,
+    payload and first quant index, on the calling thread (96x64: below
+    POOL_MIN_COEFFS) and on the pool (256x320)."""
+    rng = np.random.default_rng(luma[0] + 2 * have_qo)
+    bands = _batch_bands(rng, luma, 4, dtype, have_qo)
+    coeffs = sum(b[0].size for b in bands)
+    assert (coeffs >= t_native.POOL_MIN_COEFFS) == (luma == (256, 320))
+    got = t_native.encode_subbands_arith(bands)
+    want = [t_native.encode_subband_arith(*b) for b in bands]
+    assert got == want
+    if have_qo:
+        assert all(qi == b[6].flat[0] for (_, qi), b in zip(got, bands))
+
+
+def test_subband_batch_refuses_bands_it_cannot_code():
+    a = np.ones((8, 8), np.int16)
+    qi = np.zeros((1, 1), np.int32)
+    with pytest.raises(ValueError, match="parent"):
+        t_native.encode_subbands_arith([(a, None, 5, 1, 1, False, qi)])
+    with pytest.raises(ValueError, match="parent"):
+        t_native.encode_subbands_arith([(a, a[:3, :4], 5, 1, 1, False, qi)])
+    with pytest.raises(ValueError, match="quant indices"):
+        t_native.encode_subbands_arith([(a, None, 1, 2, 2, False, qi)])
+
+
 def test_quantise_subband_intra_dc_predict_matches():
     rng = np.random.default_rng(5)
     band = rng.integers(-400, 400, (9, 13)).astype(np.int64)

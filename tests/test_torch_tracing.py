@@ -8,7 +8,8 @@ profiler off and on: the two streams are equal, every span is there, the
 picture steps match the stream's parse codes, the uploads count each
 picture's planes, and the program's spans cover the encode.
 `profile_slice`'s split of the device's idle time by span is checked on
-a hand-made timeline.
+a hand-made timeline.  The native arith coder's batch: where its
+counters say each band was coded, and callers on many threads at once.
 """
 import sys
 import threading
@@ -20,8 +21,10 @@ from torch.profiler import ProfilerActivity, profile, record_function
 
 from schroedinger_tpu_torch import api, profile_slice
 from schroedinger_tpu_torch import bitstream as bs
+from schroedinger_tpu_torch.coding import native
 from schroedinger_tpu_torch.config import EncoderConfig
 from schroedinger_tpu_torch.slice_config import make_frames, video_format
+from schroedinger_tpu_torch.tools.profile_arith_pool import make_bands
 from schroedinger_tpu_torch.utils.telemetry import Counters, counters
 
 W, H, N = 128, 64, 11
@@ -126,6 +129,14 @@ def test_uploads_and_fetches_are_counted(clip):
     assert counted.get("me_search_launches", 0) == 0   # the CPU's plain ME
 
 
+def test_arith_span_once_a_picture_and_inline_at_128x64(clip):
+    # one batch a picture, every band of it on the calling thread: a
+    # 128x64 picture is below the pool's threshold
+    assert len(clip["spans"]["encode_subband_arith"]) == len(clip["codes"])
+    assert clip["counted"]["arith_inline_bands"] >= len(clip["codes"])
+    assert clip["counted"]["arith_pool_bands"] == 0
+
+
 def test_program_spans_cover_the_encode(clip):
     spans = clip["spans"]
     (outer,) = spans["test.encode_stream"]
@@ -184,3 +195,62 @@ def test_counters_lose_no_update_across_threads():
     snap = reg.snapshot()
     snap["events"] = 0
     assert reg.snapshot()["events"] == 16 * 2000
+
+
+def _arith_counts(bands):
+    before = counters.snapshot()
+    coded = native.encode_subbands_arith(bands)
+    after = counters.snapshot()
+    return coded, {k: after[k] - before.get(k, 0)
+                   for k in ("arith_pool_bands", "arith_inline_bands")}
+
+
+@pytest.mark.parametrize("case", ["large", "small", "one_band"])
+def test_arith_counters_say_where_bands_were_coded(case):
+    """A picture above POOL_MIN_COEFFS is shared with the pool (when the
+    process may use more than one CPU); a 128x64 picture, or one
+    non-empty band however large, stays on the calling thread."""
+    bands = {"large": make_bands(1024, 576),
+             "small": make_bands(128, 64),
+             "one_band": [max(make_bands(1024, 576),
+                              key=lambda b: b[0].size)]}[case]
+    coeffs = sum(b[0].size for b in bands)
+    assert (coeffs >= native.POOL_MIN_COEFFS) == (case != "small")
+    pooled = case == "large" and native.arith_pool_cpus() > 1
+    # a worker may still be waking when the caller has coded every band:
+    # a few tries, each counting every band once
+    for _ in range(5):
+        _, counted = _arith_counts(bands)
+        assert sum(counted.values()) == len(bands)
+        if not pooled or counted["arith_pool_bands"]:
+            break
+    assert (counted["arith_pool_bands"] > 0) == pooled
+
+
+def test_arith_batches_from_many_threads_keep_their_bytes():
+    """More callers than CPUs code their own pictures at once, each three
+    times: every result is the bytes its picture gives alone."""
+    callers = native.arith_pool_cpus() + 4
+    pictures = [make_bands(320, 256, seed=k) for k in range(callers)]
+    alone = [native.encode_subbands_arith(b) for b in pictures]
+    assert len({tuple(p for p, _ in a) for a in alone}) == callers
+    results = [[] for _ in range(callers)]
+    start = threading.Barrier(callers)
+
+    def work(k):
+        start.wait(timeout=60)
+        for _ in range(3):
+            results[k].append(native.encode_subbands_arith(pictures[k]))
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        threads = [threading.Thread(target=work, args=(k,))
+                   for k in range(callers)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=120)
+        assert not any(t.is_alive() for t in threads)
+    finally:
+        sys.setswitchinterval(interval)
+    assert results == [[a] * 3 for a in alone]
