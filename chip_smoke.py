@@ -67,9 +67,9 @@ and no result line):
  10. smoke-1080p-vc2-lowdelay-cli-422p10: what `schro_tpu encode` does by
      default (VC-2 low delay, LeGall 5,3, depth 4, 60 x 68 slices, 103.68
      Mbit/s) on 25 frames of 10-bit 4:2:2 1080p25 pan + noise: every
-     picture unit is its headers plus its slice budgets, the "table" and
-     "direct" host halves give the same bytes, the first 2 frames equal
-     the CPU encode byte for byte, api.Decoder and StreamDecoder give
+     picture unit is its headers plus its slice budgets, two timed
+     encodes give the same bytes (their md5 printed), the first 2 frames
+     equal the CPU encode byte for byte, api.Decoder and StreamDecoder give
      equal uint16 planes, luma PSNR >= 30 dB at peak 1023 on every frame;
      encode and decode frames/s and the encode's shares of device
      analysis, fetch and native packing; then the CLI itself (encode,
@@ -239,6 +239,7 @@ launches in phase 8's encode, `stat_table_launches`).
 """
 import argparse
 import dataclasses
+import hashlib
 import json
 import os
 import subprocess
@@ -252,7 +253,7 @@ import torch
 from schroedinger_tpu_torch import api
 from schroedinger_tpu_torch import bench
 from schroedinger_tpu_torch.bench import (check_frames, expected_searches,
-                                          picture_kinds, picture_mix, psnr,
+                                          picture_kinds, picture_mix,
                                           record_batches, record_refs,
                                           record_searches)
 from schroedinger_tpu_torch import bitstream as bs
@@ -1046,18 +1047,13 @@ def phase_lowdelay_cli(card):
     cfg = encoder_config("lowdelay")
     api.Encoder(vf, cfg).encode_stream(frames[:2])           # warm-up
     torch.cuda.synchronize()
-    runs = {}
-    for path in ("table", "direct", "direct", "table"):
-        def make(path=path):
-            enc = api.Encoder(vf, cfg)
-            enc.ld_path = path
-            return enc
-        enc, stream, secs = encode_timed(make, frames)
-        runs.setdefault(path, []).append((stream, secs, enc.ld_seconds))
-    stream = runs["table"][0][0]
-    if any(r[0] != stream for v in runs.values() for r in v):
-        raise AssertionError("phase10: the table and direct paths (or two "
-                             "runs of one) gave different bytes")
+    runs = []
+    for _ in range(2):
+        enc, stream, secs = encode_timed(lambda: api.Encoder(vf, cfg), frames)
+        runs.append((stream, secs, enc.ld_seconds))
+    stream = runs[0][0]
+    if any(r[0] != stream for r in runs):
+        raise AssertionError("phase10: two runs gave different bytes")
     p = enc.params
     budget = int(loe._host_arrays(p)[2].sum())
     head = len(loe._picture_headers(p, 0, False))
@@ -1074,19 +1070,19 @@ def phase_lowdelay_cli(card):
     shares = lowdelay_stage_shares(enc, frames[:5])
     vals, fps_api, fps_sd = check_two_decoders(stream, frames, {}, card,
                                                "phase10", PEAK10)
-    fps = {k: np.mean([N / r[1] for r in v]) for k, v in runs.items()}
+    fps = np.mean([N / r[1] for r in runs])
     seq = shares["analysis"] + shares["fetch"] + shares["pack"]
-    # the pipelined table runs: the worker's fetch and packing against
-    # the wall (the main thread queues the analysis meanwhile)
-    worker = {k: np.mean([r[2][k] / r[1] for r in runs["table"]])
+    # the pipelined runs: the worker's fetch and packing against the wall
+    # (the main thread queues the analysis meanwhile)
+    worker = {k: np.mean([r[2][k] / r[1] for r in runs])
               for k in ("fetch", "pack")}
     print(f"phase10 smoke-1080p-vc2-lowdelay-cli-422p10 x{N}: "
           f"{p.n_horiz_slices} x {p.n_vert_slices} slices of "
           f"{p.slice_bytes_num}/{p.slice_bytes_denom} bytes, units of "
-          f"{head} + {budget} bytes, table == direct == CPU (2 frames); "
-          f"luma PSNR mean {np.mean(vals):.3f} min {min(vals):.3f} dB at "
-          f"peak 1023; encode {fps['table']:.3f} frames/s (table), "
-          f"{fps['direct']:.3f} (direct); decode {fps_api:.3f} frames/s "
+          f"{head} + {budget} bytes, card == CPU (2 frames), stream md5 "
+          f"{hashlib.md5(stream).hexdigest()}; luma PSNR mean "
+          f"{np.mean(vals):.3f} min {min(vals):.3f} dB at peak 1023; "
+          f"encode {fps:.3f} frames/s; decode {fps_api:.3f} frames/s "
           f"api.Decoder, {fps_sd:.3f} StreamDecoder [{card}]", flush=True)
     print(f"phase10 encode stages one after another, ms per frame: device "
           f"analysis {shares['analysis']:.3f} (kernels "
@@ -1094,7 +1090,7 @@ def phase_lowdelay_cli(card):
           f"{shares['fetch']:.3f}, native packing {shares['pack']:.3f}; "
           f"shares {shares['analysis'] / seq:.3f} / "
           f"{shares['fetch'] / seq:.3f} / {shares['pack'] / seq:.3f}; the "
-          f"pipelined encode takes {1e3 / fps['table']:.3f} ms a frame "
+          f"pipelined encode takes {1e3 / fps:.3f} ms a frame "
           f"against {seq:.3f} in turn, its worker thread busy "
           f"{worker['fetch']:.3f} of the wall fetching and "
           f"{worker['pack']:.3f} packing [{card}]", flush=True)

@@ -29,6 +29,5 @@ def clear_compiled_caches():
     inter._PHASECORR_FNS.clear()
     intra._I_STEP_CACHE.clear()
     pipeline._DEC_CACHE.clear()
-    for cache in (lowdelay._ANALYZE_CACHE, lowdelay._TRANSFORM_CACHE,
-                  lowdelay._HOST_CACHE):
-        cache.clear()
+    lowdelay._ANALYZE_CACHE.clear()
+    lowdelay._HOST_CACHE.clear()

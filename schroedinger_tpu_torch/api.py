@@ -37,7 +37,6 @@ from __future__ import annotations
 
 import concurrent.futures as cf
 import math
-import os
 import time
 from typing import List, Optional, Tuple
 
@@ -334,35 +333,16 @@ class Encoder:
         GIL).  The JAX encoder packs on its main thread, where one jitted
         call queues the analysis; in eager torch queueing it is host work
         of its own, so the packing moves to the worker to overlap it.
-        `ld_seconds` sums the worker's fetch and packing time.
-
-        Two host halves give the same bytes: "table" fetches the device's
-        61-base bit aggregates so that the host search is lookups;
-        "direct" fetches only the coefficients and probes on the host.
-        `ld_path` (or SCHRO_TPU_LD_PATH, default "table") picks one; the
-        better one depends on the link against the host's speed."""
-        self.ld_path = (getattr(self, "ld_path", None)
-                        or os.environ.get("SCHRO_TPU_LD_PATH", "table"))
-        if self.ld_path == "table":
-            transform = loe._get_analyze_fn(self.params)
-            fetch = loe.fetch_analysis
-            pack = loe.encode_picture_from_analysis
-        elif self.ld_path == "direct":
-            transform = loe._get_transform_fn(self.params)
-            fetch = loe.fetch
-
-            def pack(host, p, fnum, is_ref):
-                return loe.encode_picture_from_slices(*host, p, fnum, is_ref)
-        else:
-            raise ValueError(f"ld_path {self.ld_path!r}: 'table' or "
-                             "'direct'")
+        `ld_seconds` sums the worker's fetch and packing time."""
+        analyze = loe._get_analyze_fn(self.params)
         self.ld_seconds = {"fetch": 0.0, "pack": 0.0}
 
         def host_half(dev, fnum):
             t0 = time.perf_counter()
-            host = fetch(dev)
+            host = loe.fetch_analysis(dev)
             t1 = time.perf_counter()
-            unit = pack(host, self.params, fnum, False)
+            unit = loe.encode_picture_from_analysis(host, self.params, fnum,
+                                                    False)
             self.ld_seconds["fetch"] += t1 - t0
             self.ld_seconds["pack"] += time.perf_counter() - t1
             return unit
@@ -372,7 +352,7 @@ class Encoder:
             pending = None
             for f in frames:
                 with record_function("ld_analysis"):
-                    dev = transform(*planes_to_device(
+                    dev = analyze(*planes_to_device(
                         f, self.vf.bit_depth, self.device))
                 fut = pool.submit(host_half, dev, self.frame_number)
                 self.frame_number += 1

@@ -3,8 +3,9 @@
 Compiles this package's own schro_coding.cpp and arith_pool.cpp with g++
 at first use into `build/schroedinger_tpu_torch/` (the file name carries a
 hash of the sources, the flags and the compiler's resolved target, so a
-change to any of them builds anew) and exposes the fast paths used by coding/subband.py and the
-codec pipelines.  A failed build raises; there is no Python fallback.
+change to any of them builds anew) and exposes the coder that the codec
+pipelines call: the port has no other.  A failed build raises; there is
+no Python fallback.
 
 Whole copy of `schroedinger_tpu/coding/native/__init__.py` apart from the
 build: the port imports nothing of the JAX package and never loads its
@@ -82,15 +83,6 @@ class _ArithBand(C.Structure):
 
 
 def _declare(lib) -> None:
-    lib.ld_encode.restype = C.c_int64
-    lib.ld_encode.argtypes = [
-        _i32p, _i32p, _i32p, _i32p, _i32p,
-        C.c_int, C.c_int, C.c_int, C.c_int,
-        C.c_int, C.c_int, C.c_int, C.c_int,
-        _i32p, _i32p, _i32p,
-        C.c_int, C.c_int, C.c_int, C.c_int,
-        C.c_int, C.c_int, _i64p, _u8p, C.c_int64, _i32p]
-
     lib.ld_decode.restype = C.c_int64
     lib.ld_decode.argtypes = [
         C.c_char_p, C.c_int64, _i32p, _i32p,
@@ -152,34 +144,6 @@ class _Library:
 
 
 _lib = _Library()
-
-
-def ld_encode(yd, ud, vd, y_qmo, uv_qmo, ny, nx, y_bh, y_bw, uv_bh, uv_bw,
-              y_ll, u_ll, v_ll, dc_qm, slice_bytes, deep=False):
-    """Full low-delay slice search + packing. Returns (payload, bases)."""
-    yd = np.ascontiguousarray(yd, np.int32)
-    ud = np.ascontiguousarray(ud, np.int32)
-    vd = np.ascontiguousarray(vd, np.int32)
-    Sy = yd.shape[-1]
-    Suv = ud.shape[-1]
-    y_ll = np.ascontiguousarray(y_ll, np.int32)
-    u_ll = np.ascontiguousarray(u_ll, np.int32)
-    v_ll = np.ascontiguousarray(v_ll, np.int32)
-    slice_bytes = np.ascontiguousarray(slice_bytes, np.int64)
-    cap = int(slice_bytes.sum())
-    out = np.zeros(cap, dtype=np.uint8)
-    bases = np.zeros(ny * nx, dtype=np.int32)
-    n = _lib.ld_encode(
-        yd.reshape(-1, Sy), ud.reshape(-1, Suv), vd.reshape(-1, Suv),
-        np.ascontiguousarray(y_qmo, np.int32),
-        np.ascontiguousarray(uv_qmo, np.int32),
-        ny, nx, Sy, Suv, y_bh, y_bw, uv_bh, uv_bw,
-        y_ll, u_ll, v_ll,
-        y_ll.shape[1], y_ll.shape[0], u_ll.shape[1], u_ll.shape[0],
-        dc_qm, 1 if deep else 0, slice_bytes.reshape(-1), out, cap, bases)
-    if n < 0:
-        raise ValueError("low-delay slice overflow")
-    return out.tobytes(), bases.reshape(ny, nx)
 
 
 def ld_decode(payload, y_qmo, uv_qmo, ny, nx, Sy, Suv, slice_bytes):
@@ -363,7 +327,8 @@ def decode_subband_arith_raw(payload, shape, quant_index, parent_q,
 
 def subband_quantise(data, position, hcb, vcb, quant_indices, is_intra,
                      num_refs=0, deep=False):
-    """Returns (qdata, dequantised); matches sb.quantise_subband."""
+    """Quantise a subband in codeblock order, with the DC prediction of
+    an intra band 0; returns (qdata, dequantised)."""
     d = np.ascontiguousarray(data, np.int32)
     h, w = d.shape
     qout = np.zeros((h, w), dtype=np.int32)

@@ -8,7 +8,7 @@ introspectable via SETTINGS; EncoderConfig is the dataclass view.
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, List, Optional, Tuple, Union
+from typing import List, Optional
 
 RATE_CONTROL_MODES = [
     "constant_noise_threshold", "constant_bitrate", "low_delay", "lossless",
@@ -128,14 +128,6 @@ SETTINGS: List[Setting] = [
 ]
 
 _BY_NAME = {s.name: s for s in SETTINGS}
-
-
-def n_settings() -> int:
-    return len(SETTINGS)
-
-
-def setting_info(i: int) -> Setting:
-    return SETTINGS[i]
 
 
 class EncoderConfig:

@@ -14,7 +14,6 @@ import numpy as np
 import torch
 from torch.profiler import record_function
 
-from schroedinger_tpu_torch.coding import subband as sb
 from schroedinger_tpu_torch.coding.bitio import BitReader
 from schroedinger_tpu_torch.params import Params, subband_count, subband_position
 from schroedinger_tpu_torch.coding import slices as sl
@@ -69,9 +68,10 @@ def decode_bands(r: BitReader, payload: bytes, p: Params):
                         p.codeblock_mode_index == 1, num_refs=p.num_refs)
                 continue
             with record_function("decode_subband_arith"):
-                bands[index] = sb.decode_subband_arith(
+                bands[index] = _native.decode_subband_arith(
                     data, (h, w), quant_index, parent, position, hcb, vcb,
-                    p.codeblock_mode_index == 1, is_intra=(p.num_refs == 0))
+                    p.codeblock_mode_index == 1, is_intra=(p.num_refs == 0),
+                    num_refs=p.num_refs)
         if p.num_refs == 0:
             bands[0] = dc_predict_integrate(
                 bands[0], deep=p.video_format.bit_depth > 8)

@@ -16,36 +16,12 @@ import numpy as np
 import torch
 from torch.profiler import record_function
 
-from schroedinger_tpu_torch import tables
 from schroedinger_tpu_torch.coding import native as _native
 from schroedinger_tpu_torch.coding import slices as sl
 from schroedinger_tpu_torch.devices import resolve_device
 from schroedinger_tpu_torch.encoder import lowdelay as loe
 from schroedinger_tpu_torch.ops import wavelet as wv
 from schroedinger_tpu_torch.params import Params
-
-QF = tables.QUANT_FACTOR.astype(np.int64)
-QO = tables.QUANT_OFFSET_1_2.astype(np.int64)
-
-
-def ilog2up(x: int) -> int:
-    return int(x).bit_length()
-
-
-def divide3(a):
-    return (np.int32(a) * np.int32(21845) + np.int32(10922)) >> np.int32(16)
-
-
-def divide3_s32(a):
-    """Deep (s32) DC divide: schro_divide(a, 3), schrodecoder.c:3271."""
-    a = int(a)
-    return (a - 2) // 3 if a < 0 else a // 3
-
-
-def dequantise_np(q, qf, qo):
-    q = np.asarray(q, dtype=np.int64)
-    mag = (np.abs(q) * qf + qo + 2) >> 2
-    return np.where(q == 0, 0, np.where(q < 0, -mag, mag)).astype(np.int64)
 
 
 def dc_predict_integrate(band: np.ndarray, deep: bool = False) -> np.ndarray:

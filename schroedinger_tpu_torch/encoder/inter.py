@@ -526,20 +526,6 @@ def get_p_step(p: Params, rdo_pick: bool = False, want_recon: bool = True,
     return hit
 
 
-def b_batch_is_cached(p: Params, n: int, want_recon: bool = False,
-                      me_levels: int = 5,
-                      block_search_threshold: float = 15.0,
-                      scan_distance: float = 4.0,
-                      error_power: float = 4.0,
-                      estimation: tuple = ()) -> bool:
-    """True when the step that start_inter_batch runs for this variant is
-    built.  The step takes any batch size n, so this is the per-picture
-    step's test; the JAX package compiles one program per n."""
-    return _step_key(p, True, want_recon, me_levels, block_search_threshold,
-                     scan_distance, error_power,
-                     estimation=tuple(estimation)) in _STEP_CACHE
-
-
 # per-codeblock quant deltas tried by the multiquant refinement
 MQ_DELTAS = (-2, -1, 0, 1, 2)
 # the block length of the JAX package's float32 cumsum on the CPU

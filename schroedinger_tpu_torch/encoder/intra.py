@@ -24,7 +24,6 @@ from schroedinger_tpu_torch.bitstream import (BitWriter,
                                               write_picture_header,
                                               write_transform_parameters)
 from schroedinger_tpu_torch.coding import native as _native
-from schroedinger_tpu_torch.coding import subband as sb
 from schroedinger_tpu_torch.devices import resolve_device
 from schroedinger_tpu_torch.params import (Params, subband_count,
                                            subband_position)
@@ -152,9 +151,11 @@ def encode_picture(planes_u8, p: Params, frame_number: int,
             else:
                 qi_arr = np.asarray(quant_indices[(comp, index)], np.int32)
 
-            qdata, deq = sb.quantise_subband(
-                bands[index], qi_arr, position, hcb, vcb,
-                is_intra=(p.num_refs == 0), deep=bit_depth > 8)
+            qdata, deq = _native.subband_quantise(
+                bands[index], position, hcb, vcb,
+                np.broadcast_to(qi_arr, (vcb, hcb)),
+                is_intra=(p.num_refs == 0), num_refs=p.num_refs,
+                deep=bit_depth > 8)
             deq_bands[index] = deq
             if not np.any(qdata):
                 continue
@@ -348,9 +349,8 @@ def encode_picture_fused(planes_u8, p: Params, frame_number: int,
         b0h, b0w = lay["shapes3"][ci][0]
         hcb, vcb = _codeblock_counts(p, 0)
         qi_arr = np.full((vcb, hcb), int(qi_bands[ci * nb]), np.int32)
-        qd, dq = sb.quantise_subband(
-            raw0[ci].astype(np.int64).reshape(b0h, b0w), qi_arr, 0,
-            hcb, vcb, is_intra=True)
+        qd, dq = _native.subband_quantise(
+            raw0[ci].reshape(b0h, b0w), 0, hcb, vcb, qi_arr, is_intra=True)
         qdata0.append(qd)
         deq0.append(dq)
 

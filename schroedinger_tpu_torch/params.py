@@ -190,8 +190,3 @@ def subband_info(index: int, depth: int):
     orient = (index - 1) % 3       # 0=HL, 1=LH, 2=HH
     level = depth - 1 - group      # index into pyramid['levels']
     return level, ("hl", "lh", "hh")[orient]
-
-
-def subband_quant_matrix_index(index: int) -> int:
-    """Map subband index -> quant_matrix entry (same ordering)."""
-    return index

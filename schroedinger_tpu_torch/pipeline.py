@@ -8,8 +8,6 @@ dead-zone quantisation at all 61 base indices and, per slice and base,
 the sint-VLC bit sum and the last nonzero position of the non-DC
 coefficients.  The host then runs only the per-slice quant-index search,
 the DC chains and the packing (native C++) on those aggregates.
-`make_lowdelay_transform(p)` stops after the slice reorder: the host
-searches on the coefficients itself.
 
 The JAX version maps the 61 bases one at a time; eager torch would then
 pay about 1,500 launches per frame, so the bases go through in chunks
@@ -177,15 +175,3 @@ def make_lowdelay_analyze(p: Params):
                 aggregates(vs, qm[ubi], dcs_uv))
 
     return analyze
-
-
-def make_lowdelay_transform(p: Params):
-    """fn(y, u, v) -> (y_slices, u_slices, v_slices): the device part of
-    low-delay encoding when the native host coder does the search."""
-    dims = _iwt_dims(p)
-
-    def run(y, u, v):
-        return tuple(_slice_plane(pl, oh, ow, p)[0]
-                     for pl, (oh, ow) in zip((y, u, v), dims))
-
-    return run

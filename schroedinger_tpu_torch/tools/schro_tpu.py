@@ -100,7 +100,7 @@ def encoder_config(profile: str = "lowdelay", bitrate: int = 0,
 
 
 def list_settings() -> None:
-    """Introspection (schro_encoder_get_n_settings / setting_info analog,
+    """Introspection (the reference's settings listing,
     schroencoder.c:4537-4550): one line per registry setting."""
     from schroedinger_tpu_torch import config as _cfg
     for s in _cfg.SETTINGS:

@@ -75,13 +75,6 @@ class _DumpManager:
                 self._enabled = {t.strip() for t in raw.split(",")}
         return self._enabled
 
-    def reset(self) -> None:
-        """Re-read the env on next write (tests toggle SCHRO_TPU_DUMP)."""
-        for f in self._files.values():
-            f.close()
-        self._files.clear()
-        self._enabled = None
-
     def enabled(self, topic: str) -> bool:
         return topic in self._topics()
 
@@ -107,10 +100,6 @@ def dump_enabled(topic: str) -> bool:
 def dump(topic: str, fmt: str, *args) -> None:
     """schro_dump(topic, fmt, ...) analog — one line per call."""
     _dumps.write(topic, fmt % args if args else fmt)
-
-
-def reset_dumps() -> None:
-    _dumps.reset()
 
 
 class Counters:

@@ -243,5 +243,3 @@ def test_cache_reset_drops_the_b_batch_steps(step_rows):
     assert t_inter._STEP_CACHE
     schroedinger_tpu_torch.clear_compiled_caches()
     assert not t_inter._STEP_CACHE
-    _, p, _, _ = _refs_and_qsels()
-    assert not t_inter.b_batch_is_cached(p, 3)

@@ -155,7 +155,7 @@ def test_lowdelay_analysis_matches_jax(chroma, bit_depth):
                                               ("C422", 10), ("C420", 12)])
 def test_lowdelay_stream_matches_jax(chroma, bit_depth):
     """api.Encoder(low_delay): the port's stream is the JAX encoder's
-    byte for byte on both host halves; every picture unit is its headers
+    byte for byte; every picture unit is its headers
     plus its slice budgets; the port's decoders give the JAX decoder's
     planes on the JAX stream, u16 when deep, without a recentring
     offset."""
@@ -163,12 +163,8 @@ def test_lowdelay_stream_matches_jax(chroma, bit_depth):
     frames = _frames(chroma, bit_depth)
     want = j_api.Encoder(jvf, j_config.EncoderConfig(**LD)).encode_stream(
         frames)
-    streams = []
-    for path in ("table", "direct"):
-        enc = t_api.Encoder(tvf, t_config.EncoderConfig(**LD), device="cpu")
-        enc.ld_path = path
-        streams.append(enc.encode_stream(frames))
-    assert streams[0] == want and streams[1] == want
+    enc = t_api.Encoder(tvf, t_config.EncoderConfig(**LD), device="cpu")
+    assert enc.encode_stream(frames) == want
     p = enc.params
     budget = p.slice_bytes_num // p.slice_bytes_denom * p.n_horiz_slices \
         * p.n_vert_slices
@@ -205,11 +201,9 @@ def test_lowdelay_lossless_round_trip():
 
 def test_slice_layout_and_scalar_helpers_match_jax():
     """The slice layout (to_slices / from_slices, band sizes, per-position
-    quant-matrix offsets, unflatten_host) on numpy and torch arrays, and
-    the scalar DC divides and dequantiser of both low-delay modules."""
+    quant-matrix offsets, the slice byte budgets, unflatten_host) on numpy
+    and torch arrays."""
     from schroedinger_tpu.coding import slices as j_sl
-    from schroedinger_tpu.decoder import lowdelay as j_lod
-    from schroedinger_tpu_torch.decoder import lowdelay as t_lod
     rng = np.random.default_rng(3)
     shapes = [(4, 6), (4, 6), (8, 12), (8, 12)]
     arrays = [rng.integers(-900, 900, s).astype(np.int32) for s in shapes]
@@ -235,33 +229,6 @@ def test_slice_layout_and_scalar_helpers_match_jax():
     for a, b in zip(t_sl.unflatten_host(flat, [(4, 6), (8, 12)]),
                     j_sl.unflatten_host(flat, [(4, 6), (8, 12)])):
         np.testing.assert_array_equal(a, b)
-    vals = np.arange(-40000, 40000, 7)
-    for mod_t, mod_j in ((t_loe, j_loe), (t_lod, j_lod)):
-        for v in vals[::50]:
-            assert mod_t.divide3(v) == mod_j.divide3(v)
-            assert mod_t.divide3_s32(v) == mod_j.divide3_s32(v)
-        for qi in (0, 7, 30, 60):
-            np.testing.assert_array_equal(
-                mod_t.dequantise_np(vals, t_loe.QF[qi], t_loe.QO[qi]),
-                mod_j.dequantise_np(vals, j_loe.QF[qi], j_loe.QO[qi]))
-    np.testing.assert_array_equal(
-        t_loe.quantise_np(vals, t_loe.QF[9], t_loe.QO[9]),
-        j_loe.quantise_np(vals, j_loe.QF[9], j_loe.QO[9]))
-    assert t_loe.ilog2up(2160) == t_lod.ilog2up(2160) == j_loe.ilog2up(2160)
-
-
-def test_dc_chain_matches_jax():
-    """The Python DC prediction chain (8-bit and s32 divides)."""
-    rng = np.random.default_rng(5)
-    ll = rng.integers(-3000, 3000, (8, 12)).astype(np.int32)
-    for deep in (False, True):
-        tc, jc = t_loe.DCChain(ll, deep), j_loe.DCChain(ll, deep)
-        for qi, (y0, x0) in zip((0, 9, 30, 4), ((0, 0), (0, 6), (4, 0),
-                                                (4, 6))):
-            np.testing.assert_array_equal(
-                tc.quantise_block(y0, y0 + 4, x0, x0 + 6, qi),
-                jc.quantise_block(y0, y0 + 4, x0, x0 + 6, qi))
-        np.testing.assert_array_equal(tc.recon, jc.recon)
 
 
 @pytest.mark.parametrize("profile", ["vc2_simple", "vc2_main_10",
