@@ -17,12 +17,13 @@ and no result line):
      card could take (the bytes the function needs over its memory rate,
      its operations over its rate); then one whole 1080p ME pyramid
      (make_me_body) on the card with the kernel and with the plain
-     version: equal (dy, dx, sad), 7 launches, no call of the plain
+     version: equal (dy, dx, sad), 5 launches of kernel #1 and 1 of the
+     ME's final stage (kernel #4, quarter pel), no call of the plain
      pieces on the kernel's run
   3. the backref path: a small stream encoded on the card must equal the
      CPU encode byte for byte; then 4 frames of 1080p25 4:2:0 pan + noise
      through GopEncoder(**CONFIG) (fixed quantisers, quarter-pel MVs, MD5)
-     and StreamDecoder on the card: 7 kernel launches per P picture, all
+     and StreamDecoder on the card: 5 kernel launches per P picture, all
      frames out, no MD5 failure, no picture error, luma PSNR >= 30 dB
   4. the cost probe (tools/profile_patch_refine.py) at its geometry and
      at the seven launch shapes: the `full` variant == plain, the four
@@ -36,15 +37,16 @@ and no result line):
      decode clean; then 13 frames of 1080p25 4:2:0 through
      GopEncoder(**CONFIG_FLAGSHIP) (biref, TM5 CBR at 8 Mbit/s, on-device
      RD pick, MD5) and StreamDecoder: 13 frames in presentation order, at
-     least one two-reference P and six B pictures, 14 kernel launches per
-     two-reference picture and 7 per one-reference picture, no MD5
+     least one two-reference P and six B pictures, 10 kernel launches per
+     two-reference picture and 5 per one-reference picture, no MD5
      failure, no picture error, luma PSNR >= 30 dB on every frame, stream
      bytes within 0.1x-4x of the pro-rata 13 * 8e6 / 25 / 8
   6. the batched kernel: me_search at N = 3 (the B pictures of a
      subgroup against their shared reference) == its plain version
      (torch.equal) and == three N = 1 launches at the seven 1080p launch
      shapes, timed on the device (CUDA-graph replay) beside N = 1; and a
-     batched 1080p ME pass of three pictures: 7 launches, equal to three
+     batched 1080p ME pass of three pictures: 5 launches of kernel #1 and
+     1 of kernel #4, equal to three
      single-picture passes
   7. 128x64 on the card against the CPU for bench.py's configuration and
      api.Encoder's default: the same stream (byte-equal is expected; the
@@ -52,11 +54,13 @@ and no result line):
   8. smoke-1080p-bench-headline: bench.py's encoder (CONFIG_BENCH = the
      flagship with MD5 off, B pictures batched) on 50 frames of bench.py's
      pan + noise: every full subgroup's B pictures go as one batch of at
-     most 14 kernel launches (the mix is printed: 3 I, 11 P, 36 B in 12
-     batches unless a scene cut fires); api.Decoder (pipelined) and
-     StreamDecoder give equal planes, every I and P picture decodes to the
-     encoder's reconstruction (torch.equal), luma PSNR >= 30 dB on every
-     frame, bytes within 0.1x-4x of the pro-rata 2,000,000; the stat
+     most 10 kernel launches (the mix is printed: 3 I, 11 P, 36 B in 12
+     batches unless a scene cut fires), 5 launches of kernel #1 and 1 of
+     the ME's final stage (kernel #4) per ME pass; api.Decoder
+     (pipelined) and StreamDecoder give equal planes, every I and P
+     picture decodes to the encoder's reconstruction (torch.equal), luma
+     PSNR >= 30 dB on every frame, bytes within 0.1x-4x of the pro-rata
+     2,000,000; the stat
      tables kernel launched once per call of the tables the clip implies
      (each I picture, the TM5 seed, each P picture, each batch of B
      pictures and each B picture coded alone); encode and both decoders'
@@ -85,7 +89,7 @@ and no result line):
      frame 0, both decoders equal, PSNR >= 30 dB at peak 1023
  14. smoke-1080p-bench-noarith: GopEncoder(vf, **CONFIG_BENCH,
      enable_noarith=True) on 13 frames: every I and P picture decodes to
-     the encoder's reconstruction, 7 kernel launches per reference (14 a
+     the encoder's reconstruction, 5 kernel launches per reference (10 a
      batch of B pictures), PSNR >= 30 dB, bytes within 0.1x-4x of the
      pro-rata share
 Phases 15-18, the long-GOP rate controls on 1080p25 4:2:0 pan + noise;
@@ -97,7 +101,7 @@ its encode and decode frames/s and bytes:
  15. smoke-1080p-backref-quality: api.Encoder(vf, EncoderConfig(
      gop_structure="backref")) (constant quality on the backref engine,
      RD pick on the device), 13 frames through encode_stream and 4 through
-     push_frame, 7 launches per P picture; a 128x64 card encode within the
+     push_frame, 5 launches per P picture; a 128x64 card encode within the
      bands of the CPU encode (0.7 dB, 15 %; byte equality printed)
  16. smoke-1080p-backref-cbr: GopEncoder(vf, **CONFIG_BENCH, gop_structure=
      "backref") (TM5 at 8 Mbit/s) on 13 frames, then the same with
@@ -107,7 +111,7 @@ its encode and decode frames/s and bytes:
      "constant_error") on the biref engine, 13 frames, then
      constant_noise_threshold on 9: from the second inter picture on the
      engine picks (an inter picture's indices differ from the base index
-     less the quant matrix), every B picture goes on its own (14 launches
+     less the quant matrix), every B picture goes on its own (10 launches
      each)
  18. smoke-1080p-multiquant: EncoderConfig(enable_multiquant=True), 13
      frames, B pictures batched: a band's codeblocks take different quant
@@ -121,9 +125,11 @@ recorded inputs of every launch shape the setting makes, each timed:
      overlap (bsep 8, blen 16, 240 x 136 blocks), small codeblocks,
      medium blocks (bsep 12)
  20. smoke-1080p-estimation: phase correlation (13 frames, B pictures one
-     at a time, 8 launches per reference); chroma ME (13 launches per
-     reference), no hierarchical (3) and no deep estimation (5), 9 frames
-     each; full scan (radius 32, 3 launches per reference, 3 frames)
+     at a time, 8 launches per reference: its competition stays in
+     PyTorch); chroma ME (13 launches per reference, the same), no
+     hierarchical (1) and no deep estimation (5), 9 frames each; full
+     scan (radius 32, 1 launch per reference, 3 frames); kernel #4 is held
+     to its plain version on the recorded calls as kernel #1 is
  21. smoke-1080p-gather-decode: an I picture, then a P picture written as
      its prediction alone with global motion (a pan; an affine matrix)
      or with every vector near 200 pel: api.Decoder and StreamDecoder on
@@ -173,8 +179,8 @@ telemetry overlay and the stream tools, on the card:
      references through the two-reference step with the RD pick and the
      stat tables at N = 1, at 64x64, 1080p and 2160p (24/16 blocks); its
      fields, quantiser picks, quantised bands and stat tables equal rank
-     0's batched step of the 4 pictures; kernel #1 launches 14 times per
-     rank and 14 for the batch at 1080p and 2160p; the device ms of rank
+     0's batched step of the 4 pictures; kernel #1 launches 10 times per
+     rank and 10 for the batch at 1080p and 2160p; the device ms of rank
      0's batched step and of an N = 1 step; the kernel == plain at every
      launch shape of the 2160p step, timed beside its bound
  28. tiles at 1080p over 4 ranks: the row-sharded forward and inverse
@@ -189,7 +195,7 @@ telemetry overlay and the stream tools, on the card:
      reservoirs (exact=False): threads == sequential, api.Decoder gives
      all 48 frames in order at luma PSNR >= 30 dB, each chunk's picture
      bytes within 0.1x-4x of its pro-rata share, kernel #1's launches as
-     the pictures imply (7 per reference, 14 per batch of B pictures);
+     the pictures imply (5 per reference, 10 per batch of B pictures);
      serial and sharded frames/s in turns
  30. smoke-1080p-multiprocess: two processes of
      tools/multihost_worker.py on the one card (gloo), CONFIG_BENCH, 48
@@ -270,6 +276,8 @@ from schroedinger_tpu_torch.encoder import me as me_mod
 from schroedinger_tpu_torch.encoder.gop import GopEncoder
 from schroedinger_tpu_torch.frontends import weave_fields
 from schroedinger_tpu_torch.ops import cuda_build
+from schroedinger_tpu_torch.ops import me_final as mf
+from schroedinger_tpu_torch.ops import obmc
 from schroedinger_tpu_torch.ops import patch_refine as pr
 from schroedinger_tpu_torch.ops import stat_tables as st
 from schroedinger_tpu_torch.parallel import gops, group
@@ -285,14 +293,16 @@ from schroedinger_tpu_torch.slice_config import (CONFIG, CONFIG_BENCH,
                                                  video_format)
 from schroedinger_tpu_torch.tools import bench_4k, bench_breadth, bench_rd
 from schroedinger_tpu_torch.tools import multihost_worker as mw
+from schroedinger_tpu_torch.tools import profile_me_final as pmf
 from schroedinger_tpu_torch.tools import profile_patch_refine as probe_tool
 from schroedinger_tpu_torch.tools import profile_stat_tables as pst
 from schroedinger_tpu_torch.tools.profile_patch_refine import (
     ALU_OPS_PER_S, HBM_BYTES_PER_S, gpu_line, graph_ms, time_ms)
 
-# searches per reference of a 1080p inter picture: the coarse scan, four
-# hint refines (5-level pyramid), the median and the zero SAD
-LAUNCHES_PER_REF = 5 + 2
+# searches per reference of a 1080p inter picture: the coarse scan and four
+# hint refines (5-level pyramid); the competition's median and zero SADs
+# are the final stage's (kernel #4, one launch a reference)
+LAUNCHES_PER_REF = 5
 
 
 def refine_bound_ms(args):
@@ -339,9 +349,11 @@ def search_cases(shape, dev, seed):
 
 
 def assert_equal_outputs(got, want, what):
-    """torch.equal on (mv, sad); returns the largest |difference|."""
+    """torch.equal on (mv, sad) or (dy, dx, sad); returns the largest
+    |difference|."""
     worst = 0
-    for g, w_, name in zip(got, want, ("mv", "sad")):
+    names = ("mv", "sad") if len(got) == 2 else ("dy", "dx", "sad")
+    for g, w_, name in zip(got, want, names):
         err = int((g.to(torch.int64) - w_).abs().max())
         worst = max(worst, err)
         if not torch.equal(g, w_):
@@ -374,50 +386,57 @@ class count_calls:
 
 
 def phase_whole_me(card):
-    """One 1080p ME pass (make_me_body, 5 levels) on the card with the
-    kernel and with the plain version: equal (dy, dx, sad)."""
+    """One 1080p ME pass (make_me_body, 5 levels, quarter pel) on the card
+    with the kernels and with the plain versions: equal (dy, dx, sad)."""
     dev = torch.device("cuda")
     W, H = 1920, 1080
     frames = make_frames(2, W, H)
     cur = torch.tensor(frames[1][0], device=dev)
     ref = torch.tensor(frames[0][0], device=dev)
+    up = obmc.make_halfpel(obmc.upsample_plane(ref))
     body = me_mod.make_me_body(H, W, 16, 16, 120, 68, levels=5,
-                               coarse_radius=probe_tool.COARSE_RADIUS)
-    body(cur, ref)                       # warm-up
+                               coarse_radius=probe_tool.COARSE_RADIUS,
+                               mv_precision=2)
+    body(cur, ref, up=up)                # warm-up
     torch.cuda.synchronize()
     with count_calls(me_mod, "_dense_scan", "block_sads_at") as c_me, \
             count_calls(pr, "me_search_plain", "patch_refine_plain",
-                        "extract_ref_patches") as c_pr:
-        before = pr.launches()
+                        "extract_ref_patches") as c_pr, \
+            count_calls(mf, "me_final_plain", "subpel_plain") as c_mf:
+        before, final0 = pr.launches(), mf.launches()
         t0 = time.perf_counter()
-        got = body(cur, ref)
+        got = body(cur, ref, up=up)
         torch.cuda.synchronize()
         t_kernel = time.perf_counter() - t0
-        launches = pr.launches() - before
-    if c_me.calls or c_pr.calls:
+        launches, finals = pr.launches() - before, mf.launches() - final0
+    if c_me.calls or c_pr.calls or c_mf.calls:
         raise AssertionError(f"phase2 ME pass on the card called plain "
-                             f"pieces {c_me.calls + c_pr.calls} times")
-    if launches != LAUNCHES_PER_REF:
-        raise AssertionError(f"phase2 ME pass: {launches} launches, "
-                             f"expected {LAUNCHES_PER_REF}")
-    kernel_search = me_mod.me_search
+                             f"pieces {c_me.calls + c_pr.calls + c_mf.calls}"
+                             " times")
+    if launches != LAUNCHES_PER_REF or finals != 1:
+        raise AssertionError(f"phase2 ME pass: {launches} launches of "
+                             f"kernel #1 and {finals} of kernel #4, "
+                             f"expected {LAUNCHES_PER_REF} and 1")
+    kernel_search, kernel_final = me_mod.me_search, me_mod.me_final
     me_mod.me_search = pr.me_search_plain
+    me_mod.me_final = mf.me_final_plain
     try:
         t0 = time.perf_counter()
-        want = body(cur, ref)
+        want = body(cur, ref, up=up)
         torch.cuda.synchronize()
         t_plain = time.perf_counter() - t0
     finally:
-        me_mod.me_search = kernel_search
+        me_mod.me_search, me_mod.me_final = kernel_search, kernel_final
     for g, w_, name in zip(got, want, ("dy", "dx", "sad")):
         if not torch.equal(g, w_):
             raise AssertionError(f"phase2 ME pass: {name} differs from the "
                                  f"plain run")
     moved = int((got[0] != 0).sum() + (got[1] != 0).sum())
-    print(f"phase2 1080p ME pass (5 levels): kernel run == plain run on "
-          f"(dy, dx, sad), {launches} launches, no plain piece called, "
-          f"{moved} nonzero vector components; one pass {t_kernel * 1e3:.3f}"
-          f" ms with the kernel, {t_plain * 1e3:.3f} ms plain (host clock) "
+    print(f"phase2 1080p ME pass (5 levels, quarter pel): kernel run == "
+          f"plain run on (dy, dx, sad), {launches} launches of kernel #1 "
+          f"and {finals} of kernel #4, no plain piece called, {moved} "
+          f"nonzero vector components; one pass {t_kernel * 1e3:.3f} ms "
+          f"with the kernels, {t_plain * 1e3:.3f} ms plain (host clock) "
           f"[{card}]", flush=True)
 
 
@@ -776,26 +795,43 @@ def phase_batch_kernel(card):
     frames = make_frames(4, W, H)
     cur = torch.stack([torch.tensor(f[0], device=dev) for f in frames[1:]])
     ref = torch.tensor(frames[0][0], device=dev)
+    up = obmc.make_halfpel(obmc.upsample_plane(ref))
     body = me_mod.make_me_body(H, W, 16, 16, 120, 68, levels=5,
-                               coarse_radius=probe_tool.COARSE_RADIUS)
-    body(cur, ref)                       # warm-up
+                               coarse_radius=probe_tool.COARSE_RADIUS,
+                               mv_precision=2)
+    body(cur, ref, up=up)                # warm-up
     torch.cuda.synchronize()
-    before = pr.launches()
-    got = body(cur, ref)
+    before, final0 = pr.launches(), mf.launches()
+    got = body(cur, ref, up=up)
     torch.cuda.synchronize()
-    launches = pr.launches() - before
-    if launches != LAUNCHES_PER_REF:
-        raise AssertionError(f"phase6 batched ME pass: {launches} launches,"
-                             f" expected {LAUNCHES_PER_REF}")
+    launches, finals = pr.launches() - before, mf.launches() - final0
+    if launches != LAUNCHES_PER_REF or finals != 1:
+        raise AssertionError(f"phase6 batched ME pass: {launches} launches "
+                             f"of kernel #1 and {finals} of kernel #4, "
+                             f"expected {LAUNCHES_PER_REF} and 1")
     for k in range(3):
-        one = body(cur[k].clone(), ref)
+        one = body(cur[k].clone(), ref, up=up)
         for g, w_, name in zip(got, one, ("dy", "dx", "sad")):
             if not torch.equal(g[k], w_):
                 raise AssertionError(f"phase6 batched ME pass: picture {k}"
                                      f" {name} differs from its own pass")
-    print(f"phase6 1080p ME pass of a batch of 3 pictures: {launches} "
-          f"launches, equal to three single-picture passes [{card}]",
-          flush=True)
+    # the same batch with the plain versions: kernel #4 at N = 3 (the B
+    # batches' final stage) against me_final_plain
+    kernel_search, kernel_final = me_mod.me_search, me_mod.me_final
+    me_mod.me_search = pr.me_search_plain
+    me_mod.me_final = mf.me_final_plain
+    try:
+        want = body(cur, ref, up=up)
+    finally:
+        me_mod.me_search, me_mod.me_final = kernel_search, kernel_final
+    for g, w_, name in zip(got, want, ("dy", "dx", "sad")):
+        if not torch.equal(g, w_):
+            raise AssertionError(f"phase6 batched ME pass: {name} differs "
+                                 "from the plain run")
+    print(f"phase6 1080p ME pass of a batch of 3 pictures (quarter pel): "
+          f"{launches} launches of kernel #1 and {finals} of kernel #4, "
+          f"equal to three single-picture passes and to the plain run "
+          f"[{card}]", flush=True)
     return {"batch_max_abs_err": max_err, "ms_n3": t3, "ms_n1": t1,
             "bound_ms_n3": b3, "batch_shapes": shapes}
 
@@ -880,15 +916,24 @@ def phase_bench_headline(card):
         return seed_rc(*args)
     enc._seed_rc_from_intra = counted_seed
     ticks = []
-    launches0 = pr.launches()
+    launches0, final0 = pr.launches(), mf.launches()
     tables0 = st.launches()
-    t0 = time.perf_counter()
-    stream = enc.encode_stream(frames, progress=lambda i, n: ticks.append(
-        (i, n)))
-    torch.cuda.synchronize()
-    t_enc = time.perf_counter() - t0
-    launches = pr.launches() - launches0
+    # recording keeps a copy of each launch shape's first arguments
+    with record_searches() as searches:
+        t0 = time.perf_counter()
+        stream = enc.encode_stream(frames, progress=lambda i, n:
+                                   ticks.append((i, n)))
+        torch.cuda.synchronize()
+        t_enc = time.perf_counter() - t0
+    launches, finals = pr.launches() - launches0, mf.launches() - final0
     tables = st.launches() - tables0
+    # the headline's own inputs: kernels #1 and #4 == plain at each of
+    # its launch shapes (the final stage at N = 1 and at N = 3)
+    hold_shapes(card, "phase8", searches, {})
+    if {key[0][0] for key in searches.final_first} != {1, 3}:
+        raise AssertionError(f"phase8: the final stage's recorded shapes "
+                             f"{sorted(searches.final_first)} are not one "
+                             "picture and a batch")
 
     n_i, n_p, n_b = picture_mix(stream)
     batches = [s for s in seen if s[1]]
@@ -906,6 +951,14 @@ def phase_bench_headline(card):
     if any(s[2] > 2 * LAUNCHES_PER_REF for s in batches):
         raise AssertionError("phase8: a batch made more than "
                              f"{2 * LAUNCHES_PER_REF} launches")
+    # one ME pass a reference of a picture or of a batch, each one launch
+    # of the final stage and LAUNCHES_PER_REF of kernel #1
+    passes = expected_searches(stream, seen, 1)
+    print(f"phase8 ME passes {passes}: kernel #1 launches {launches}, the "
+          f"final stage's (kernel #4) {finals}", flush=True)
+    if finals != passes or launches != LAUNCHES_PER_REF * passes:
+        raise AssertionError(f"phase8: {launches} launches of kernel #1 and "
+                             f"{finals} of kernel #4 for {passes} ME passes")
     if len(ticks) != N or ticks[-1][0] != N - 1:
         raise AssertionError(f"phase8: progress called {len(ticks)} times")
     # one call of the stat tables per I picture and TM5 seed, per P
@@ -932,7 +985,7 @@ def phase_bench_headline(card):
           f"{N / t_enc:.3f} frames/s, decode {fps_pipe:.3f} frames/s "
           f"pipelined (api.Decoder), {fps_base:.3f} frames/s StreamDecoder "
           f"[{card}]", flush=True)
-    return {"launches": launches,
+    return {"launches": launches, "final_launches": finals,
             "batch_launches": sum(s[2] for s in batches),
             "batches": len(batches), "stat_table_launches": tables}
 
@@ -1204,7 +1257,8 @@ def phase_bench_noarith(card):
     if launches != expect or any(s[2] != 2 * LAUNCHES_PER_REF
                                  for s in seen if s[1]):
         raise AssertionError(f"phase14: {launches} launches, expected "
-                             f"{expect} (7 per reference, 14 a batch)")
+                             f"{expect} ({LAUNCHES_PER_REF} per reference, "
+                             f"{2 * LAUNCHES_PER_REF} a batch)")
     if any(bs.using_ac(c) for c, _ in bs.split_units(stream)
            if bs.is_picture(c)):
         raise AssertionError("phase14: a picture is arith coded")
@@ -1459,7 +1513,9 @@ def hold_shapes(card, tag, searches, done):
     """Kernel == plain (torch.equal) on the recorded inputs of every launch
     shape not held before (`done`, updated), each timed on the device
     (CUDA-graph replay) beside its bound and the plain version's time
-    from Python; returns the largest |diff|."""
+    from Python; the same for the ME's final stage (kernel #4) on every
+    call shape recorded here (not kept in `done`).  Returns the largest
+    |diff|."""
     worst = 0
     for key, args in sorted(searches.first.items()):
         if key in done:
@@ -1478,6 +1534,19 @@ def hold_shapes(card, tag, searches, done):
               f"launch on the device, plain {p_ms:.4f} ms, bound "
               f"{b_ms:.5f} ms by {by}, {searches.count[key]} launches "
               f"recorded [{card}]", flush=True)
+    for key, args in sorted(searches.final_first.items()):
+        got = mf.me_final(*args)
+        want = mf.me_final_plain(*args)
+        torch.cuda.synchronize()
+        worst = max(worst, assert_equal_outputs(got, want,
+                                                f"{tag} final {key}"))
+        b_ms, by = pmf.bound_ms(args)
+        ms = graph_ms(mf.me_final, args)
+        print(f"{tag} me_final cur {key[0]}, blocks {key[1]}x{key[2]}, "
+              f"precision {key[3]}, competition {key[4]}, zero {key[5]}: "
+              f"kernel == plain; {ms:.4f} ms per launch on the device, "
+              f"bound {b_ms:.5f} ms by {by}, {searches.final_count[key]} "
+              f"calls recorded [{card}]", flush=True)
     return worst
 
 
@@ -1533,17 +1602,18 @@ def phase_estimation(card, done):
     frames = make_frames(13, W, H)
     launches, worst = 0, 0
     # (name, settings, frames, launches per reference: the pyramid's
-    # levels and the candidates' searches)
+    # levels and, where the competition stays in PyTorch, its searches:
+    # the median and zero SADs, the rescan, the chroma SADs)
     for name, kw, n, per_ref in (
             ("phase correlation", dict(enable_phasecorr_estimation=1), 13,
-             LAUNCHES_PER_REF + 1),
+             LAUNCHES_PER_REF + 3),
             ("chroma ME", dict(enable_chroma_me=1), 9,
-             LAUNCHES_PER_REF + 6),
+             LAUNCHES_PER_REF + 8),
             ("no hierarchical", dict(enable_hierarchical_estimation=0), 9,
-             3),
+             1),
             ("no deep", dict(enable_deep_estimation=0), 9,
-             LAUNCHES_PER_REF - 2),
-            ("full scan", dict(enable_fullscan_estimation=1), 3, 3)):
+             LAUNCHES_PER_REF),
+            ("full scan", dict(enable_fullscan_estimation=1), 3, 1)):
         stream, count, gop, seen, err = run_setting_phase(
             card, "phase20", f"smoke-1080p-estimation ({name})",
             EncoderConfig(**kw), frames[:n], per_ref, done)

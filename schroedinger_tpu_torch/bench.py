@@ -25,8 +25,9 @@ give equal planes; every I and P picture decodes to the encoder's
 reconstruction; luma PSNR >= 30 dB on every frame; the bytes within
 0.1x-4x of the pro-rata share of the bitrate; the ME's full-pel searches
 (kernel #1's launches on the card, each one a launch) as the picture mix
-implies: one ME pass of `pyramid_levels + 2` searches per reference of a
-picture or of a batch of B pictures.  At the record's settings each
+implies: one ME pass of `pyramid_levels` searches per reference of a
+picture or of a batch of B pictures, and on the card one launch of the
+ME's final stage (kernel #4) per pass.  At the record's settings each
 long-GOP leg also prints its bytes and PSNR beside the JAX package's
 record in `BENCH_partial.json` (reported, not gated).
 
@@ -63,6 +64,7 @@ from schroedinger_tpu_torch.decoder.core import StreamDecoder
 from schroedinger_tpu_torch.devices import resolve_device
 from schroedinger_tpu_torch.encoder import me as me_mod
 from schroedinger_tpu_torch.encoder.gop import GopEncoder
+from schroedinger_tpu_torch.ops import me_final as mf
 from schroedinger_tpu_torch.ops import patch_refine as pr
 from schroedinger_tpu_torch.slice_config import (CONFIG_BENCH, make_frames
                                                  as pan_frames, video_format)
@@ -188,10 +190,14 @@ class record_searches:
     """Within the block, count the ME's full-pel searches (the calls of
     `me.me_search`) by launch shape (cur's shape, block size, radius,
     scale), keep the arguments of each shape's first call, and count
-    kernel #1's launches."""
+    kernel #1's launches; the same for the ME's final stage (the calls of
+    `me.me_final`, by cur's shape, block size, precision, competition
+    and zero candidate: `final_first`, `final_count`) and kernel #4's
+    launches (`final_launches`)."""
 
     def __init__(self):
         self.first, self.count = {}, {}
+        self.final_first, self.final_count = {}, {}
 
     @property
     def calls(self):
@@ -199,22 +205,38 @@ class record_searches:
 
     def __enter__(self):
         self.saved = me_mod.me_search
+        self.saved_final = me_mod.me_final
         self.launches0 = pr.launches()
+        self.final0 = mf.launches()
+
+        def keep(first, count, key, args):
+            if key not in first:
+                first[key] = tuple(a.clone() if torch.is_tensor(a) else a
+                                   for a in args)
+            count[key] = count.get(key, 0) + 1
 
         def recording(*args):
             cur, _, _, scale, bs_y, bs_x, rad = args[:7]
-            key = (tuple(cur.shape), bs_y, bs_x, rad, scale)
-            if key not in self.first:
-                self.first[key] = tuple(a.clone() if torch.is_tensor(a)
-                                        else a for a in args)
-            self.count[key] = self.count.get(key, 0) + 1
+            keep(self.first, self.count,
+                 (tuple(cur.shape), bs_y, bs_x, rad, scale), args)
             return self.saved(*args)
+
+        def recording_final(*args):
+            c = args[0]
+            bs_y, bs_x, prec, compete, zero_cand = args[5:10]
+            keep(self.final_first, self.final_count,
+                 (tuple(c.shape), bs_y, bs_x, prec, compete, zero_cand),
+                 args)
+            return self.saved_final(*args)
         me_mod.me_search = recording
+        me_mod.me_final = recording_final
         return self
 
     def __exit__(self, *exc):
         me_mod.me_search = self.saved
+        me_mod.me_final = self.saved_final
         self.launches = pr.launches() - self.launches0
+        self.final_launches = mf.launches() - self.final0
 
 
 def picture_kinds(stream):
@@ -236,11 +258,12 @@ def picture_mix(stream):
 
 def searches_per_reference(gop):
     """Searches of one ME pass of the encoder's default estimation: the
-    pyramid's levels, the median and the zero SAD."""
+    pyramid's levels (the competition's SADs at the median and at zero
+    are the final stage's, one launch of kernel #4 a pass)."""
     p = gop._params(1)
     return me_mod.pyramid_levels(p.ybsep_luma * p.y_num_blocks,
                                  p.xbsep_luma * p.x_num_blocks,
-                                 gop.downsample_levels) + 2
+                                 gop.downsample_levels)
 
 
 def expected_searches(stream, seen, per_ref):
@@ -292,7 +315,8 @@ def timed_encode(make, frames, device, warm=6, tag="encode",
     return SimpleNamespace(stream=stream, seconds=seconds,
                            fps=len(frames) / seconds, enc=gop, made=made,
                            seen=seen, searches=searches.calls,
-                           launches=searches.launches)
+                           launches=searches.launches,
+                           final_launches=searches.final_launches)
 
 
 def encode_leg(frames, device, bitrate=8_000_000, warmup=True, tag="ours",
@@ -308,8 +332,8 @@ def encode_leg(frames, device, bitrate=8_000_000, warmup=True, tag="ours",
 
 
 def check_searches(run, tag):
-    """The searches (and on the card the launches) the picture mix
-    implies.  Returns the mix's summary."""
+    """The searches (and on the card the launches of kernels #1 and #4)
+    the picture mix implies.  Returns the mix's summary."""
     per_ref = searches_per_reference(run.enc)
     want = expected_searches(run.stream, run.seen, per_ref)
     check(run.searches == want,
@@ -319,10 +343,15 @@ def check_searches(run, tag):
         check(run.launches == run.searches,
               f"{tag}: {run.launches} kernel launches for {run.searches} "
               "searches")
+        passes = expected_searches(run.stream, run.seen, 1)
+        check(run.final_launches == passes,
+              f"{tag}: {run.final_launches} launches of the ME's final "
+              f"stage for {passes} ME passes")
     n_i, n_p, n_b = picture_mix(run.stream)
     return {"mix": f"{n_i} I, {n_p} P, {n_b} B",
             "batches": sum(1 for _, took, _ in run.seen if took),
             "searches": run.searches, "launches": run.launches,
+            "final_launches": run.final_launches,
             "searches_per_reference": per_ref}
 
 

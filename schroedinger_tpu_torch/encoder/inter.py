@@ -675,10 +675,8 @@ def make_p_step(p: Params, rdo_pick: bool = False, want_recon: bool = True,
                                   xnb, ynb, levels=me_levels,
                                   coarse_radius=coarse_radius,
                                   n_extra=n_extra, candidates=deep,
-                                  zero_cand=zero_cand, chroma=chroma_geom)
-    subpel_body = (me_mod.make_subpel_body(
-        ph0, pw0, p.xbsep_luma, p.ybsep_luma, xnb, ynb, p.mv_precision)
-        if p.mv_precision > 0 and deep else None)
+                                  zero_cand=zero_cand, chroma=chroma_geom,
+                                  mv_precision=p.mv_precision)
     rd_split_body = (make_rd_split_body(p, granularities=bigblock)
                      if num_refs == 1
                      else make_rd_split_body2(p, granularities=bigblock))
@@ -731,10 +729,12 @@ def make_p_step(p: Params, rdo_pick: bool = False, want_recon: bool = True,
             # samples of its half-pel planes)
             cpl = ((u, v, ref.planes[1], ref.planes[2])
                    if chroma_geom is not None else None)
-            dy, dx, sad = me_body(y, ref.planes[0], extra, cpl)
-            if subpel_body is not None:
-                dy, dx, sad = subpel_body(y, ref.get_upsampled()[0], dy, dx)
-            elif p.mv_precision > 0:
+            # deep estimation refines to sub-pel against the reference's
+            # half-pel plane
+            up = (ref.get_upsampled()[0] if deep and p.mv_precision > 0
+                  else None)
+            dy, dx, sad = me_body(y, ref.planes[0], extra, cpl, up)
+            if not deep and p.mv_precision > 0:
                 # no deep estimation: full-pel vectors, scaled only
                 dy = dy << p.mv_precision
                 dx = dx << p.mv_precision

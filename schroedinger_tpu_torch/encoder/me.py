@@ -2,38 +2,37 @@
 `schroedinger_tpu/encoder/me.py`).
 
 Every full-pel search of the pyramid is one call of `me_search`
-(`ops/patch_refine.py`), which launches the CUDA kernel for CUDA tensors
+(`ops/patch_refine.py`), which launches CUDA kernel #1 for CUDA tensors
 and runs its plain version for CPU tensors: the exhaustive scan around
-zero at the coarsest level, the refine of the upsampled parent vectors at
-each finer level, and, in the final level's candidate competition
-(hierarchy vs zero vs 3x3-median 'predicted', plus injected uniform
-candidates such as phase correlation's), the SADs at the median field and
-at zero, the chroma SADs of every candidate (chroma ME) and the radius-1
-rescan around an injected winner.  That is levels + 2 searches per ME
-pass without the options.  The luma SADs of the injected candidates are
-the JAX package's wrap-around (rolled) SADs, computed as a plain
-difference: the kernel clamps at the edges instead.
-`make_subpel_body` refines the winners to 1/2^prec pel.  Both take a batch
-of current planes (N, H, W) against one reference, the B pictures of a
-subgroup against their shared references: every search is then one
-launch for the whole batch.
+zero at the coarsest level and the refine of the upsampled parent vectors
+at each finer level, `levels` searches a pass.  The final stage, the
+final level's candidate competition (hierarchy vs zero vs 3x3-median
+'predicted') and the subpel refine of the winners to 1/2^prec pel, is one
+call of `me_final` (`ops/me_final.py`: CUDA kernel #4, or its plain
+version on the CPU).  With injected uniform candidates (phase
+correlation's) or chroma ME the competition stays here in PyTorch: the
+SADs at the median field and at zero, the chroma SADs of every candidate
+and the radius-1 rescan around an injected winner are me_search calls,
+the injected candidates' luma SADs the JAX package's wrap-around (rolled)
+SADs, computed as a plain difference; `me_final` then runs the subpel
+levels alone.  Every search and the final stage take a batch of current
+planes (N, H, W) against one reference, the B pictures of a subgroup
+against their shared references: each is then one launch for the whole
+batch.
 """
 from __future__ import annotations
 
 import torch
 
+from schroedinger_tpu_torch.ops.me_final import (final_candidates, me_final,
+                                                 pick)
 from schroedinger_tpu_torch.ops.pad import pad_edge
-from schroedinger_tpu_torch.ops.obmc import (_round8, extract_patches,
-                                             pad_halfpel)
 from schroedinger_tpu_torch.ops.patch_refine import (
     extract_ref_patches, me_search, to_blocks as _to_blocks)
+from schroedinger_tpu_torch.utils.telemetry import counters
 
 ME_BOUND_PEL = 124
 REFINE_RADIUS = 2       # hint-refine search radius below the coarsest level
-
-
-def _arange32(n, device):
-    return torch.arange(n, dtype=torch.int32, device=device)
 
 
 def downsample2(x):
@@ -90,20 +89,6 @@ def _plane(x):
     return x if x.data_ptr() % 16 == 0 else x.clone()
 
 
-def _median3x3_field(f):
-    """Per-block 3x3 median of an MV component field (edge-clamped) over
-    its last two dims."""
-    h, w = f.shape[-2:]
-    dev = f.device
-    taps = []
-    for dy in (-1, 0, 1):
-        for dx in (-1, 0, 1):
-            ys = (torch.arange(h, device=dev) + dy).clamp(0, h - 1)
-            xs = (torch.arange(w, device=dev) + dx).clamp(0, w - 1)
-            taps.append(f[..., ys[:, None], xs[None, :]])
-    return torch.sort(torch.stack(taps), dim=0).values[4]
-
-
 def _take(stacked, best):
     """stacked (K, ...) picked along dim 0 by best (...)."""
     return torch.gather(stacked, 0, best[None])[0]
@@ -139,9 +124,9 @@ def pyramid_levels(pad_h, pad_w, levels):
 
 def make_me_body(H, W, xbsep, ybsep, x_num_blocks, y_num_blocks,
                  levels=3, coarse_radius=8, n_extra=0, candidates=True,
-                 zero_cand=True, chroma=None):
-    """Build the ME: me(cur_y u8, ref_y u8, extra=None, chroma_planes=None)
-    -> (dy, dx, sad) per block (pel), all (y_num_blocks, x_num_blocks)
+                 zero_cand=True, chroma=None, mv_precision=0):
+    """Build the ME: me(cur_y u8, ref_y u8, extra=None, chroma_planes=None,
+    up=None) -> (dy, dx, sad) per block, all (y_num_blocks, x_num_blocks)
     int32 tensors.  A batch cur_y (N, H, W) against the one ref_y gives
     (N, y_num_blocks, x_num_blocks) and launches each search once for the
     batch.
@@ -155,26 +140,35 @@ def make_me_body(H, W, xbsep, ybsep, x_num_blocks, y_num_blocks,
     radius-1 rescan.  levels=1 disables the pyramid (the option's cap
     keeps the coarsest level at >= 16 px).  candidates=False (no deep
     estimation) returns the pyramid's result when there are no injected
-    candidates; zero_cand=False drops the zero candidate.
+    candidates; zero_cand=False drops the zero candidate.  With
+    candidates and mv_precision > 0 the winners are refined to
+    1/2^mv_precision pel against `up`, the reference's (2H, 2W) half-pel
+    plane, and dy, dx come in those units; else in pel.
 
     chroma: None, or (cbs_y, cbs_x, ch, cw), the chroma block geometry
     (chroma ME): each candidate's chroma SAD (u + v, sampled at mv >>
     chroma shift) joins the selection metric; the returned SAD stays
-    luma.  chroma_planes is then (cur_u, cur_v, ref_u, ref_v)."""
+    luma.  chroma_planes is then (cur_u, cur_v, ref_u, ref_v).
+
+    The competition without injected or chroma candidates and the subpel
+    refine are one `me_final` call (kernel #4 on the card); otherwise the
+    competition runs here and `me_final` refines alone.  The counter
+    `me_compete_plain` counts the passes on the card whose competition
+    ran here."""
     pad_h = ybsep * y_num_blocks
     pad_w = xbsep * x_num_blocks
     levels = pyramid_levels(pad_h, pad_w, levels)
+    prec = mv_precision if candidates else 0
+    fused = candidates and not n_extra and chroma is None
 
     margin = ME_BOUND_PEL + 2 * max(coarse_radius, REFINE_RADIUS) + 16
 
-    def me(cur, ref, extra=None, chroma_planes=None):
-        batched = cur.ndim == 3
-        if not batched:
-            cur = cur[None]
+    def pyramid(cur, ref):
+        """The full-pel search, coarsest level first: (mv (N, nby, nbx,
+        2) clamped to the bound, sad, and level 0's current planes and
+        reference cropped to the block grid)."""
         cur = pad_edge(cur, 0, pad_h - H, 0, pad_w - W)
         ref = pad_edge(ref, 0, pad_h - H, 0, pad_w - W)
-        dev = cur.device
-
         pyr_c = [cur]
         pyr_r = [ref]
         for _ in range(levels - 1):
@@ -199,66 +193,54 @@ def make_me_body(H, W, xbsep, ybsep, x_num_blocks, y_num_blocks,
                 # grid and scaled x2
                 mv, sad = me_search(c, r, mv, 2, bs_y, bs_x, REFINE_RADIUS,
                                     ME_BOUND_PEL, margin)
+        return mv.clamp(-ME_BOUND_PEL, ME_BOUND_PEL), sad, c, r
 
-        mv = mv.clamp(-ME_BOUND_PEL, ME_BOUND_PEL)
-
-        def out(mv, sad):
-            if not batched:
-                return mv[0, ..., 0], mv[0, ..., 1], sad[0]
-            return mv[..., 0], mv[..., 1], sad
-
-        if not candidates and not n_extra:
-            return out(mv, sad)
-
-        # final-level candidate competition: hierarchy vs zero vs the
-        # median-'predicted' field (schromotionest.c:520-695 analog) and
-        # the injected candidates; c, r are level 0 cropped to whole
-        # blocks of ybsep x xbsep
-        nby, nbx = mv.shape[-3], mv.shape[-2]
-        med = torch.stack([_median3x3_field(mv[..., 0]),
-                           _median3x3_field(mv[..., 1])], dim=-1)
-        _, sad_med = me_search(c, r, med.contiguous(), 1, ybsep, xbsep, 0,
-                               ME_BOUND_PEL, margin)
-
-        # the reference biases toward zero/predicted ("gravity",
-        # schrometric.c:122)
-        bias = ybsep * xbsep // 16
-        cand_mvs = [mv, med]
-        cand_sads = [sad, sad_med]
-        cand_bias = [0, bias]
-        if zero_cand:
-            _, sad_zero = me_search(c, r, None, 0, ybsep, xbsep, 0,
-                                    ME_BOUND_PEL, margin)
-            cand_mvs.append(torch.zeros_like(mv))
-            cand_sads.append(sad_zero)
-            cand_bias.append(bias)
+    def compete(c, r, mv, sad, extra, chroma_planes, batched):
+        """The competition with injected or chroma candidates (me_search
+        for every SAD of the current and reference planes)."""
+        if c.device.type == "cuda":
+            counters.add("me_compete_plain")
+        cand_mvs, cand_sads, cand_bias = final_candidates(
+            c, r, mv, sad, ybsep, xbsep, zero_cand, ME_BOUND_PEL, margin,
+            me_search)
         if n_extra:
             ext = [(max(-ME_BOUND_PEL, min(ME_BOUND_PEL, int(dy))),
                     max(-ME_BOUND_PEL, min(ME_BOUND_PEL, int(dx))))
                    for dy, dx in extra]
             cand_sads += _roll_sads(c, r, ybsep, xbsep, ext)
-            cand_mvs += [torch.tensor(e, dtype=torch.int32, device=dev)
+            cand_mvs += [torch.tensor(e, dtype=torch.int32, device=c.device)
                          .expand(mv.shape) for e in ext]
             cand_bias += [0] * len(ext)
         cand_sel = cand_sads
         if chroma is not None:
+            nby, nbx = mv.shape[-3], mv.shape[-2]
             cand_sel = [s + sc for s, sc in zip(cand_sads, _chroma_sads(
                 chroma, chroma_planes, cand_mvs, ybsep, xbsep, nby, nbx,
                 margin, zero_cand, batched))]
-        all_sads = torch.stack(cand_sads)
-        all_mvs = torch.stack(cand_mvs)
-        biased = torch.stack(cand_sel) - torch.as_tensor(
-            cand_bias, dtype=torch.int32, device=dev)[:, None, None, None]
-        best = torch.argmin(biased, dim=0)                # (N, nby, nbx)
-        mv = torch.gather(all_mvs, 0, best[None, ..., None].expand(
-            1, *best.shape, 2))[0]
-        sad = _take(all_sads, best)
+        mv, sad = pick(cand_mvs, cand_sads, cand_sel, cand_bias)
         if n_extra:
             # injected candidates are uniform vectors: a local rescan
             # recovers per-block detail around the winner
             mv, sad = me_search(c, r, mv.contiguous(), 1, ybsep, xbsep, 1,
                                 ME_BOUND_PEL, margin)
-        return out(mv, sad)
+        return mv, sad
+
+    def me(cur, ref, extra=None, chroma_planes=None, up=None):
+        batched = cur.ndim == 3
+        if not batched:
+            cur = cur[None]
+        mv, sad, c, r = pyramid(cur, ref)
+        if (candidates or n_extra) and not fused:
+            mv, sad = compete(c, r, mv, sad, extra, chroma_planes, batched)
+        if fused or prec:
+            dy, dx, sad = me_final(c, r, up, mv.contiguous(), sad, ybsep,
+                                   xbsep, prec, fused, zero_cand,
+                                   ME_BOUND_PEL, margin)
+        else:
+            dy, dx = mv[..., 0], mv[..., 1]
+        if not batched:
+            return dy[0], dx[0], sad[0]
+        return dy, dx, sad
 
     return me
 
@@ -294,103 +276,3 @@ def _chroma_sads(chroma, chroma_planes, cand_mvs, ybsep, xbsep, nby, nbx,
         out.append(tot)
     return out
 
-
-# per-level static candidate tables for the patch formulation (see the
-# JAX module): d -> (delta, frac) at levels 1, 2; at level 3 two variants
-# switched on the quarter parity of the incoming mv.
-_SUBPEL_LVL = {
-    1: {-1: (0, 0), 0: (1, 0), 1: (2, 0)},
-    2: {-1: (0, 2), 0: (1, 0), 1: (1, 2)},
-    3: {-1: ((0, 3), (1, 1)), 0: ((1, 0), (1, 2)), 1: ((1, 1), (1, 3))},
-}
-
-
-def make_subpel_body(H, W, xbsep, ybsep, x_num_blocks, y_num_blocks,
-                     mv_precision):
-    """Sub-pel refinement: full-pel MVs -> 1/2^prec-pel MVs.
-
-    refine(cur u8, up (2h,2w) u8, dy, dx) -> (mv_y, mv_x, best_sad);
-    a batch cur (N, H, W) with fields (N, nby, nbx) refines against the
-    one up.
-    Scales to each precision level and scans the 3x3 sub-pel
-    neighbourhood with the renderer's exact fetch semantics
-    (schromotionest.c:133-246 analog) on per-block patches of the padded
-    half-pel plane."""
-    pad_h = ybsep * y_num_blocks
-    pad_w = xbsep * x_num_blocks
-    nby, nbx = y_num_blocks, x_num_blocks
-    ph = _round8(2 * ybsep + 4)
-    pw = _round8(2 * xbsep + 4)
-    margin = 2 * ME_BOUND_PEL + max(ph, pw) + 16
-
-    def bilerp(pat, dy_off, dx_off, ry, rx, bs_y, bs_x):
-        """Block grid from patches at static half-pel offset and static
-        fraction (ry, rx)."""
-        p00 = pat[:, dy_off:dy_off + 2 * bs_y:2, dx_off:dx_off + 2 * bs_x:2]
-        if ry == 0 and rx == 0:
-            return p00
-        p01 = pat[:, dy_off:dy_off + 2 * bs_y:2,
-                  dx_off + 1:dx_off + 1 + 2 * bs_x:2]
-        p10 = pat[:, dy_off + 1:dy_off + 1 + 2 * bs_y:2,
-                  dx_off:dx_off + 2 * bs_x:2]
-        p11 = pat[:, dy_off + 1:dy_off + 1 + 2 * bs_y:2,
-                  dx_off + 1:dx_off + 1 + 2 * bs_x:2]
-        v = ((4 - ry) * (4 - rx) * p00 + (4 - ry) * rx * p01
-             + ry * (4 - rx) * p10 + ry * rx * p11)
-        return (v + 8) >> 4
-
-    def refine(cur, up, dy_full, dx_full):
-        dev = cur.device
-        c = pad_edge(cur, 0, pad_h - H, 0, pad_w - W).to(torch.int32)
-        cb = _to_blocks(c, nby, ybsep, nbx, xbsep)
-        P = pad_halfpel(up, margin, margin)
-        mv_y = dy_full.clamp(-ME_BOUND_PEL, ME_BOUND_PEL)
-        mv_x = dx_full.clamp(-ME_BOUND_PEL, ME_BOUND_PEL)
-        best_sad = None
-        for level in range(1, mv_precision + 1):
-            mv_y = mv_y * 2
-            mv_x = mv_x * 2
-            sh = 3 - level
-            # base half-pel origin per block (mv even -> exact)
-            oy0 = ((mv_y << sh) >> 2) - 1
-            ox0 = ((mv_x << sh) >> 2) - 1
-            by = (2 * (_arange32(nby, dev) * ybsep))[:, None] + oy0 + margin
-            bx = (2 * (_arange32(nbx, dev) * xbsep))[None, :] + ox0 + margin
-            pat = extract_patches(P, by.reshape(-1), bx.reshape(-1),
-                                  ph, pw).to(torch.int32)
-
-            if level < 3:
-                tab = _SUBPEL_LVL[level]
-
-                def sample(dy_c, dx_c):
-                    ofy, ry = tab[dy_c]
-                    ofx, rx = tab[dx_c]
-                    return bilerp(pat, ofy, ofx, ry, rx, ybsep, xbsep)
-            else:
-                tab = _SUBPEL_LVL[3]
-                py2 = ((mv_y & 3) == 2).reshape(-1)[:, None, None]
-                px2 = ((mv_x & 3) == 2).reshape(-1)[:, None, None]
-
-                def sample(dy_c, dx_c):
-                    (oy0a, ry0), (oy2a, ry2) = tab[dy_c]
-                    (ox0a, rx0), (ox2a, rx2) = tab[dx_c]
-                    v00 = bilerp(pat, oy0a, ox0a, ry0, rx0, ybsep, xbsep)
-                    v02 = bilerp(pat, oy0a, ox2a, ry0, rx2, ybsep, xbsep)
-                    v20 = bilerp(pat, oy2a, ox0a, ry2, rx0, ybsep, xbsep)
-                    v22 = bilerp(pat, oy2a, ox2a, ry2, rx2, ybsep, xbsep)
-                    v0 = torch.where(px2, v02, v00)
-                    v2 = torch.where(px2, v22, v20)
-                    return torch.where(py2, v2, v0)
-
-            offs = [(dy_c, dx_c) for dy_c in (-1, 0, 1)
-                    for dx_c in (-1, 0, 1)]
-            s = torch.stack([(cb - sample(*o)).abs().sum(
-                (1, 2), dtype=torch.int32) for o in offs])
-            best = torch.argmin(s, dim=0)
-            off_t = torch.as_tensor(offs, dtype=torch.int32, device=dev)
-            mv_y = mv_y + off_t[best, 0].reshape(mv_y.shape)
-            mv_x = mv_x + off_t[best, 1].reshape(mv_x.shape)
-            best_sad = _take(s, best).reshape(mv_y.shape)
-        return mv_y, mv_x, best_sad
-
-    return refine

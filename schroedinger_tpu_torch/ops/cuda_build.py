@@ -42,6 +42,10 @@ SIGNATURES = {
     # part_err, mag, nz, err, stream
     "stat_tables_launch": [_ci, _ci, _ci, _cf, _ci, _cll, _vp, _vp, _vp,
                            _ci, _vp, _vp, _ci] + [_vp] * 6,
+    # csrc/me_final.cu: n, cur, ref, up, mv, sad, out, nby, nbx, bs_y,
+    # bs_x, h2, w2, prec, compete, zero_cand, bound, margin, sp_margin,
+    # stream
+    "me_final_launch": [_ci] + [_vp] * 6 + [_ci] * 12 + [_vp],
 }
 
 _lib = None

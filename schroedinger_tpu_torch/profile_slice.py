@@ -287,8 +287,10 @@ def main() -> int:
           f"{counted.get('upload_bytes', 0) / 1e6 / len(frames):.4f} MB, "
           f"fetched {counted.get('fetch_bytes', 0) / 1e6 / len(frames):.4f}"
           f" MB, kernel #1 launched "
-          f"{counted.get('me_search_launches', 0) / len(frames):.2f} times",
-          flush=True)
+          f"{counted.get('me_search_launches', 0) / len(frames):.2f} times,"
+          f" kernel #4 {counted.get('me_final_launches', 0) / len(frames):.2f}"
+          f" times ({counted.get('me_compete_plain', 0)} competitions in "
+          "PyTorch)", flush=True)
     spans = sum(k.count for k in prof.key_averages()
                 if k.key == "stat_tables" and k.device_type != _CUDA)
     print(f"encode: the stat tables kernel launched "

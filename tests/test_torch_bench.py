@@ -41,7 +41,8 @@ RUNNER_ARGS = ["--device", "cpu", "--size", f"{W}x{H}", "--frames", "6",
                "--frames-extra", "6"]
 ENCODE_KEYS = {"frames", "fps", "bytes", "padding_bytes", "psnr_db",
                "psnr_min_db", "mix",
-               "batches", "searches", "launches", "searches_per_reference",
+               "batches", "searches", "launches", "final_launches",
+               "searches_per_reference",
                "references_checked", "decode_fps_pipelined",
                "decode_fps_per_picture", "bytes_vs_pro_rata", "wall_s"}
 LEG_KEYS = {
@@ -221,8 +222,9 @@ def test_encode_leg_equals_jax(contents, name):
     if name == "rd binding":
         # over its share with no padding: the rate binds
         assert rep["bytes_vs_pro_rata"] > 1 and rep["padding_bytes"] == 0
-    assert rep["searches_per_reference"] == 5    # a 3-level pyramid
-    assert rep["launches"] == 0        # the CPU runs the plain search
+    assert rep["searches_per_reference"] == 3    # a 3-level pyramid
+    # the CPU runs the plain search and the plain final stage
+    assert rep["launches"] == 0 and rep["final_launches"] == 0
 
 
 @pytest.mark.parametrize("deg", [4, 3, 2])

@@ -2,7 +2,10 @@
 
 The ME search CUDA kernel (every shape and mode the ME launches, one
 picture and a batch) and its cost probe against the plain PyTorch
-version, the stat tables kernel against the plain sums (the main path's
+version, the ME's final stage kernel (the competition and the subpel
+refine at the main paths' grids, every precision and mode, the clamps
+and ties, its refusals and counters) against its plain version, the stat
+tables kernel against the plain sums (the main path's
 shapes, every error power, its determinism, its counter and its
 refusals), small streams of the slices encoded on the card against the CPU
 encode (every long-GOP rate control among them), the multiquant sums'
@@ -27,12 +30,15 @@ from schroedinger_tpu_torch.decoder.pipeline import PipelinedStreamDecoder
 from schroedinger_tpu_torch.encoder import me as me_mod
 from schroedinger_tpu_torch.encoder import ratecontrol as rc
 from schroedinger_tpu_torch.encoder.gop import GopEncoder
+from schroedinger_tpu_torch.ops import me_final as mf
+from schroedinger_tpu_torch.ops import obmc
 from schroedinger_tpu_torch.ops import patch_refine as pr
 from schroedinger_tpu_torch.ops import stat_tables as st
 from schroedinger_tpu_torch.slice_config import (CONFIG, CONFIG_BENCH,
                                                  CONFIG_FLAGSHIP,
                                                  make_frames, video_format)
 from schroedinger_tpu_torch.tools import profile_stat_tables as pst
+from schroedinger_tpu_torch.utils.telemetry import counters
 
 
 @pytest.fixture
@@ -163,6 +169,160 @@ def test_patch_refine_rejects_bad_inputs(cuda_device):
     bad_align[0] = buf[8:8 + args[0].numel()].view(args[0].shape)
     with pytest.raises(ValueError):                 # not 16-byte aligned
         pr.me_search(*bad_align)
+
+
+# (picture width, height, block size): the grids of the ME's final stage
+# on the main paths (1080p, a 1080i field, 2160p) and the small and
+# medium block settings at 1080p
+_FINAL_GRIDS = {"1080p": (1920, 1080, 16), "1080i-field": (1920, 540, 16),
+                "2160p": (3840, 2160, 16), "1080p-bsep8": (1920, 1080, 8),
+                "1080p-bsep12": (1920, 1080, 12)}
+
+
+def _final_args(dev, grid="1080p", n=1, prec=2, compete=True,
+                zero_cand=True, seed=0, flat=False, edge=False):
+    """me_final's arguments from a numpy seed at one of _FINAL_GRIDS: the
+    level-0 planes on the superblock-padded block grid, the half-pel
+    plane of the picture, vectors of a few pel (all at +-bound with
+    `edge`: every window clamped), hierarchy SADs in the range the picks
+    turn on; flat planes make every candidate tie."""
+    w, h, bs = _FINAL_GRIDS[grid]
+    rng = np.random.default_rng(seed)
+    nbx, nby = 4 * -(-w // (4 * bs)), 4 * -(-h // (4 * bs))
+    ph, pw = nby * bs, nbx * bs
+    bound = me_mod.ME_BOUND_PEL
+    if flat:
+        c = np.full((n, ph, pw), 77, np.uint8)
+        r = np.full((ph, pw), 90, np.uint8)
+        up = np.full((2 * h, 2 * w), 90, np.uint8)
+    else:
+        c = rng.integers(0, 256, (n, ph, pw), dtype=np.uint8)
+        r = rng.integers(0, 256, (ph, pw), dtype=np.uint8)
+        up = rng.integers(0, 256, (2 * h, 2 * w), dtype=np.uint8)
+    if edge:
+        mv = rng.choice([-bound, bound], (n, nby, nbx, 2))
+    else:
+        mv = rng.integers(-8, 9, (n, nby, nbx, 2))
+    lo = 13 * bs * bs if flat else 60 * bs * bs
+    sad = rng.integers(lo - bs * bs, lo + 40 * bs * bs, (n, nby, nbx))
+    t = [torch.tensor(a, device=dev) for a in
+         (c, r, up, mv.astype(np.int32), sad.astype(np.int32))]
+    return (*t, bs, bs, prec, compete, zero_cand, bound,
+            bound + 2 * 8 + 16)
+
+
+def _assert_final_equals_plain(args):
+    before = mf.launches()
+    got = mf.me_final(*args)
+    assert mf.launches() == before + 1
+    want = mf.me_final_plain(*args)
+    torch.cuda.synchronize()
+    for g, w, name in zip(got, want, ("dy", "dx", "sad")):
+        assert g.device.type == "cuda" and g.dtype == torch.int32
+        assert torch.equal(g, w), name
+    return got
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 3])
+@pytest.mark.parametrize("grid", sorted(_FINAL_GRIDS))
+def test_me_final_kernel_matches_plain(cuda_device, grid, n):
+    """Kernel #4 as the long-GOP encode launches it (quarter pel, the
+    competition with the zero candidate), one picture and a batch of
+    three, at each main path's grid and block size."""
+    _assert_final_equals_plain(_final_args(cuda_device, grid, n, seed=n))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("zero_cand", [True, False], ids=["zero", "nozero"])
+@pytest.mark.parametrize("prec,compete", [
+    (0, True), (1, True), (2, True), (3, True), (1, False), (2, False),
+    (3, False)], ids=["p0", "p1", "p2", "p3", "p1-subpel", "p2-subpel",
+                      "p3-subpel"])
+def test_me_final_kernel_modes_match_plain(cuda_device, prec, compete,
+                                           zero_cand):
+    """Every precision with the competition (p0: the competition alone),
+    the subpel levels alone (the ME's path under chroma ME or injected
+    candidates), with and without the zero candidate, at N = 3."""
+    _assert_final_equals_plain(_final_args(
+        cuda_device, n=3, prec=prec, compete=compete, zero_cand=zero_cand,
+        seed=10 + prec))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["edge", "flat"])
+@pytest.mark.parametrize("grid", ["1080p", "1080p-bsep8", "1080p-bsep12"])
+def test_me_final_kernel_clamps_and_ties(cuda_device, grid, case):
+    """Vectors at +-124 (the window and patch-origin clamps at every
+    border, the median at the bound) and flat planes (every candidate
+    ties: the first minimum wins), at quarter pel and eighth pel."""
+    for prec in (2, 3):
+        got = _assert_final_equals_plain(_final_args(
+            cuda_device, grid, n=3, prec=prec, seed=prec,
+            **{case: True}))
+        if case == "flat":
+            # every candidate at every level reads 13 a pixel
+            assert int(got[2].min()) == int(got[2].max()) == 13 * (
+                _FINAL_GRIDS[grid][2] ** 2)
+
+
+@pytest.mark.cuda
+def test_me_final_rejects_bad_inputs(cuda_device):
+    """The wrapper raises before any launch on another device, a wrong
+    type, shape or layout, a block beyond the shared-memory windows, and
+    a precision outside 0-3 or nothing to do."""
+    args = list(_final_args(cuda_device, "1080i-field", n=1))
+    before = mf.launches()
+
+    def refused(exc, k, value):
+        bad = list(args)
+        bad[k] = value
+        with pytest.raises(exc):
+            mf.me_final(*bad)
+    refused(ValueError, 1, args[1].cpu())            # planes on two devices
+    refused(TypeError, 1, args[1].to(torch.int32))   # ref must be u8
+    refused(ValueError, 3, args[3].transpose(1, 2))  # mv not contiguous
+    refused(ValueError, 4, args[4][:, 1:])           # sad of another grid
+    refused(ValueError, 0, args[0][0])               # c must be (N, h, w)
+    refused(ValueError, 2, args[2][0])               # up must be 2-D
+    refused(ValueError, 7, 4)                        # precision 0-3
+    refused(ValueError, 5, 40)                       # block beyond 32
+    with pytest.raises(ValueError):                  # nothing to do
+        mf.me_final(*args[:7], 0, False, *args[9:])
+    assert mf.launches() == before
+
+
+@pytest.mark.cuda
+def test_me_final_counters_count_on_the_card(cuda_device):
+    """me_final_launches counts kernel #4's launches: one a pass of the
+    default ME, which makes the pyramid's searches alone with kernel #1
+    and leaves no competition in PyTorch (me_compete_plain); chroma ME
+    keeps its competition in PyTorch and refines with kernel #4; no deep
+    estimation launches neither."""
+    w, h, bs = 128, 64, 8
+    frames = make_frames(2, w, h)
+    cur, ref = (torch.tensor(f[0], device=cuda_device) for f in frames)
+    cu, cv = (torch.tensor(p, device=cuda_device) for p in frames[1][1:])
+    ru, rv = (torch.tensor(p, device=cuda_device) for p in frames[0][1:])
+    up = obmc.make_halfpel(obmc.upsample_plane(ref))
+    levels = me_mod.pyramid_levels(h, w, 5)
+
+    def counts(body, *a, **k):
+        before = counters.snapshot()
+        body(cur, ref, *a, **k)
+        after = counters.snapshot()
+        return tuple(after.get(n, 0) - before.get(n, 0) for n in (
+            "me_search_launches", "me_final_launches", "me_compete_plain"))
+    default = me_mod.make_me_body(h, w, bs, bs, w // bs, h // bs, levels=5,
+                                  mv_precision=2)
+    assert counts(default, up=up) == (levels, 1, 0)
+    chroma = me_mod.make_me_body(h, w, bs, bs, w // bs, h // bs, levels=5,
+                                 mv_precision=2, chroma=(4, 4, 32, 64))
+    assert counts(chroma, chroma_planes=(cu, cv, ru, rv), up=up) == (
+        levels + 2 + 6, 1, 1)
+    no_deep = me_mod.make_me_body(h, w, bs, bs, w // bs, h // bs, levels=5,
+                                  mv_precision=2, candidates=False)
+    assert counts(no_deep) == (levels, 0, 0)
 
 
 def _stat_case(name, dev, seed=0, peak=None, dtype=None):
@@ -308,7 +468,7 @@ def _psnr(a, b):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("w,h,rate,level,launches,binds", [
-    (128, 64, 500_000, 0, 5 * (1 + 2 * 7), False),
+    (128, 64, 500_000, 0, 3 * (1 + 2 * 7), False),
     (320, 192, 100_000, 150_000, None, True)],
     ids=["full-reservoir", "binding-fit"])
 def test_small_flagship_stream_on_card_within_bands_of_cpu(
@@ -327,7 +487,8 @@ def test_small_flagship_stream_on_card_within_bands_of_cpu(
     e_gpu = GopEncoder(vf, **cfg)                            # device=None
     s_gpu = e_gpu.encode_stream(frames)
     # I, one-reference P, 3 B, two-reference P, 3 B; 128x64 has a
-    # 3-level pyramid, so levels + 2 = 5 searches per reference
+    # 3-level pyramid, so 3 searches per reference (the competition's
+    # SADs are the final stage's, one launch of kernel #4 a reference)
     assert pr.launches() > before
     if launches is not None:
         assert pr.launches() - before == launches
@@ -359,11 +520,12 @@ def test_small_b_batch_stream_on_card_within_bands_of_cpu(cuda_device):
     frames = make_frames(9, 128, 64)
     vf = video_format(128, 64)
     cfg = dict(CONFIG_BENCH, bitrate=500_000)
-    before = pr.launches()
+    before, final0 = pr.launches(), mf.launches()
     s_gpu = GopEncoder(vf, **cfg).encode_stream(frames)
     # I, one-reference P, a batch of 3 B, two-reference P, a batch of 3 B;
-    # 5 searches per reference at 128x64
-    assert pr.launches() - before == 5 * (1 + 2 + 2 + 2)
+    # 3 searches and one final stage per reference at 128x64
+    assert pr.launches() - before == 3 * (1 + 2 + 2 + 2)
+    assert mf.launches() - final0 == 1 + 2 + 2 + 2
     s_cpu = GopEncoder(vf, device="cpu", **cfg).encode_stream(frames)
     psnrs = []
     for stream, device in ((s_gpu, None), (s_cpu, "cpu")):

@@ -244,14 +244,16 @@ def test_step_cache_builds_once_under_threads(monkeypatch):
 
 
 def test_kernel_loader_builds_and_loads_once_under_threads(monkeypatch):
-    """The kernel library (the ME search and the stat tables) is built and
-    loaded once however many threads reach the loader first (nvcc and the
-    library stand in), with every entry point's argument types set."""
+    """The kernel library (the ME search, the stat tables and the ME's
+    final stage) is built and loaded once however many threads reach the
+    loader first (nvcc and the library stand in), with every entry
+    point's argument types set."""
     builds, loads = [], []
 
     class FakeLibrary:
         me_search_launch = type("Fn", (), {})()
         stat_tables_launch = type("Fn", (), {})()
+        me_final_launch = type("Fn", (), {})()
 
     def build():
         builds.append(1)

@@ -3,8 +3,12 @@ plain version on the CPU) in its four modes (coarse scan, hint refine,
 median SAD, zero SAD), the whole hierarchical ME and the subpel refine
 against the JAX package, bit for bit.  The JAX side of the hint refine
 runs both as me._patch_refine and as the Pallas kernel in interpret mode.
-The CUDA kernel itself is checked against its plain version in
-tests/test_torch_cuda.py, which runs only where there is a card."""
+The ME's final stage (`ops/me_final.py`): its plain version equals the
+composition of the whole ME and the subpel refine (and the JAX
+package's), and a numpy model of kernel #4's arithmetic equals the plain
+version.  The CUDA kernels themselves are checked against their plain
+versions in tests/test_torch_cuda.py, which runs only where there is a
+card."""
 import functools
 import os
 import shutil
@@ -22,8 +26,10 @@ from schroedinger_tpu.ops import obmc as j_obmc
 from schroedinger_tpu.ops import pallas_me
 from schroedinger_tpu_torch.encoder import me as t_me
 from schroedinger_tpu_torch.ops import cuda_build
+from schroedinger_tpu_torch.ops import me_final as mf
 from schroedinger_tpu_torch.ops import obmc as t_obmc
 from schroedinger_tpu_torch.ops import patch_refine as pr
+from schroedinger_tpu_torch.ops.pad import pad_edge
 from schroedinger_tpu_torch.tools import profile_patch_refine as ppr
 
 torch.set_num_threads(1)
@@ -309,10 +315,13 @@ def test_subpel_body_whole(prec):
     jup = j_obmc.make_halfpel(j_obmc.upsample_plane(jnp.asarray(ref)))
     tup = t_obmc.make_halfpel(t_obmc.upsample_plane(torch.as_tensor(ref)))
     jfn = j_me.make_subpel_body(H, W, BSEP, BSEP, XNB, YNB, prec)
-    tfn = t_me.make_subpel_body(H, W, BSEP, BSEP, XNB, YNB, prec)
     jy, jx, js = jfn(jnp.asarray(cur), jup, jnp.asarray(dy), jnp.asarray(dx))
-    ty, tx, ts = tfn(torch.as_tensor(cur), tup, torch.as_tensor(dy),
-                     torch.as_tensor(dx))
+    # the port's subpel refine: the final stage's subpel levels alone (the
+    # 128x64 plane is a whole number of blocks, so it needs no padding)
+    mv = torch.stack([torch.as_tensor(dy), torch.as_tensor(dx)], -1)
+    ty, tx, ts = (o[0] for o in mf.me_final(
+        torch.as_tensor(cur)[None], None, tup, mv[None], None, BSEP, BSEP,
+        prec, False, False, t_me.ME_BOUND_PEL, 0))
     _eq(ty, jy)
     _eq(tx, jx)
     _eq(ts, js)
@@ -332,3 +341,275 @@ def test_library_route_equals_plain_search(shape, flat):
     mv, sad = ppr.library_search(*args)
     want_mv, want_sad = pr.me_search_plain(*args)
     assert torch.equal(mv, want_mv) and torch.equal(sad, want_sad)
+
+
+def _batch_pair(n, w, h, seed):
+    """n current pictures (a pan each) and one reference, u8 numpy."""
+    cur, ref = _frame_pair(seed=seed, w=w, h=h)
+    curs = [cur] + [_frame_pair(seed=seed + k, shift=(k, 2 - 3 * k), w=w,
+                                h=h)[0] for k in range(1, n)]
+    return np.stack(curs), ref
+
+
+@pytest.mark.parametrize("n", [1, 3])
+@pytest.mark.parametrize("zero_cand", [True, False], ids=["zero", "nozero"])
+@pytest.mark.parametrize("prec", [1, 2, 3])
+def test_final_plain_equals_me_then_subpel(prec, zero_cand, n):
+    """me_final_plain on the pyramid's result (make_me_body without
+    candidates) equals make_me_body followed by the final stage's subpel
+    levels alone (me_final without the competition), the ME with its
+    precision in one body, and the JAX package's composition
+    (make_me_body + make_subpel_body) per picture."""
+    w, h = 120, 72                   # cropped: 9 x 15 blocks of 8 on 72x120
+    xnb, ynb = w // BSEP, h // BSEP
+    curs, ref = _batch_pair(n, w, h, seed=20 + prec)
+    tcur, tref = torch.as_tensor(curs), torch.as_tensor(ref)
+    tup = t_obmc.make_halfpel(t_obmc.upsample_plane(tref))
+    kw = dict(levels=5, zero_cand=zero_cand)
+    pyr = t_me.make_me_body(h, w, BSEP, BSEP, xnb, ynb, candidates=False,
+                            **kw)(tcur, tref)
+    c = pad_edge(tcur, 0, ynb * BSEP - h, 0, xnb * BSEP - w)
+    r = pad_edge(tref, 0, ynb * BSEP - h, 0, xnb * BSEP - w)
+    margin = t_me.ME_BOUND_PEL + 2 * 8 + 16       # coarse radius 8
+    got = mf.me_final_plain(c, r, tup, torch.stack(pyr[:2], -1), pyr[2],
+                            BSEP, BSEP, prec, True, zero_cand,
+                            t_me.ME_BOUND_PEL, margin)
+    dy, dx, _ = t_me.make_me_body(h, w, BSEP, BSEP, xnb, ynb, **kw)(tcur,
+                                                                   tref)
+    want = mf.me_final(c, None, tup, torch.stack([dy, dx], -1), None, BSEP,
+                       BSEP, prec, False, False, t_me.ME_BOUND_PEL, 0)
+    whole = t_me.make_me_body(h, w, BSEP, BSEP, xnb, ynb, mv_precision=prec,
+                              **kw)(tcur, tref, up=tup)
+    for g, a, b, name in zip(got, want, whole, ("dy", "dx", "sad")):
+        assert torch.equal(g, a) and torch.equal(g, b), name
+    jme = j_me.make_me_body(h, w, BSEP, BSEP, xnb, ynb, **kw)
+    jsub = j_me.make_subpel_body(h, w, BSEP, BSEP, xnb, ynb, prec)
+    jup = j_obmc.make_halfpel(j_obmc.upsample_plane(jnp.asarray(ref)))
+    for k in range(n):
+        jy, jx, _ = jme(jnp.asarray(curs[k]), jnp.asarray(ref))
+        jwant = jsub(jnp.asarray(curs[k]), jup, jy, jx)
+        for g, j_, name in zip(got, jwant, ("dy", "dx", "sad")):
+            _eq(g[k], j_, f"{name} of picture {k} vs the JAX package")
+
+
+# csrc/me_final.cu's median of nine and its SUBPEL_LVL functions
+_MED9_NET = ((1, 2), (4, 5), (7, 8), (0, 1), (3, 4), (6, 7), (1, 2), (4, 5),
+             (7, 8), (0, 3), (5, 8), (4, 7), (3, 6), (1, 4), (2, 5), (4, 7),
+             (2, 4), (4, 6), (2, 4))
+
+
+def _median9(v):
+    p = list(v)
+    for a, b in _MED9_NET:
+        p[a], p[b] = min(p[a], p[b]), max(p[a], p[b])
+    return p[4]
+
+
+def _sp_off(v, d):
+    return d if v == 0 else 1 if (v == 3 or d != 0) else 0
+
+
+def _sp_frac(v, d):
+    if v == 0:
+        return 0
+    if v == 1:
+        return 0 if d == 1 else 2
+    if v == 2:
+        return (3, 0, 1)[d]
+    return d + 1
+
+
+def _round8(v):
+    return (v + 7) & ~7
+
+
+def _kernel_model(c, r, up, mv, sad, bs, prec, compete, zero_cand, bound,
+                  margin):
+    """Kernel #4's arithmetic as csrc/me_final.cu writes it, block by
+    block in numpy: the median network, me_search's radius-0 window
+    clamps on the level-0 planes, the patch-origin clamp of the padded
+    half-pel plane, the window read from the unpadded plane with
+    pad_halfpel's clamp, the bilinear taps vertical first."""
+    n, ph, pw = c.shape
+    nby, nbx = ph // bs, pw // bs
+    c = c.astype(np.int64)
+    h2, w2 = up.shape if up is not None else (0, 0)
+    spm = mf.subpel_margin(bs, bs, bound)
+    rr, cc = np.mgrid[0:bs, 0:bs]
+    out = np.zeros((3, n, nby, nbx), np.int64)
+    for k in range(n):
+        for i in range(nby):
+            for j in range(nbx):
+                cur = c[k, i * bs + rr, j * bs + cc]
+                my, mx = (int(v) for v in mv[k, i, j])
+                s = 0
+                if compete:
+                    taps = [mv[k, min(max(i + a, 0), nby - 1),
+                               min(max(j + b, 0), nbx - 1)]
+                            for a in (-1, 0, 1) for b in (-1, 0, 1)]
+                    med = [_median9([int(t[q]) for t in taps])
+                           for q in (0, 1)]
+                    lim = ph + 2 * margin - _round8(bs), \
+                        pw + 2 * margin - _round8(bs)
+
+                    def window_sad(hy, hx):
+                        y0 = min(max(i * bs + margin + hy, 0), lim[0]) \
+                            - margin
+                        x0 = min(max(j * bs + margin + hx, 0), lim[1]) \
+                            - margin
+                        pat = r[np.clip(y0 + rr, 0, ph - 1),
+                                np.clip(x0 + cc, 0, pw - 1)]
+                        return int(np.abs(cur - pat).sum())
+                    s_med = window_sad(*(min(max(v, -bound), bound)
+                                         for v in med))
+                    bias = bs * bs // 16
+                    s = key = int(sad[k, i, j])
+                    if s_med - bias < key:
+                        key, (my, mx), s = s_med - bias, med, s_med
+                    if zero_cand:
+                        s_zero = window_sad(0, 0)
+                        if s_zero - bias < key:
+                            my, mx, s = 0, 0, s_zero
+                if prec:
+                    lim = (h2 + 2 * spm - _round8(2 * bs + 4),
+                           w2 + 2 * spm - _round8(2 * bs + 4))
+                    my = min(max(my, -bound), bound)
+                    mx = min(max(mx, -bound), bound)
+                    for level in range(1, prec + 1):
+                        my, mx = 2 * my, 2 * mx
+                        sh = 3 - level
+                        y0 = min(max(2 * i * bs + ((my << sh) >> 2) - 1
+                                     + spm, 0), lim[0]) - spm
+                        x0 = min(max(2 * j * bs + ((mx << sh) >> 2) - 1
+                                     + spm, 0), lim[1]) - spm
+                        win = up[np.clip(y0 + np.arange(2 * bs + 2), 0,
+                                         h2 - 2)[:, None],
+                                 np.clip(x0 + np.arange(2 * bs + 2), 0,
+                                         w2 - 2)[None, :]].astype(np.int64)
+                        if level < 3:
+                            vy = vx = level - 1
+                        else:
+                            vy = 3 if my & 3 == 2 else 2
+                            vx = 3 if mx & 3 == 2 else 2
+                        sads = []
+                        for a in range(3):
+                            oy, ry = _sp_off(vy, a), _sp_frac(vy, a)
+                            vert = [(4 - ry) * win[2 * rr + oy, 2 * cc + v]
+                                    + ry * win[2 * rr + oy + 1, 2 * cc + v]
+                                    for v in range(4)]
+                            for b in range(3):
+                                ox, rx = _sp_off(vx, b), _sp_frac(vx, b)
+                                pred = ((4 - rx) * vert[ox]
+                                        + rx * vert[ox + 1] + 8) >> 4
+                                sads.append(int(np.abs(cur - pred).sum()))
+                        q = int(np.argmin(sads))
+                        my, mx, s = my + q // 3 - 1, mx + q % 3 - 1, sads[q]
+                out[:, k, i, j] = my, mx, s
+    return out
+
+
+def test_kernel_median_network_selects_the_median():
+    """The 19-comparator network of csrc/me_final.cu picks the fifth
+    smallest of every 0-1 input, hence (0-1 principle) of every input."""
+    for bits in range(512):
+        v = [(bits >> q) & 1 for q in range(9)]
+        assert _median9(v) == sorted(v)[4]
+    rng = np.random.default_rng(0)
+    for v in rng.integers(-124, 125, (200, 9)):
+        assert _median9(v) == np.sort(v)[4]
+
+
+def test_kernel_index_division_is_exact():
+    """Kernel #4 divides a tile's flat index t by its width d as (t *
+    ceil(2^20 / d)) >> 20 in 32 bits: exact for every width and index of
+    the tiles it stages, up to a window of the largest block the wrapper
+    takes."""
+    top = 2 * mf.MAX_BSEP + 2
+    for d in range(1, top + 1):
+        inv = -(-(1 << 20) // d)
+        t = np.arange(top * d, dtype=np.int64)
+        assert t[-1] * inv < 2 ** 32
+        np.testing.assert_array_equal((t * inv) >> 20, t // d)
+
+
+def _final_case(n, nby, nbx, bs, seed, flat=False, edge=False):
+    """me_final's arguments from a numpy seed: level-0 planes of
+    nby x nbx blocks, a half-pel plane of a picture cropped below the
+    block grid, vectors of a few pel (all at +-bound with `edge`, where
+    every window is clamped), hierarchy SADs in the range the picks turn
+    on."""
+    rng = np.random.default_rng(seed)
+    ph, pw = nby * bs, nbx * bs
+    bound = t_me.ME_BOUND_PEL
+    if flat:        # every candidate ties
+        c = np.full((n, ph, pw), 77, np.uint8)
+        r = np.full((ph, pw), 90, np.uint8)
+        up = np.full((2 * ph - 6, 2 * pw - 10), 90, np.uint8)
+    else:
+        c = rng.integers(0, 256, (n, ph, pw)).astype(np.uint8)
+        r = rng.integers(0, 256, (ph, pw)).astype(np.uint8)
+        up = rng.integers(0, 256, (2 * ph - 6, 2 * pw - 10)).astype(np.uint8)
+    if edge:
+        mv = rng.choice([-bound, bound], (n, nby, nbx, 2))
+    else:
+        mv = rng.integers(-3, 4, (n, nby, nbx, 2))
+    lo = 13 * bs * bs if flat else 60 * bs * bs
+    sad = rng.integers(lo - bs * bs, lo + 40 * bs * bs, (n, nby, nbx))
+    margin = bound + 2 * 8 + 16
+    return (c, r, up, mv.astype(np.int32), sad.astype(np.int32), bound,
+            margin)
+
+
+@pytest.mark.parametrize("case", [
+    # (n, nby, nbx, bs, prec, compete, zero_cand, flat, edge)
+    (1, 3, 4, 8, 2, True, True, False, False),
+    (3, 3, 4, 8, 2, True, True, False, False),
+    (3, 2, 3, 16, 3, True, True, False, False),
+    (3, 4, 6, 8, 3, False, False, False, False),
+    (1, 3, 2, 12, 1, True, False, False, False),
+    (3, 2, 3, 8, 0, True, True, False, False),
+    (1, 2, 3, 16, 2, False, False, False, False),
+    (3, 3, 3, 8, 3, False, False, False, True),
+    (1, 3, 3, 8, 2, True, True, False, True),
+    (3, 2, 2, 16, 2, True, True, True, False),
+    (1, 2, 3, 12, 3, True, False, True, True)],
+    ids=lambda c: "n{}-{}x{}x{}-p{}-{}{}{}{}".format(
+        *c[:5], "c" if c[5] else "s", "z" if c[6] else "",
+        "-flat" if c[7] else "", "-edge" if c[8] else ""))
+def test_kernel_model_equals_plain(case):
+    """The numpy model of kernel #4's arithmetic equals me_final_plain:
+    the competition, subpel-only and competition-only modes, every
+    precision, 8, 12 and 16 px blocks, vectors at the bound (the window
+    and patch clamps) and flat planes (first-minimum ties)."""
+    n, nby, nbx, bs, prec, compete, zero_cand, flat, edge = case
+    c, r, up, mv, sad, bound, margin = _final_case(n, nby, nbx, bs,
+                                                   seed=sum(case[:5]),
+                                                   flat=flat, edge=edge)
+    want = mf.me_final_plain(torch.as_tensor(c), torch.as_tensor(r),
+                             torch.as_tensor(up), torch.as_tensor(mv),
+                             torch.as_tensor(sad), bs, bs, prec, compete,
+                             zero_cand, bound, margin)
+    got = _kernel_model(c, r, up, mv, sad, bs, prec, compete, zero_cand,
+                        bound, margin)
+    for g, w_, name in zip(got, want, ("dy", "dx", "sad")):
+        np.testing.assert_array_equal(g, w_.numpy(), err_msg=name)
+    # the winners move: not every block keeps the pyramid's vector
+    if not flat and compete:
+        assert (got[:2] != (mv.transpose(3, 0, 1, 2) << prec)).any()
+
+
+def test_me_final_on_the_cpu_runs_the_plain_version():
+    """me_final on CPU tensors is me_final_plain and launches nothing;
+    another device raises."""
+    c, r, up, mv, sad, bound, margin = _final_case(1, 2, 3, 8, seed=4)
+    args = (torch.as_tensor(c), torch.as_tensor(r), torch.as_tensor(up),
+            torch.as_tensor(mv), torch.as_tensor(sad), 8, 8, 2, True, True,
+            bound, margin)
+    before = mf.launches()
+    got = mf.me_final(*args)
+    assert mf.launches() == before
+    for g, w_ in zip(got, mf.me_final_plain(*args)):
+        assert torch.equal(g, w_)
+    meta = torch.zeros((1, 16, 24), dtype=torch.uint8, device="meta")
+    with pytest.raises(ValueError):
+        mf.me_final(meta, *args[1:])

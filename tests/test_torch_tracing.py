@@ -129,6 +129,16 @@ def test_uploads_and_fetches_are_counted(clip):
     assert counted.get("me_search_launches", 0) == 0   # the CPU's plain ME
 
 
+def test_final_stage_launches_nothing_on_the_cpu(clip):
+    """The ME's final stage runs its plain version on the CPU: kernel
+    #4's counter stays 0, as kernel #1's does, and no competition counts
+    as left in PyTorch on the card."""
+    counted = clip["counted"]
+    assert counted.get("me_final_launches", 0) == 0
+    assert counted.get("me_search_launches", 0) == 0
+    assert counted.get("me_compete_plain", 0) == 0
+
+
 def test_arith_span_once_a_picture_and_inline_at_128x64(clip):
     # one batch a picture, every band of it on the calling thread: a
     # 128x64 picture is below the pool's threshold
