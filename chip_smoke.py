@@ -298,6 +298,7 @@ from schroedinger_tpu_torch.tools import profile_patch_refine as probe_tool
 from schroedinger_tpu_torch.tools import profile_stat_tables as pst
 from schroedinger_tpu_torch.tools.profile_patch_refine import (
     ALU_OPS_PER_S, HBM_BYTES_PER_S, gpu_line, graph_ms, time_ms)
+from schroedinger_tpu_torch.utils.telemetry import counters
 
 # searches per reference of a 1080p inter picture: the coarse scan and four
 # hint refines (5-level pyramid); the competition's median and zero SADs
@@ -1102,8 +1103,12 @@ def phase_lowdelay_cli(card):
     torch.cuda.synchronize()
     runs = []
     for _ in range(2):
+        before = counters.snapshot()
         enc, stream, secs = encode_timed(lambda: api.Encoder(vf, cfg), frames)
-        runs.append((stream, secs, enc.ld_seconds))
+        after = counters.snapshot()
+        runs.append((stream, secs, {
+            k: (after[f"ld_{k}_ns"] - before.get(f"ld_{k}_ns", 0)) / 1e9
+            for k in ("fetch", "pack")}))
     stream = runs[0][0]
     if any(r[0] != stream for r in runs):
         raise AssertionError("phase10: two runs gave different bytes")

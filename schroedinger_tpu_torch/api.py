@@ -41,6 +41,7 @@ import time
 from typing import List, Optional, Tuple
 
 import numpy as np
+import torch
 from torch.profiler import record_function
 
 from schroedinger_tpu_torch import bitstream as bs
@@ -53,7 +54,8 @@ from schroedinger_tpu_torch.encoder.gop import GopEncoder
 from schroedinger_tpu_torch.encoder.ratecontrol import QuantiserEngine
 from schroedinger_tpu_torch.frontends import weave_fields
 from schroedinger_tpu_torch.params import Params, subband_count
-from schroedinger_tpu_torch.pipeline import planes_to_device
+from schroedinger_tpu_torch.pipeline import upload_picture
+from schroedinger_tpu_torch.utils.telemetry import counters
 from schroedinger_tpu_torch.video_format import VideoFormat
 from schroedinger_tpu_torch.wavelets import MAX_DEPTH_S16, Wavelet
 
@@ -333,18 +335,28 @@ class Encoder:
         GIL).  The JAX encoder packs on its main thread, where one jitted
         call queues the analysis; in eager torch queueing it is host work
         of its own, so the packing moves to the worker to overlap it.
-        `ld_seconds` sums the worker's fetch and packing time."""
+        On the card the worker fetches on a stream of its own, so the
+        copy of frame N runs beside the analysis of frame N+1.
+        The counters `ld_fetch_ns` and `ld_pack_ns` sum the worker's
+        fetch and packing time (a profiler that records only the thread
+        that started it sees no span of the worker's).  Spans: `ld_analysis` (the upload
+        and the queued analysis), `ld_fetch` (the worker's fetch),
+        `ld_pack` (its packing) and `ld_wait` (the main thread waiting
+        for a packed picture)."""
         analyze = loe._get_analyze_fn(self.params)
-        self.ld_seconds = {"fetch": 0.0, "pack": 0.0}
+        side = (torch.cuda.Stream(self.device)
+                if self.device.type == "cuda" else None)
 
-        def host_half(dev, fnum):
-            t0 = time.perf_counter()
-            host = loe.fetch_analysis(dev)
-            t1 = time.perf_counter()
+        def host_half(dev, ready, fnum):
+            t0 = time.perf_counter_ns()
+            with record_function("ld_fetch"):
+                host = loe.fetch_analysis(dev, side, ready)
+            t1 = time.perf_counter_ns()
             unit = loe.encode_picture_from_analysis(host, self.params, fnum,
                                                     False)
-            self.ld_seconds["fetch"] += t1 - t0
-            self.ld_seconds["pack"] += time.perf_counter() - t1
+            t2 = time.perf_counter_ns()
+            counters.add("ld_fetch_ns", t1 - t0)
+            counters.add("ld_pack_ns", t2 - t1)
             return unit
 
         out = bytearray()
@@ -352,9 +364,13 @@ class Encoder:
             pending = None
             for f in frames:
                 with record_function("ld_analysis"):
-                    dev = analyze(*planes_to_device(
+                    dev = analyze(*upload_picture(
                         f, self.vf.bit_depth, self.device))
-                fut = pool.submit(host_half, dev, self.frame_number)
+                    ready = None
+                    if side is not None:
+                        ready = torch.cuda.Event()
+                        ready.record()
+                fut = pool.submit(host_half, dev, ready, self.frame_number)
                 self.frame_number += 1
                 if pending is not None:
                     self._emit_lowdelay(pending, out)
@@ -365,9 +381,10 @@ class Encoder:
         return bytes(out)
 
     def _emit_lowdelay(self, fut, out: bytearray) -> None:
-        units = [bs.write_sequence_header(self.vf, profile=0, level=0),
-                 fut.result()]
-        out += self._chain.add(units)
+        with record_function("ld_wait"):
+            unit = fut.result()
+        out += self._chain.add(
+            [bs.write_sequence_header(self.vf, profile=0, level=0), unit])
 
 
 class Decoder:

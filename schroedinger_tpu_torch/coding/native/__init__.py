@@ -1,7 +1,7 @@
 """Build + ctypes bindings for the native coding layer.
 
-Compiles this package's own schro_coding.cpp and arith_pool.cpp with g++
-at first use into `build/schroedinger_tpu_torch/` (the file name carries a
+Compiles this package's own schro_coding.cpp (through ld_pack.cpp, which
+includes it) and arith_pool.cpp with g++ at first use into `build/schroedinger_tpu_torch/` (the file name carries a
 hash of the sources, the flags and the compiler's resolved target, so a
 change to any of them builds anew) and exposes the coder that the codec
 pipelines call: the port has no other.  A failed build raises; there is
@@ -26,6 +26,9 @@ from schroedinger_tpu_torch.utils.telemetry import counters
 _DIR = os.path.dirname(os.path.abspath(__file__))
 _SRC = os.path.join(_DIR, "schro_coding.cpp")
 _POOL_SRC = os.path.join(_DIR, "arith_pool.cpp")
+# built in _SRC's place: it includes _SRC (the JAX package's coder, line for
+# line) and adds the low-delay packing on the pool's threads
+_LD_SRC = os.path.join(_DIR, "ld_pack.cpp")
 _PKG = os.path.dirname(os.path.dirname(_DIR))
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build",
                          "schroedinger_tpu_torch")
@@ -50,7 +53,7 @@ def build() -> str:
     target = subprocess.run(["g++", *CXX_FLAGS, "-Q", "--help=target"],
                             capture_output=True, text=True, check=True).stdout
     key = hashlib.sha256()
-    for src in (_SRC, _POOL_SRC):
+    for src in (_SRC, _LD_SRC, _POOL_SRC):
         with open(src, "rb") as f:
             key.update(f.read())
     key.update("\0".join([*CXX_FLAGS, target]).encode())
@@ -59,10 +62,10 @@ def build() -> str:
     if not os.path.exists(LIBRARY):
         os.makedirs(BUILD_DIR, exist_ok=True)
         tmp = f"{LIBRARY}.{os.getpid()}.tmp"
-        res = subprocess.run(["g++", *CXX_FLAGS, "-o", tmp, _SRC, _POOL_SRC],
-                             capture_output=True, text=True)
+        res = subprocess.run(["g++", *CXX_FLAGS, "-o", tmp, _LD_SRC,
+                              _POOL_SRC], capture_output=True, text=True)
         if res.returncode != 0:
-            raise RuntimeError(f"g++ failed on {_SRC}, {_POOL_SRC}:\n"
+            raise RuntimeError(f"g++ failed on {_LD_SRC}, {_POOL_SRC}:\n"
                                f"{res.stderr}")
         os.replace(tmp, LIBRARY)
     return LIBRARY
@@ -471,8 +474,8 @@ def frame_md5(planes):
 def _ensure_tab():
     with _LOCK:
         if not hasattr(_lib, "_tab_ready"):
-            _lib.ld_encode_tab.restype = C.c_int64
-            _lib.ld_encode_tab.argtypes = [
+            _lib.ld_encode_tab_pooled.restype = C.c_int64
+            _lib.ld_encode_tab_pooled.argtypes = [
                 _i32p, _i32p, _i32p, _i32p, _i32p,
                 C.c_int, C.c_int, C.c_int, C.c_int,
                 C.c_int, C.c_int, C.c_int, C.c_int,
@@ -480,15 +483,28 @@ def _ensure_tab():
                 C.c_int, C.c_int, C.c_int, C.c_int,
                 C.c_int, C.c_int, _i64p,
                 _i32p, _i32p, _i32p, _i32p, _i32p, _i32p,
-                _u8p, C.c_int64, _i32p]
+                _u8p, C.c_int64, _i32p, C.c_int]
             _lib._tab_ready = True
+
+
+def ld_pack_helpers(coeffs: int) -> int:
+    """Pool threads that help pack a low-delay picture of `coeffs`
+    coefficients: none below POOL_MIN_COEFFS, else all but two of the
+    process's CPUs (one is the caller's, one is left to the thread that
+    queues the next picture's device work)."""
+    if coeffs < POOL_MIN_COEFFS:
+        return 0
+    return max(0, arith_pool_cpus() - 2)
 
 
 def ld_encode_tab(yd, ud, vd, y_qmo, uv_qmo, ny, nx, y_bh, y_bw, uv_bh, uv_bw,
                   y_ll, u_ll, v_ll, dc_qm, slice_bytes,
                   y_bits, y_last, u_bits, u_last, v_bits, v_last,
-                  deep=False):
-    """Slice search using TPU-precomputed per-base aggregates."""
+                  deep=False, helpers=None):
+    """Slice search using TPU-precomputed per-base aggregates, then the
+    slices packed by rows on the calling thread and `helpers` pool
+    threads (None: `ld_pack_helpers` of the picture); the bytes do not
+    depend on `helpers`."""
     _ensure_tab()
     yd = np.ascontiguousarray(yd, np.int32)
     ud = np.ascontiguousarray(ud, np.int32)
@@ -504,7 +520,9 @@ def ld_encode_tab(yd, ud, vd, y_qmo, uv_qmo, ny, nx, y_bh, y_bw, uv_bh, uv_bw,
     bases = np.zeros(ny * nx, dtype=np.int32)
     tabs = [np.ascontiguousarray(t.reshape(61, -1), np.int32)
             for t in (y_bits, y_last, u_bits, u_last, v_bits, v_last)]
-    n = _lib.ld_encode_tab(
+    if helpers is None:
+        helpers = ld_pack_helpers(yd.size + ud.size + vd.size)
+    n = _lib.ld_encode_tab_pooled(
         yd.reshape(-1, Sy), ud.reshape(-1, Suv), vd.reshape(-1, Suv),
         np.ascontiguousarray(y_qmo, np.int32),
         np.ascontiguousarray(uv_qmo, np.int32),
@@ -512,7 +530,7 @@ def ld_encode_tab(yd, ud, vd, y_qmo, uv_qmo, ny, nx, y_bh, y_bw, uv_bh, uv_bw,
         y_ll, u_ll, v_ll,
         y_ll.shape[1], y_ll.shape[0], u_ll.shape[1], u_ll.shape[0],
         dc_qm, 1 if deep else 0, slice_bytes.reshape(-1), *tabs, out, cap,
-        bases)
+        bases, int(helpers))
     if n < 0:
         raise ValueError("low-delay slice overflow")
     return out.tobytes(), bases.reshape(ny, nx)

@@ -1,5 +1,6 @@
 // The subbands of one picture arith-coded concurrently on a pool of host
-// threads.
+// threads, and the same pool lent to other independent jobs (`pool_for`:
+// the low-delay slices' packing).
 //
 // Each subband is its own arithmetic stream (the contexts restart and the
 // parse unit carries its length), so the bands of a picture do not depend
@@ -79,22 +80,34 @@ void code_band(ArithBand& b, int on_worker) {
   b.on_worker = on_worker;
 }
 
+// n jobs, job i being run(ctx, i, on_worker): the bands of an arith
+// batch, or whatever `pool_for` is handed.
 struct Batch {
-  ArithBand* bands;
-  const int* order;              // band indices, largest first
+  void (*run)(void* ctx, int i, int on_worker);
+  void* ctx;
   int n;
-  std::atomic<int> next{0};      // the next entry of order to hand out
-  int done = 0;                  // bands coded; under Pool::mu_
+  std::atomic<int> next{0};      // the next job to hand out
+  int done = 0;                  // jobs run; under Pool::mu_
   int users = 0;                 // workers inside the batch; under mu_
   std::condition_variable finished;
 };
 
-// Codes bands of b until none is left to hand out; returns how many.
+// Runs jobs of b until none is left to hand out; returns how many.
 int drain(Batch& b, int on_worker) {
   int ran = 0;
   for (int i; (i = b.next.fetch_add(1)) < b.n; ran++)
-    code_band(b.bands[b.order[i]], on_worker);
+    b.run(b.ctx, i, on_worker);
   return ran;
+}
+
+struct ArithJobs {
+  ArithBand* bands;
+  const int* order;              // band indices, largest first
+};
+
+void run_band(void* ctx, int i, int on_worker) {
+  ArithJobs* a = static_cast<ArithJobs*>(ctx);
+  code_band(a->bands[a->order[i]], on_worker);
 }
 
 class Pool {
@@ -189,12 +202,36 @@ void subband_encode_arith_batch(ArithBand* bands, int n, int pooled) {
   std::stable_sort(order.begin(), order.end(), [&](int a, int b) {
     return (int64_t)bands[a].h * bands[a].w > (int64_t)bands[b].h * bands[b].w;
   });
+  ArithJobs jobs{bands, order.data()};
   Batch batch;
-  batch.bands = bands;
-  batch.order = order.data();
+  batch.run = run_band;
+  batch.ctx = &jobs;
   batch.n = n;
   Pool& pool = Pool::get();
   pool.run(batch, std::min(threads - 1, pool.workers()));
+}
+
+// Runs fn(ctx, i) for every i in [0, n), on the calling thread and at most
+// `helpers` pool workers, handed out in order; returns when all have run.
+// With helpers < 1, or in a forked child, the calling thread runs them all.
+void pool_for(int n, int helpers, void (*fn)(void* ctx, int i), void* ctx) {
+  if (helpers < 1 || n < 2 || !Pool::get().owned_by_this_process()) {
+    for (int i = 0; i < n; i++) fn(ctx, i);
+    return;
+  }
+  struct Job {
+    void (*fn)(void*, int);
+    void* ctx;
+  } job{fn, ctx};
+  Batch batch;
+  batch.run = [](void* c, int i, int) {
+    Job* j = static_cast<Job*>(c);
+    j->fn(j->ctx, i);
+  };
+  batch.ctx = &job;
+  batch.n = n;
+  Pool& pool = Pool::get();
+  pool.run(batch, std::min({helpers, n - 1, pool.workers()}));
 }
 
 }  // extern "C"

@@ -5,7 +5,8 @@ Port of `schroedinger_tpu/decoder/intra.py`: per-subband lengths/quant
 indices and codeblock decode on the host (native C++), DC prediction of
 band 0 on the host, the inverse wavelet and the output conversion on the
 caller's device.  Deep (>8-bit) pictures run the s32 path and come out
-as uint16 planes; like the JAX version they clip where the reference
+as uint16 planes with ST 2042-1's offset, 2^(bit depth - 1), added back,
+which the JAX version leaves out; like it they clip where the reference
 wraps (see `decoder.lowdelay._to_u16`).
 """
 from __future__ import annotations

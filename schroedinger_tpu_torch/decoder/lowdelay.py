@@ -41,12 +41,12 @@ def _to_u8(plane_s16, h: int, w: int):
 
 
 def _to_u16(plane_s32, h: int, w: int, bit_depth: int):
-    """Deep (10/16-bit) output conversion (schrolowdelay.c s32 paths), the
-    `_to_u16` and `_to_deep` of the JAX decoders: values are offset-binary
-    already — the deep path never recentres (plain orc_convert_*
-    widen/narrow).  The reference plain-narrows S32 -> S16 (wrap); this
-    clips to the legal range instead, as the JAX decoders do."""
-    x = plane_s32[:h, :w].to(torch.int32)
+    """Deep (10/16-bit) output conversion: 2^(bit_depth - 1) added back
+    to every sample, as ST 2042-1's decoder adds it, then clipped to the
+    legal range, as `_to_u8` adds 128.  The JAX decoders' `_to_u16` and
+    `_to_deep` add nothing (the reference's plain orc_convert_* widen);
+    the reference plain-narrows S32 -> S16 (wrap), where this clips."""
+    x = plane_s32[:h, :w].to(torch.int32) + (1 << (bit_depth - 1))
     return x.clamp(0, (1 << bit_depth) - 1).to(torch.uint16)
 
 

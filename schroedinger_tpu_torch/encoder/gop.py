@@ -55,7 +55,7 @@ from schroedinger_tpu_torch.decoder.core import RefFrame
 from schroedinger_tpu_torch.devices import resolve_device
 from schroedinger_tpu_torch.encoder import inter as ei_inter
 from schroedinger_tpu_torch.encoder import intra as ei_intra
-from schroedinger_tpu_torch.encoder.lowdelay import _forward, _prep_plane
+from schroedinger_tpu_torch.encoder.lowdelay import _forward
 from schroedinger_tpu_torch.encoder.ratecontrol import (ArithCorrection,
                                                         CbrController,
                                                         CbrControllerTM5,
@@ -70,7 +70,7 @@ from schroedinger_tpu_torch.frontends import split_fields
 from schroedinger_tpu_torch.ops.filters import apply_prefilter
 from schroedinger_tpu_torch.ops.metrics import ssim_frame
 from schroedinger_tpu_torch.params import Params, subband_count
-from schroedinger_tpu_torch.pipeline import to_host, upload_picture
+from schroedinger_tpu_torch.pipeline import _prep, to_host, upload_picture
 from schroedinger_tpu_torch.utils.telemetry import FrameStats
 from schroedinger_tpu_torch.video_format import VideoFormat
 from schroedinger_tpu_torch.wavelets import MAX_DEPTH_S16, Wavelet
@@ -983,7 +983,7 @@ class GopEncoder:
                 ((p.iwt_luma_height, p.iwt_luma_width),
                  (p.iwt_chroma_height, p.iwt_chroma_width),
                  (p.iwt_chroma_height, p.iwt_chroma_width))):
-            pyr = _forward(_prep_plane(plane, oh, ow), p.transform_depth,
+            pyr = _forward(_prep(plane, oh, ow, 8), p.transform_depth,
                            p.wavelet_filter_index)
             band_lists.append(sl.subband_arrays(pyr, p.transform_depth))
         with record_function("stat_tables"):

@@ -29,21 +29,10 @@ from schroedinger_tpu_torch.params import (Params, subband_count,
                                            subband_position)
 from schroedinger_tpu_torch.coding import slices as sl
 from schroedinger_tpu_torch.decoder.lowdelay import _inverse, _to_u8, _to_u16
-from schroedinger_tpu_torch.encoder.lowdelay import _forward, _prep_plane
+from schroedinger_tpu_torch.encoder.lowdelay import _forward
 from schroedinger_tpu_torch.encoder.ratecontrol import band_tables, rd_pick
 from schroedinger_tpu_torch.ops import quant as q
-from schroedinger_tpu_torch.ops.pad import pad_edge
-from schroedinger_tpu_torch.pipeline import to_host, upload_picture
-
-
-def _prep_plane_deep(plane, out_h: int, out_w: int):
-    """Deep (10/16-bit) input prep: the reference widens S16 input to its
-    S32 internal frames with a PLAIN convert — no recentring; only the
-    8-bit path subtracts 128 (orc_convert_s32_s16 schroorc.orc:479-487 vs
-    orc_offsetconvert_s16_u8 :524-530)."""
-    x = plane.to(torch.int32)
-    h, w = x.shape
-    return pad_edge(x, 0, out_h - h, 0, out_w - w)
+from schroedinger_tpu_torch.pipeline import _prep, to_host, upload_picture
 
 
 def _codeblock_counts(p: Params, index: int):
@@ -133,9 +122,8 @@ def encode_picture(planes_u8, p: Params, frame_number: int,
     recon_planes = []
     for comp, (plane, (oh, ow)) in enumerate(zip(
             upload_picture(planes_u8, bit_depth, device), iwt_dims)):
-        prepped = (_prep_plane_deep(plane, oh, ow) if bit_depth > 8
-                   else _prep_plane(plane, oh, ow))
-        pyr = _forward(prepped, depth, p.wavelet_filter_index)
+        pyr = _forward(_prep(plane, oh, ow, bit_depth), depth,
+                       p.wavelet_filter_index)
         with record_function("i_transfer"):
             bands = [to_host(b).astype(np.int64)
                      for b in sl.subband_arrays(pyr, depth)]
@@ -249,7 +237,7 @@ def _get_i_step(p: Params, error_power: float):
     def step1(planes, lam_bands, target_bits, corr_bands):
         flats = []
         for plane, (oh, ow) in zip(planes, iwt_dims):
-            pyr = _forward(_prep_plane(plane, oh, ow), depth, wavelet)
+            pyr = _forward(_prep(plane, oh, ow, 8), depth, wavelet)
             flats.append(sl.flatten_pyramid(pyr, depth)[0])
         # estimate flat: band 0 as horizontal first differences (the
         # DC-predict histogram analog, schrohistogram.c:360)

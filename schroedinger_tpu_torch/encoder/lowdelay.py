@@ -1,5 +1,6 @@
-"""VC-2 low-delay picture encoder, and the plane preparation and forward
-transform that the intra and inter coders share.
+"""VC-2 low-delay picture encoder, and the forward transform that the
+intra and inter coders share (their plane preparation is
+`pipeline._prep`).
 
 Port of `schroedinger_tpu/encoder/lowdelay.py`.  The device runs the
 wavelet transform, the slice reorder and the estimation at all 61 base
@@ -26,25 +27,18 @@ import numpy as np
 import torch
 from torch.profiler import record_function
 
-from schroedinger_tpu_torch.bitstream import (BitWriter, parse_code_picture,
-                                              write_parse_info,
+from schroedinger_tpu_torch.bitstream import (LD_INTRA_NON_REF, LD_INTRA_REF,
+                                              BitWriter, write_parse_info,
                                               write_picture_header,
                                               write_transform_parameters)
 from schroedinger_tpu_torch.coding import native as _native
 from schroedinger_tpu_torch.coding import slices as sl
 from schroedinger_tpu_torch.devices import resolve_device
 from schroedinger_tpu_torch.ops import wavelet as wv
-from schroedinger_tpu_torch.ops.pad import pad_edge
 from schroedinger_tpu_torch.params import Params, subband_count
-from schroedinger_tpu_torch.pipeline import (make_lowdelay_analyze,
-                                             planes_to_device)
-
-def _prep_plane(plane_u8, out_h: int, out_w: int):
-    """u8 -> s16 - 128, edge-extended to (out_h, out_w)."""
-    x = plane_u8.to(torch.int16) - 128
-    h, w = x.shape
-    return pad_edge(x, 0, out_h - h, 0, out_w - w)
-
+from schroedinger_tpu_torch.pipeline import (make_lowdelay_analyze, to_host,
+                                             upload_picture)
+from schroedinger_tpu_torch.utils.telemetry import counters
 
 def _forward(plane, depth, wavelet):
     return wv.forward(plane, depth, wavelet)
@@ -119,7 +113,9 @@ def _slice_bytes_array(p: Params):
 
 def _picture_headers(p: Params, frame_number: int, is_ref: bool) -> bytes:
     w = BitWriter()
-    write_parse_info(w, parse_code_picture(is_ref, 0, True, False))
+    # ST 2042-1's low-delay picture, 0xC8 (0xCC kept for reference): the
+    # low-delay bit with the no-arith bit; the JAX package writes 0x88
+    write_parse_info(w, LD_INTRA_REF if is_ref else LD_INTRA_NON_REF)
     write_picture_header(w, frame_number,
                          retired_delta=0 if is_ref else None)
     w.sync()
@@ -169,7 +165,8 @@ def _ld_geometry(p: Params):
 def encode_picture_from_analysis(host_data, p: Params, frame_number: int,
                                  is_ref: bool) -> bytes:
     """Host half of a picture: the device computed the per-base bit
-    aggregates, so the search only runs DC chains + lookups."""
+    aggregates, so the search only runs DC chains + lookups.  Counts the
+    picture in `ld_pictures` and its slices in `ld_slices`."""
     (y_sl, u_sl, v_sl, yb, yl, ub, ul, vb, vl) = host_data
     y_ll, u_ll, v_ll = _ll_bands(y_sl, u_sl, v_sl, p)
     y_qmo, uv_qmo, sbytes = _host_arrays(p)
@@ -178,15 +175,18 @@ def encode_picture_from_analysis(host_data, p: Params, frame_number: int,
             y_sl, u_sl, v_sl, y_qmo, uv_qmo, *_ld_geometry(p),
             y_ll, u_ll, v_ll, int(p.quant_matrix[0]), sbytes,
             yb, yl, ub, ul, vb, vl, deep=p.video_format.bit_depth > 8)
+    counters.add("ld_pictures")
+    counters.add("ld_slices", p.n_vert_slices * p.n_horiz_slices)
     return _picture_headers(p, frame_number, is_ref) + payload
 
 
 def fetch(tensors):
     """Device tensors -> host numpy arrays (slice arrays widened to
-    int32), in one device-to-host copy."""
+    int32), in one device-to-host copy (`pipeline.to_host`: counted in
+    `fetch_bytes`)."""
     parts = [t.contiguous() for t in tensors]
-    wire = torch.cat([t.view(torch.uint8).reshape(-1) for t in parts])
-    wire = wire.cpu().numpy()
+    wire = to_host(torch.cat([t.view(torch.uint8).reshape(-1)
+                              for t in parts]))
     out = []
     off = 0
     for t in parts:
@@ -198,11 +198,18 @@ def fetch(tensors):
     return out
 
 
-def fetch_analysis(dev_out):
+def fetch_analysis(dev_out, stream=None, ready=None):
     """Outputs of make_lowdelay_analyze -> host arrays (int32): (ys, us,
-    vs, y_bits, y_lastnz, u_bits, u_lastnz, v_bits, v_lastnz)."""
+    vs, y_bits, y_lastnz, u_bits, u_lastnz, v_bits, v_lastnz).  With a
+    CUDA `stream`, the copy runs there once the event `ready` (recorded
+    after the analysis) has passed, beside the card's later work."""
     ys, us, vs, y_agg, u_agg, v_agg = dev_out
-    return tuple(fetch([ys, us, vs, *y_agg, *u_agg, *v_agg]))
+    tensors = [ys, us, vs, *y_agg, *u_agg, *v_agg]
+    if stream is None:
+        return tuple(fetch(tensors))
+    with torch.cuda.stream(stream):
+        stream.wait_event(ready)
+        return tuple(fetch(tensors))
 
 
 def encode_picture(planes, params: Params, frame_number: int,
@@ -212,7 +219,7 @@ def encode_picture(planes, params: Params, frame_number: int,
     picture sizes; the analysis runs on `device` (None: the card)."""
     p = params
     dev = resolve_device(device)
-    dev_out = _get_analyze_fn(p)(*planes_to_device(
+    dev_out = _get_analyze_fn(p)(*upload_picture(
         planes, p.video_format.bit_depth, dev))
     return encode_picture_from_analysis(fetch_analysis(dev_out), p,
                                         frame_number, is_ref)

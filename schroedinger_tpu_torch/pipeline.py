@@ -1,13 +1,17 @@
 """Device programs of the VC-2 low-delay encoder.
 
 Port of `schroedinger_tpu/pipeline.py`.  `make_lowdelay_analyze(p)` builds
-the per-frame device work of a low-delay encode: plane preparation (8
-bits: u8 - 128 as int16; deep: a plain widen to int32, no recentring),
+the per-frame device work of a low-delay encode: plane preparation (the
+standard's offset 2^(bit depth - 1) taken off: u8 - 128 as int16 at 8
+bits, int32 when deep),
 edge extension, the multi-level forward wavelet, the slice reorder, the
 dead-zone quantisation at all 61 base indices and, per slice and base,
 the sint-VLC bit sum and the last nonzero position of the non-DC
 coefficients.  The host then runs only the per-slice quant-index search,
-the DC chains and the packing (native C++) on those aggregates.
+the DC chains and the packing (native C++) on those aggregates.  On the
+card the analysis is replayed from a CUDA graph (`_Graphed`): its eager
+launches, about 750 a 1080p 4:2:2 picture, would otherwise cost more host
+time than the card takes to run them.
 
 The JAX version maps the 61 bases one at a time; eager torch would then
 pay about 1,500 launches per frame, so the bases go through in chunks
@@ -15,6 +19,8 @@ under an element budget (`PASS_ELEMS`).  The sums and maxima are
 integers, so any chunking is bit-exact.
 """
 from __future__ import annotations
+
+import threading
 
 import numpy as np
 import torch
@@ -68,7 +74,7 @@ def planes_to_device(planes, bit_depth: int, device):
 
 
 def upload_picture(planes, bit_depth: int, device):
-    """The long-GOP encoder's copy of a source picture to `device`
+    """An encoder's copy of a source picture to `device`
     (`planes_to_device`), in the span `picture_upload`; the bytes copied
     count in `upload_bytes`."""
     with record_function("picture_upload"):
@@ -84,19 +90,23 @@ def upload_picture(planes, bit_depth: int, device):
 
 
 def to_host(t) -> np.ndarray:
-    """The long-GOP encoder's fetch of a tensor to a host array; the
-    bytes count in `fetch_bytes`."""
+    """An encoder's fetch of a tensor to a host array; the bytes count
+    in `fetch_bytes`."""
     out = t.cpu().numpy()
     counters.add("fetch_bytes", out.nbytes)
     return out
 
 
 def _prep(plane, oh: int, ow: int, bit_depth: int):
-    """Deep (10/16-bit) sources use the s32 path (schrolowdelay.c:110-763)
-    with a PLAIN widen: only the 8-bit path recentres by 128
-    (orc_convert_s32_s16 vs orc_offsetconvert_s16_u8)."""
+    """A source plane centred as ST 2042-1 takes it, 2^(bit depth - 1)
+    off every sample (int16 at 8 bits, int32 when deep: the s32 path,
+    schrolowdelay.c:110-763), and edge-extended to (oh, ow); the low-delay
+    and the intra encoders' one preparation.  The JAX package widens deep
+    samples without the offset, as the reference encoder does
+    (orc_convert_s32_s16), which the standard's decoder reads 2^(bit
+    depth - 1) too high."""
     if bit_depth > 8:
-        x = plane.to(torch.int32)
+        x = plane.to(torch.int32) - (1 << (bit_depth - 1))
     else:
         x = plane.to(torch.int16) - 128
     h, w = x.shape
@@ -119,10 +129,28 @@ def _slice_plane(plane, oh, ow, p: Params):
                         p.n_vert_slices, p.n_horiz_slices)
 
 
-def aggregates(sliced, qmo, dcs: int):
+def _passes(n_elems: int):
+    """(chunks, bases a chunk) of the 61-base loop over n_elems non-DC
+    coefficients."""
+    chunk = max(1, min(61, PASS_ELEMS // max(1, n_elems)))
+    return -(-61 // chunk), chunk
+
+
+def _tables(qmo_nd, dev):
+    """The aggregates' device constants: the non-DC positions' quant
+    matrix offsets, the quant factors and the offsets."""
+    return (torch.as_tensor(np.asarray(qmo_nd, np.int64), device=dev),
+            torch.as_tensor(tables.QUANT_FACTOR, dtype=torch.int32,
+                            device=dev),
+            torch.as_tensor(tables.QUANT_OFFSET_1_2, dtype=torch.int32,
+                            device=dev))
+
+
+def aggregates(sliced, qmo, dcs: int, consts=None):
     """Per base (61): the sint bit sum and the last nonzero position of
     the non-DC segment of every slice -> (bits, lastnz), each (61, ny, nx)
     int32; lastnz is -1 where a slice has no nonzero coefficient.
+    `consts`: `_tables(qmo[dcs:], device)`, made here where None.
 
     The quantiser is the JAX one (int32 `|v| << 2` wrapping) with the
     sign dropped: the bits and the nonzero test need only the magnitude.
@@ -134,13 +162,9 @@ def aggregates(sliced, qmo, dcs: int):
     nd = sliced[..., dcs:].reshape(ny * nx, -1)
     n_pos = nd.shape[-1]
     x = wrap32(nd.to(torch.int64).abs() << 2).clamp(min=0)
-    qmo_nd = torch.as_tensor(np.asarray(qmo[dcs:], np.int64), device=dev)
-    qf_t = torch.as_tensor(tables.QUANT_FACTOR, dtype=torch.int32,
-                           device=dev)
-    qo_t = torch.as_tensor(tables.QUANT_OFFSET_1_2, dtype=torch.int32,
-                           device=dev)
+    qmo_nd, qf_t, qo_t = consts or _tables(qmo[dcs:], dev)
     pos = torch.arange(n_pos, dtype=torch.int32, device=dev)
-    chunk = max(1, min(61, PASS_ELEMS // max(1, x.numel())))
+    chunk = _passes(x.numel())[1]
     bits, last = [], []
     for b0 in range(0, 61, chunk):
         base = torch.arange(b0, min(61, b0 + chunk), device=dev)
@@ -156,22 +180,91 @@ def aggregates(sliced, qmo, dcs: int):
             torch.cat(last).reshape(61, ny, nx))
 
 
+def _clone(out):
+    return (tuple(_clone(t) for t in out) if isinstance(out, tuple)
+            else out.clone())
+
+
+class _Graphed:
+    """fn(*planes) on CUDA tensors, replayed from one CUDA graph.
+
+    The first call (and a call with other shapes) runs fn once on a side
+    stream to warm it up, then captures it on the graph's own inputs.
+    Each call copies the planes into those inputs, replays the graph and
+    returns clones of its outputs, so a caller may hold one picture's
+    outputs while the next is analysed.  Callers on several threads take
+    turns under a lock, and a call's stream waits for the previous call's
+    clones before the inputs are overwritten."""
+
+    def __init__(self, fn):
+        self.fn = fn
+        self.lock = threading.Lock()
+        self.key = None
+
+    def _capture(self, planes):
+        self.inputs = [t.clone() for t in planes]
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            self.fn(*self.inputs)
+        torch.cuda.current_stream().wait_stream(side)
+        self.graph = torch.cuda.CUDAGraph()
+        # another thread's copies may run during the capture
+        with torch.cuda.graph(self.graph, capture_error_mode="thread_local"):
+            self.outputs = self.fn(*self.inputs)
+        self.done = None
+        self.key = [(t.shape, t.dtype, t.device) for t in planes]
+
+    def __call__(self, *planes):
+        with self.lock:
+            if self.key != [(t.shape, t.dtype, t.device) for t in planes]:
+                self._capture(planes)
+            stream = torch.cuda.current_stream()
+            if self.done is not None:
+                stream.wait_event(self.done)
+            for dst, src in zip(self.inputs, planes):
+                dst.copy_(src)
+            self.graph.replay()
+            out = _clone(self.outputs)
+            self.done = torch.cuda.Event()
+            self.done.record(stream)
+        return out
+
+
 def make_lowdelay_analyze(p: Params):
     """fn(y, u, v) -> (y_slices, u_slices, v_slices, (y_bits, y_lastnz),
     (u_bits, u_lastnz), (v_bits, v_lastnz)) on the planes' device; planes
-    as `planes_to_device` makes them."""
+    as `planes_to_device` makes them.  Replayed from a CUDA graph on the
+    card.  Each call counts its chunks of the 61-base loop in
+    `ld_analysis_passes`."""
     nb = subband_count(p.transform_depth)
     qm = np.asarray(p.quant_matrix[:nb], dtype=np.int32)
     dims = _iwt_dims(p)
+    depth = p.transform_depth
+    passes = sum(_passes(h * w - (h >> depth) * (w >> depth))[0]
+                 for h, w in dims)
+    consts = {}     # (device, luma or chroma) -> `_tables`, made once
 
-    def analyze(y, u, v):
+    def run(y, u, v):
         (ys, ybi), (us, ubi), (vs, _) = (
             _slice_plane(pl, oh, ow, p) for pl, (oh, ow) in zip((y, u, v),
                                                                dims))
         dcs_y = int(np.sum(ybi == 0))
         dcs_uv = int(np.sum(ubi == 0))
-        return (ys, us, vs, aggregates(ys, qm[ybi], dcs_y),
-                aggregates(us, qm[ubi], dcs_uv),
-                aggregates(vs, qm[ubi], dcs_uv))
+        for key, bi, dcs in (((ys.device, 0), ybi, dcs_y),
+                             ((us.device, 1), ubi, dcs_uv)):
+            if key not in consts:
+                consts[key] = _tables(qm[bi][dcs:], key[0])
+        cy, cuv = consts[(ys.device, 0)], consts[(us.device, 1)]
+        return (ys, us, vs, aggregates(ys, qm[ybi], dcs_y, cy),
+                aggregates(us, qm[ubi], dcs_uv, cuv),
+                aggregates(vs, qm[ubi], dcs_uv, cuv))
+
+    graphed = _Graphed(run)
+
+    def analyze(y, u, v):
+        out = graphed(y, u, v) if y.is_cuda else run(y, u, v)
+        counters.add("ld_analysis_passes", passes)
+        return out
 
     return analyze

@@ -301,8 +301,8 @@ def main() -> int:
         # the fetch and the packing run on the encoder's worker thread,
         # whose spans the profiler does not record
         print(f"encode: worker thread: fetch "
-              f"{enc.ld_seconds['fetch'] * 1e3:.1f} ms, native packing "
-              f"{enc.ld_seconds['pack'] * 1e3:.1f} ms", flush=True)
+              f"{counted.get('ld_fetch_ns', 0) / 1e6:.1f} ms, native packing "
+              f"{counted.get('ld_pack_ns', 0) / 1e6:.1f} ms", flush=True)
     else:
         fitted = [f for f in getattr(enc, "_gop", enc).stats.frames
                   if (f.get("target_bits") or 0) > 0]

@@ -125,10 +125,14 @@ class Counters:
             return dict(self._counts)
 
 
-# upload_bytes: the long-GOP encoder's source pictures copied to the card
-# (`pipeline.upload_picture`); fetch_bytes: what its coding fetches back
+# upload_bytes: the encoders' source pictures copied to the card
+# (`pipeline.upload_picture`); fetch_bytes: what their coding fetches back
 # (`pipeline.to_host`: the coded wire, the stat tables, the MD5 and PSNR
-# pictures); the prefilter's round trip is not counted.  Read by
+# pictures, the low-delay slices and tables); the prefilter's round trip
+# is not counted.  The low-delay encoder's ld_pictures, ld_slices and
+# ld_analysis_passes (pictures packed, their slices, the chunks of the
+# 61-base loop) and ld_fetch_ns and ld_pack_ns (its worker's fetch and
+# packing time, in nanoseconds) are read by the benchmark's readers.  Read by
 # `profile_slice`, which prints both and me_search_launches per frame;
 # me_search_launches and me_probe_launches (`ops/patch_refine`) also by
 # chip_smoke's and bench.py's launch gates.  stat_table_launches: the

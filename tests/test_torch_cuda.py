@@ -7,7 +7,9 @@ refine at the main paths' grids, every precision and mode, the clamps
 and ties, its refusals and counters) against its plain version, the stat
 tables kernel against the plain sums (the main path's
 shapes, every error power, its determinism, its counter and its
-refusals), small streams of the slices encoded on the card against the CPU
+refusals), the low-delay analysis replayed from its CUDA graph against
+its eager run (and a low-delay stream against the CPU encode), small
+streams of the slices encoded on the card against the CPU
 encode (every long-GOP rate control among them), the multiquant sums'
 float32 order on the card against the CPU, the pipelined decoder against
 the per-picture one, interlaced streams and the telemetry overlay on the
@@ -784,3 +786,37 @@ def test_gop_sharding_on_card(cuda_device):
     assert (gops.encode_gops_sharded(frames, bench, n_shards=2, exact=False)
             == gops.encode_gops_sharded(frames, bench, n_shards=2,
                                         sequential=True, exact=False))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("chroma,bit_depth", [("C422", 10), ("C420", 8)])
+def test_lowdelay_graph_replay_equals_eager(cuda_device, chroma, bit_depth):
+    """The analysis replayed from its CUDA graph, two pictures in turn
+    with the first's outputs held across the second's replay, equals the
+    eager analysis of each on the CPU; a three-picture stream coded on
+    the card equals the CPU's."""
+    from schroedinger_tpu_torch import pipeline
+    from schroedinger_tpu_torch.config import EncoderConfig
+    from schroedinger_tpu_torch.video_format import ChromaFormat
+    W, H = 640, 384
+    vf = video_format(W, H, getattr(ChromaFormat, chroma), bit_depth)
+    cfg = EncoderConfig(rate_control="low_delay", transform_depth=4,
+                        intra_wavelet=1)
+    frames = make_frames(3, W, H, chroma_format=vf.chroma_format,
+                         bit_depth=bit_depth)
+    p = api.Encoder(vf, cfg, device=cuda_device).params
+    analyze = pipeline.make_lowdelay_analyze(p)
+
+    def flat(out):
+        return [t for x in out
+                for t in (x if isinstance(x, tuple) else (x,))]
+
+    graphed = [analyze(*pipeline.planes_to_device(f, bit_depth,
+                                                  cuda_device))
+               for f in frames[:2]]
+    for got, f in zip(graphed, frames[:2]):
+        want = analyze(*pipeline.planes_to_device(f, bit_depth, "cpu"))
+        for g, w in zip(flat(got), flat(want)):
+            assert torch.equal(g.cpu(), w)
+    on_card = api.Encoder(vf, cfg, device=cuda_device).encode_stream(frames)
+    assert on_card == api.Encoder(vf, cfg, device="cpu").encode_stream(frames)

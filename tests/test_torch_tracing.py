@@ -10,22 +10,27 @@ picture's planes, and the program's spans cover the encode.
 `profile_slice`'s split of the device's idle time by span is checked on
 a hand-made timeline.  The native arith coder's batch: where its
 counters say each band was coded, and callers on many threads at once.
+A 3-picture 10-bit 4:2:2 VC-2 low-delay clip: its spans once a picture,
+and the counts of its pictures, slices, analysis passes and copies.
 """
 import sys
 import threading
+import time
 from types import SimpleNamespace
 
 import pytest
+from torch._C._profiler import _ExperimentalConfig
 from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile, record_function
 
-from schroedinger_tpu_torch import api, profile_slice
+from schroedinger_tpu_torch import api, pipeline, profile_slice
 from schroedinger_tpu_torch import bitstream as bs
 from schroedinger_tpu_torch.coding import native
 from schroedinger_tpu_torch.config import EncoderConfig
 from schroedinger_tpu_torch.slice_config import make_frames, video_format
 from schroedinger_tpu_torch.tools.profile_arith_pool import make_bands
 from schroedinger_tpu_torch.utils.telemetry import Counters, counters
+from schroedinger_tpu_torch.video_format import ChromaFormat
 
 W, H, N = 128, 64, 11
 # the benchmark cell's settings at an area-scaled rate, with an access
@@ -154,6 +159,82 @@ def test_program_spans_cover_the_encode(clip):
              for name, occ in spans.items() if name != "test.encode_stream"
              for s, e in occ if e > outer[0] and s < outer[1]]
     assert _union_ns(inner) >= 0.95 * (outer[1] - outer[0])
+
+
+LD_SPANS = ("ld_analysis", "ld_fetch", "ld_pack", "ld_wait",
+            "picture_upload")
+
+
+@pytest.fixture(scope="module")
+def lowdelay_clip():
+    """Three 10-bit 4:2:2 pictures through api.Encoder's low-delay
+    encode_stream under the profiler, every thread profiled (the fetch
+    and the packing run on a worker thread): the host spans {name:
+    count}, the encoder's parameters and the counters' change."""
+    frames = make_frames(3, W, H, chroma_format=ChromaFormat.C422,
+                         bit_depth=10)
+    enc = api.Encoder(video_format(W, H, ChromaFormat.C422, 10),
+                      EncoderConfig(rate_control="low_delay",
+                                    transform_depth=4, intra_wavelet=1),
+                      device="cpu")
+    before = counters.snapshot()
+    with profile(activities=[ProfilerActivity.CPU],
+                 experimental_config=_ExperimentalConfig(
+                     profile_all_threads=True)) as prof:
+        t0 = time.perf_counter_ns()
+        enc.encode_stream(frames)
+        wall_ns = time.perf_counter_ns() - t0
+    after = counters.snapshot()
+    spans = {}
+    for e in prof.profiler.kineto_results.events():
+        if e.is_user_annotation():
+            spans[e.name()] = spans.get(e.name(), 0) + 1
+    return {"spans": spans, "params": enc.params, "frames": frames,
+            "counted": {k: after[k] - before.get(k, 0) for k in after},
+            "wall_ns": wall_ns}
+
+
+def test_lowdelay_spans_once_a_picture(lowdelay_clip):
+    spans = lowdelay_clip["spans"]
+    assert {n: spans.get(n, 0) for n in LD_SPANS} == dict.fromkeys(LD_SPANS,
+                                                                   3)
+
+
+def test_lowdelay_counts_pictures_slices_passes_and_copies(lowdelay_clip):
+    p, counted = lowdelay_clip["params"], lowdelay_clip["counted"]
+    slices = p.n_vert_slices * p.n_horiz_slices
+    assert counted["ld_pictures"] == 3
+    assert counted["ld_slices"] == 3 * slices
+    # one pass of the 61 bases a plane at 128x64 (PASS_ELEMS), each
+    # plane's non-DC positions under the budget
+    passes = 0
+    for ih, iw in ((p.iwt_luma_height, p.iwt_luma_width),
+                   (p.iwt_chroma_height, p.iwt_chroma_width),
+                   (p.iwt_chroma_height, p.iwt_chroma_width)):
+        non_dc = ih * iw - (ih >> 4) * (iw >> 4)
+        chunk = max(1, min(61, pipeline.PASS_ELEMS // non_dc))
+        passes += -(-61 // chunk)
+    assert passes == 3
+    assert counted["ld_analysis_passes"] == 3 * passes
+    # the 10-bit source up as 16-bit samples; down, the int32 slices and
+    # each plane's 61-base bit and last-nonzero tables, in one copy
+    source = sum(pl.size * 2 for pl in lowdelay_clip["frames"][0])
+    coeffs = p.iwt_luma_height * p.iwt_luma_width \
+        + 2 * p.iwt_chroma_height * p.iwt_chroma_width
+    assert counted["upload_bytes"] == 3 * source
+    assert counted["fetch_bytes"] == 3 * (4 * coeffs + 3 * 2 * 61 * slices
+                                          * 4)
+
+
+def test_lowdelay_counts_the_workers_time(lowdelay_clip):
+    """The worker thread's fetch and packing time, which a profiler of
+    the main thread alone cannot see, sums in `ld_fetch_ns` and
+    `ld_pack_ns`: each positive, together within the encode's time (the
+    worker runs one picture at a time)."""
+    counted = lowdelay_clip["counted"]
+    fetch, pack = counted["ld_fetch_ns"], counted["ld_pack_ns"]
+    assert fetch > 0 and pack > 0
+    assert fetch + pack < lowdelay_clip["wall_ns"]
 
 
 class _Event:
